@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the time of one ``--backend pallas`` inference goes on a CUDA card.
+
+    python3 profile_port.py [--out table.txt]
+
+Builds the port's kernels, writes the end-to-end model of
+``chip_smoke.py`` (``generate_two_populations``, seed 0, its ``SIZE``, at
+its ``OFFLOAD_FLOPS``) to a temporary file and runs it through ``python
+-m genfer_tpu_torch --backend pallas`` in-process: ``WARM`` times
+untraced (their wall times are printed), then once under
+``torch.profiler`` with CPU and CUDA activities.  The host f64 ``--backend
+numpy`` run of the same CLI is timed twice beside it.  Printed: the card's
+name and power limit, the untraced walls, the traced wall, the device's
+busy time and share of it, each device kernel and copy with its calls and
+mean microseconds, and the CUDA runtime calls of the host.  ``--out``
+receives the profiler's full ``key_averages`` table.  Nothing here
+imports jax.
+"""
+
+import argparse
+import contextlib
+import io
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+
+from chip_smoke import OFFLOAD_FLOPS, SIZE
+
+WARM = 5  # untraced runs before the traced one
+
+
+def _wall(main, argv) -> float:
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(argv)
+    return time.perf_counter() - t0
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="profile_port")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="file for the profiler's full table")
+    args = ap.parse_args(argv)
+    # the backend reads the threshold when its module is imported
+    os.environ["GENFER_PALLAS_OFFLOAD_FLOPS"] = OFFLOAD_FLOPS
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from genfer_tpu_torch import _build, cli
+    from genfer_tpu_torch.ops import conv2d
+    from genfer_tpu_torch.tools.generators import generate_two_populations
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_port: no CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0])
+    _build.load()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / f"two_populations_{SIZE}.sgcl"
+        generate_two_populations(path, SIZE, seed=0)
+        flags = [str(path), "--no-timing", "--backend"]
+        walls = [_wall(cli.main, flags + ["pallas"])
+                 for _ in range(WARM)]
+        host = [_wall(cli.main, flags + ["numpy"]) for _ in range(2)]
+        conv2d.launches = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = _wall(cli.main, flags + ["pallas"])
+            torch.cuda.synchronize()
+    print(f"two_populations({SIZE}) --backend pallas at "
+          f"GENFER_PALLAS_OFFLOAD_FLOPS={OFFLOAD_FLOPS}: untraced wall "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s (first run of the "
+          f"process first); host --backend numpy "
+          f"{', '.join(f'{w:.4f}' for w in host)} s")
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    print(f"traced wall {traced:.4f} s, kernel launches "
+          f"{conv2d.launches}; device busy {busy_us / 1e3:.4f} ms = "
+          f"{100 * busy_us / 1e6 / traced:.4f}% of the traced wall")
+    by_name: dict[str, list[float]] = defaultdict(list)
+    for e in dev:
+        by_name[e.name].append(e.time_range.elapsed_us())
+    for name, us in sorted(by_name.items(), key=lambda kv: -sum(kv[1])):
+        print(f"  device {name}: {len(us)} calls, "
+              f"{sum(us) / len(us):.3f} us each")
+    host_api: dict[str, list[float]] = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("cuda"):
+            host_api[e.name].append(e.time_range.elapsed_us())
+    for name, us in sorted(host_api.items(), key=lambda kv: -sum(kv[1])):
+        print(f"  host {name}: {len(us)} calls, {sum(us) / 1e3:.3f} ms")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(prof.key_averages().table(
+            sort_by="self_cpu_time_total", row_limit=-1))
+        print(f"full table -> {args.out}")
+
+
+if __name__ == "__main__":
+    main()
