@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-On first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface (no PyTorch headers, so
-the build takes seconds).  The library lands in ``build/kernels/`` at the
-root of the checkout (listed in ``.gitignore``) under a name that hashes
-the sources and flags, so an edited source is never served a stale build.
-Nothing here runs at import time; a failed build raises.
+On first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``,
+one ``nvcc`` process per source, all started together, and the objects
+are linked into one shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds).  The library lands in
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``)
+under a name that hashes the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edited source is never served a
+stale build.  Nothing here runs at import time; a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -55,34 +57,71 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgenfer_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every ``(cmd, Popen)``; raise with the output of those
+    that failed."""
+    failed = []
+    for cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"({proc.returncode}) {' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
 def _compile(out: Path) -> None:
     global build_seconds
-    out.parent.mkdir(parents=True, exist_ok=True)
+    objs = out.parent / f"objects.{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    try:
+        pairs = [(src, objs / f"{src.stem}.o") for src in _sources()]
+        _run([_start([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
+              for src, obj in pairs])
+        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      *(str(obj) for _, obj in pairs)])])
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
+        tmp.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.conv2d_trunc_f32.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
-    lib.conv2d_trunc_f32.restype = i32
-    lib.conv2d_trunc_f32_error_string.argtypes = [i32]
-    lib.conv2d_trunc_f32_error_string.restype = ctypes.c_char_p
+    ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    for name, args in (
+        ("conv2d_trunc_f32", [ptr] * 4 + [i32] * 8 + [ptr]),
+        ("conv2d_trunc_f32_tile", [ptr] * 3 + [i32] * 6 + [ptr]),
+        ("conv2d_trunc_f32_grouped", [ptr] * 3 + [i32] * 6 + [ptr]),
+        ("conv2d_trunc_f32_batched",
+         [ptr] * 4 + [size] * 2 + [i32] * 9 + [ptr]),
+        ("conv1d_trunc_f32", [ptr] * 3 + [i32] * 3 + [ptr]),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
+    lib.cuda_error_string.argtypes = [i32]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+
+
+def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if the launch function ``name`` returned a CUDA error."""
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
 def load() -> ctypes.CDLL:

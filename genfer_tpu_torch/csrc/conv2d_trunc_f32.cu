@@ -49,28 +49,15 @@
 //     adds the partials in range order, so the result does not depend on
 //     which block finishes first.
 // Blocks run the heaviest tiles (largest k) first.  3xTF32 tensor-core
-// splits, TMA staging and batching are later work.
+// splits and TMA staging are later work.  The tile code is in
+// conv2d_tile.cuh, shared with the tile (K4a), grouped (K4b) and batched
+// (K3) kernels.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "conv2d_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;       // output tile rows
-constexpr int BN = 64;       // output tile columns
-constexpr int TM = 4;        // rows per thread, strided by TY
-constexpr int TN = 4;        // contiguous columns per thread
-constexpr int G = 32;        // j0 rows per staged group
-constexpr int TY = BM / TM;  // 16 thread rows
-constexpr int TX = BN / TN;  // 16 thread columns
-constexpr int NT = TX * TY;  // 256 threads
-constexpr int WR = BM + G - 1;  // a-window rows
-
-// one spare word after every TN window words: thread column tx reads
-// word 5 tx + const, so a half-warp touches 16 distinct banks
-__host__ __device__ constexpr int padded(int w) { return w + w / TN; }
-
+// one block per (output tile, j0 range): heaviest tiles (largest k) first
 template <int CJ>
 __global__ void __launch_bounds__(NT)
 conv2d_trunc_f32_kernel(const float* __restrict__ a,
@@ -78,149 +65,11 @@ conv2d_trunc_f32_kernel(const float* __restrict__ a,
                         float* __restrict__ c,
                         int a0, int a1, int b0, int b1, int c0, int c1,
                         int split_rows) {
-  constexpr int W = BN + CJ - 1;  // a-window columns
-  constexpr int WP = padded(W - 1) + 1;
-  __shared__ float sA[WR][WP];
-  __shared__ __align__(16) float sB[G][CJ];
-
   const int K0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int K1 = (gridDim.x - 1 - blockIdx.x) * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-
-  // a[k0 - j0, .] is nonzero only for 0 <= k0 - j0 < a0, and k0 < K0 + BM,
-  // k0 < c0; this block takes the j0 range of split blockIdx.z
   const int z0 = blockIdx.z * split_rows;
-  const int j0_lo = max(max(0, K0 - a0 + 1), z0);
-  const int j0_hi = min(min(b0, min(K0 + BM, c0)), z0 + split_rows);
-  const int j1_lo = max(0, K1 - a1 + 1);
-  const int j1_hi = min(b1, K1 + BN);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int q = 0; q < TN; ++q) acc[i][q] = 0.f;
-
-  for (int jb = j1_lo; jb < j1_hi; jb += CJ) {
-    for (int g0 = j0_lo; g0 < j0_hi; g0 += G) {
-      __syncthreads();  // the previous pass has finished reading sA / sB
-      // j0 = g0 + t and tile row i read a row K0 + i - g0 - t, which is
-      // window row i - t + G - 1:
-      // sA[r][w] = a[K0 - g0 - (G - 1) + r][K1 - jb - (CJ - 1) + w]
-      const int row0 = K0 - g0 - (G - 1);
-      const int col0 = K1 - jb - (CJ - 1);
-      for (int e = tid; e < WR * W; e += NT) {
-        const int r = e / W;
-        const int w = e - r * W;
-        const int ar = row0 + r;
-        const int ac = col0 + w;
-        float v = 0.f;
-        if (ar >= 0 && ar < a0 && ac >= 0 && ac < a1)
-          v = a[static_cast<size_t>(ar) * a1 + ac];
-        sA[r][padded(w)] = v;
-      }
-      for (int e = tid; e < G * CJ; e += NT) {
-        const int t = e / CJ;
-        const int jj = e - t * CJ;
-        const int j0 = g0 + t;
-        const int j1 = jb + jj;
-        sB[t][jj] = (j0 < j0_hi && j1 < b1)
-                        ? b[static_cast<size_t>(j0) * b1 + j1]
-                        : 0.f;
-      }
-      __syncthreads();
-
-      const int nt = min(G, j0_hi - g0);
-      float grp[TM][TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) grp[i][q] = 0.f;
-
-      for (int t = 0; t < nt; ++t) {
-        float bv[CJ];
-        if constexpr (CJ % 4 == 0) {
-#pragma unroll
-          for (int jj = 0; jj < CJ; jj += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(&sB[t][jj]);
-            bv[jj] = v.x;
-            bv[jj + 1] = v.y;
-            bv[jj + 2] = v.z;
-            bv[jj + 3] = v.w;
-          }
-        } else {
-#pragma unroll
-          for (int jj = 0; jj < CJ; ++jj) bv[jj] = sB[t][jj];
-        }
-        // output column 4 tx + q at chunk offset jj reads window word
-        // 4 tx + q + CJ - 1 - jj
-        const int rb = ty - t + G - 1;
-        float win[TM][TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int q = 0; q < TN; ++q)
-            win[i][q] = sA[rb + i * TY][padded(tx * TN + q + CJ - 1)];
-
-        float part[TM][TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int q = 0; q < TN; ++q) part[i][q] = 0.f;
-
-#pragma unroll
-        for (int jj = 0; jj < CJ; ++jj) {
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int q = 0; q < TN; ++q)
-              part[i][q] = fmaf(win[i][q], bv[jj], part[i][q]);
-          if (jj + 1 < CJ) {
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-#pragma unroll
-              for (int q = TN - 1; q > 0; --q) win[i][q] = win[i][q - 1];
-              win[i][0] = sA[rb + i * TY][padded(tx * TN + CJ - 2 - jj)];
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int q = 0; q < TN; ++q) grp[i][q] += part[i][q];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int q = 0; q < TN; ++q) acc[i][q] += grp[i][q];
-    }
-  }
-
-  c += static_cast<size_t>(blockIdx.z) * c0 * c1;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int k0 = K0 + ty + i * TY;
-    if (k0 >= c0) continue;
-#pragma unroll
-    for (int q = 0; q < TN; ++q) {
-      const int k1 = K1 + tx * TN + q;
-      if (k1 < c1) c[static_cast<size_t>(k0) * c1 + k1] = acc[i][q];
-    }
-  }
-}
-
-// c[i] = sum over z of part[z][i], in z order
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ c, int splits,
-                                  size_t n) {
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += part[z * n + i];
-    c[i] = s;
-  }
+  product_tile<CJ, 1>(a, b, c + static_cast<size_t>(blockIdx.z) * c0 * c1,
+                      a0, a1, b0, b1, c0, c1, K0, K1, z0, z0 + split_rows);
 }
 
 }  // namespace
@@ -245,13 +94,9 @@ extern "C" int conv2d_trunc_f32(const float* a, const float* b, float* c,
         a, b, out, a0, a1, b0, b1, c0, c1, split_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t n = static_cast<size_t>(c0) * c1;
-  const size_t blocks = (n + 255) / 256;
-  sum_splits_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
-                      256, 0, st>>>(work, c, splits, n);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sum_splits(work, c, splits, 1, c0, c1, st));
 }
 
-extern "C" const char* conv2d_trunc_f32_error_string(int err) {
+extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

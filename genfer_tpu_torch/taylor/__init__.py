@@ -1,3 +1,23 @@
 from .backend import HybridBackend, PallasBackend
+from .host import (
+    ArrayF64Backend,
+    ArrayIntervalBackend,
+    Backend,
+    NumpyF64Backend,
+    NumpyIntervalBackend,
+    ObjectBackend,
+)
+from .tensorpoly import INF_DEGREE, TaylorPoly
 
-__all__ = ["HybridBackend", "PallasBackend"]
+__all__ = [
+    "ArrayF64Backend",
+    "ArrayIntervalBackend",
+    "Backend",
+    "HybridBackend",
+    "NumpyF64Backend",
+    "NumpyIntervalBackend",
+    "ObjectBackend",
+    "PallasBackend",
+    "TaylorPoly",
+    "INF_DEGREE",
+]

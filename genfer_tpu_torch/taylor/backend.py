@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from genfer_tpu.taylor.backend import (
+from .host import (
     NumpyF64Backend,
     _conv_pair_flops,
     _effective_axes,
@@ -195,13 +195,12 @@ class HybridBackend(NumpyF64Backend):
     volume crosses a threshold (twin of genfer_tpu's ``HybridBackend``,
     same thresholds and guards, read from the same environment).
 
-    It subclasses ``NumpyF64Backend`` directly (genfer_tpu's
-    ``HybridBackend.__init__`` imports jax), which keeps the f64 fast
-    paths of ``tensorpoly`` that test ``isinstance(b, JaxF64Backend)``.
-    ``gf/nativeeval.py`` enables the C++ eval tape by exact type, so this
-    class runs the Python engine; genfer_tpu's offload backends fall back
-    to it too whenever an evaluation reaches an offloaded op.  The numbers
-    are the same either way, only host time differs.
+    It subclasses the port's ``NumpyF64Backend``, so ``tensorpoly``'s f64
+    fast paths (``isinstance(b, ArrayF64Backend)``) apply, and
+    ``gf/nativeeval.py`` gives it the C++ eval tape as genfer_tpu gives
+    its own: the tape runs an evaluation until it reaches a product this
+    backend would offload, and hands that evaluation back to the Python
+    engine.
     """
 
     #: minimum number of multiply-adds before a conv is offloaded (the

@@ -53,7 +53,7 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from genfer_tpu_torch import _build, cli
-    from genfer_tpu_torch.ops import conv2d
+    from genfer_tpu_torch.ops import conv2d_trunc_f32
     from genfer_tpu_torch.tools.generators import generate_two_populations
 
     if not torch.cuda.is_available():
@@ -73,7 +73,7 @@ def main(argv=None) -> None:
         walls = [_wall(cli.main, flags + ["pallas"])
                  for _ in range(WARM)]
         host = [_wall(cli.main, flags + ["numpy"]) for _ in range(2)]
-        conv2d.launches = 0
+        conv2d_trunc_f32.launches = 0
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -88,7 +88,7 @@ def main(argv=None) -> None:
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
     print(f"traced wall {traced:.4f} s, kernel launches "
-          f"{conv2d.launches}; device busy {busy_us / 1e3:.4f} ms = "
+          f"{conv2d_trunc_f32.launches}; device busy {busy_us / 1e3:.4f} ms = "
           f"{100 * busy_us / 1e6 / traced:.4f}% of the traced wall")
     by_name: dict[str, list[float]] = defaultdict(list)
     for e in dev:

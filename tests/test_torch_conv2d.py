@@ -54,13 +54,13 @@ def test_reference_matches_pallas_and_host(sa, sb, out):
 
 
 def test_wrapper_on_cpu_runs_the_plain_version(monkeypatch):
-    monkeypatch.setattr(C, "launches", 0)
+    monkeypatch.setattr(C.conv2d_trunc_f32, "launches", 0)
     a, b = _operands((40, 1), (40, 38), 1)
     ta, tb = torch.from_numpy(a).float(), torch.from_numpy(b).float()
     got = C.conv2d_trunc_f32(ta, tb, (40, 38))
     want = C.conv2d_trunc_f32_reference(ta, tb, (40, 38))
     assert torch.equal(got, want)
-    assert C.launches == 0
+    assert C.conv2d_trunc_f32.launches == 0
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -104,8 +104,8 @@ def test_kernel_on_card(sa, sb, out):
     want = NumpyF64Backend().conv_trunc(a, b, out)
     ta = torch.from_numpy(a).float().cuda()
     tb = torch.from_numpy(b).float().cuda()
-    before = C.launches
+    before = C.conv2d_trunc_f32.launches
     got = C.conv2d_trunc_f32(ta, tb, out)
     torch.cuda.synchronize()
-    assert C.launches == before + 1
+    assert C.conv2d_trunc_f32.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=5e-5, atol=1e-6)
