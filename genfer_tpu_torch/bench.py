@@ -13,8 +13,9 @@ Sections, at the JAX bench's own sizes:
 * ``pallas_rowstrip``: the row-strip twin against the tile
   (``conv2d_trunc_f32_tile``) and grouped (``conv2d_trunc_f32_grouped``)
   kernels at orders 256, 384 and 512.  On the card the row-strip twin
-  splits j0 over blocks at these orders and the tile kernel does not, so
-  the two agree to f32 rounding, not bit for bit as on the TPU.
+  runs balanced work units on its own tile code and the tile kernel one
+  block a tile on the first tile code, so the two agree to f32 rounding,
+  not bit for bit as on the TPU.
 
 Operands are uniform in [0, 1), drawn from ``--seed`` with a numpy
 generator.  Times come from CUDA events over back-to-back calls after a
@@ -170,8 +171,9 @@ def bench_pallas_batched(rng, order: int, batch: int, iters: int,
 def bench_pallas_rowstrip(rng, order: int, iters: int, where: str) -> dict:
     """``bench.py::bench_pallas_rowstrip``: the row-strip twin against the
     tile and grouped kernels.  The tile kernel matches the row-strip twin
-    to f32 rounding here (the twin splits j0 over blocks), and the grouped
-    one matches the tile kernel to f32 rounding, as on the TPU."""
+    to f32 rounding here (the twin sums work units, in another order), and
+    the grouped one matches the tile kernel to f32 rounding, as on the
+    TPU."""
     from .ops import (
         conv2d_trunc_f32,
         conv2d_trunc_f32_grouped,

@@ -1,12 +1,16 @@
-// Device code shared by the truncated 2-D product kernels (K2 rowstrip,
-// K4a tile, K4b grouped, K3 batched): one 64x64 output tile of
+// Device code shared by the one-block-per-tile truncated 2-D product
+// kernels (K4a tile, K4b grouped): one 64x64 output tile of
 //
 //     c[k0, k1] = sum_{j0, j1} a[k0 - j0, k1 - j1] * b[j0, j1]
 //
-// in IEEE f32 with FMA, and the pass that adds the partial tiles of a
-// j0 split.  Each kernel is its own __global__ in its own .cu file; this
-// header is what they share.  The design notes are in
-// conv2d_trunc_f32.cu.
+// in IEEE f32 with FMA.  Each kernel is its own __global__ in its own .cu
+// file; this header is what they share.  Design: a 4x4 register tile a
+// thread (rows ty + 16 i, columns 4 tx + q), the a window of 32 j0 rows
+// and the 32 x CJ block of b staged in shared memory per group, a 4-wide
+// register window slid along j1 (one shared load per 4 FMAs), sums at
+// three levels (one j1 chunk, one j0 group, the rest).  The single-pair
+// and batched kernels (K2, K3) began on this code and now run
+// conv2d_unit.cuh, which says what held this loop back on the H100.
 
 #pragma once
 
@@ -177,34 +181,6 @@ __device__ __forceinline__ void product_tile(
       if (k1 < c1) c[static_cast<size_t>(k0) * c1 + k1] = acc[i][q];
     }
   }
-}
-
-// c[g n + i] = sum over z of part[(g splits + z) n + i], in z order, for
-// every batch entry g of ``total / n``
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ c, int splits,
-                                  size_t n, size_t total) {
-  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t g = e / n;
-    const float* p = part + g * splits * n + (e - g * n);
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += p[z * n];
-    c[e] = s;
-  }
-}
-
-// the second pass of a j0 split on ``stream``: work holds ``batch`` runs of
-// ``splits`` partial (c0, c1) tiles
-inline cudaError_t sum_splits(const float* work, float* c, int splits,
-                              int batch, int c0, int c1,
-                              cudaStream_t stream) {
-  const size_t n = static_cast<size_t>(c0) * c1;
-  const size_t total = n * batch;
-  const size_t blocks = (total + 255) / 256;
-  sum_splits_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
-                      256, 0, stream>>>(work, c, splits, n, total);
-  return cudaGetLastError();
 }
 
 }  // namespace

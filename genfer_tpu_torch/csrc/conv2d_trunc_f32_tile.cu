@@ -6,14 +6,15 @@
 // Replaces the TPU kernel genfer_tpu/ops/pallas_conv2d.py::_build2d (one
 // program per 128x128 output tile, bit-identical there to the row-strip
 // kernel).  On the H100 the row-strip kernel's counterpart
-// (conv2d_trunc_f32.cu) cuts j0 over several blocks when the card has
-// more SMs than tiles; this kernel never does, so it equals that kernel
-// bit for bit when the split is 1 and to f32 rounding otherwise.
+// (conv2d_trunc_f32.cu) cuts the product into balanced work units and
+// runs other tile code (conv2d_unit.cuh), so the two agree to f32
+// rounding, not bit for bit.
 //
-// What bounds it: issued f32 FMAs, as for conv2d_trunc_f32.cu, whose tile
-// code (conv2d_tile.cuh) it runs.  With no split, a product with fewer
-// tiles than SMs leaves SMs idle: that is the measurement this kernel is
-// kept for (tile schedule against split schedule).
+// What bounds it: issued f32 FMAs, on the tile code of conv2d_tile.cuh.
+// One block a tile leaves SMs idle when a product has fewer tiles than
+// the card has SMs, and the heaviest tile ends the call: that is the
+// measurement this kernel is kept for (tile schedule against unit
+// schedule).
 
 #include "conv2d_tile.cuh"
 

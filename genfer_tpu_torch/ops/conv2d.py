@@ -19,20 +19,36 @@ raises; on a CPU tensor it runs the plain version
 (``conv2d_trunc_f32_reference``, or ``conv2d_trunc_f32_batched_reference``
 for the batch).  There is no other fallback.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (CPU calls add nothing).
+
+``conv2d_trunc_f32`` and ``conv2d_trunc_f32_batched`` run the work units
+of ``unit_plan``, a table computed here from the shapes alone and read by
+the kernels (``csrc/conv2d_unit.cuh``); the tile and grouped kernels run
+one block per output tile (``csrc/conv2d_tile.cuh``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import _build
 from ..taylor.backend import _antidiag_sum, _toeplitz
 
 _MAX_DIM = 1 << 20  # int32 index math in the kernel stays far from overflow
-_MAX_GRID_Z = 65535  # CUDA's limit on gridDim.z
-TILE = 64  # output tile edge of the kernels (BM = BN in conv2d_tile.cuh)
-GROUP = 32  # j0 rows staged together (G in conv2d_tile.cuh)
-BLOCKS_PER_SM = 2  # 256-thread blocks of the kernel resident on one SM
+_MAX_GRID_X = (1 << 31) - 1  # CUDA's limit on gridDim.x
+TILE = 64  # output tile edge of the kernels (BM = BN in the csrc headers)
+CHUNK = 32  # b columns staged together by K2 / K3 (CJ in conv2d_unit.cuh)
+# The constants of ``unit_plan``, set from measurements on one H100
+# (``tune_port.py``, PERF.md); they shape the table, never the result's
+# accuracy, and no card property enters them.
+MIN_ROWS = 32  # shortest j0 range a tile is cut into
+UNIT_TARGET = 792  # coarse units a large product is cut into, about
+TAIL_SHARE = 0.25  # share of the work, in the lightest tiles, cut finer
+TAIL_DIV = 4  # how much finer
 
 
 def _cdiv(x: int, y: int) -> int:
@@ -45,41 +61,138 @@ def _swap(a_shape, b_shape) -> bool:
     return b_shape[0] * b_shape[1] > a_shape[0] * a_shape[1]
 
 
-def launch_plan(a_shape, b_shape, out_shape, sm_count: int):
-    """How ``conv2d_trunc_f32`` launches its kernel on a card with
-    ``sm_count`` SMs: ``(swap, splits, split_rows)``.
+def tile_ranges(a_shape, b_shape, out_shape, K0: int, K1: int):
+    """The (j0_lo, j0_hi, j1_lo, j1_hi) of b that the output tile at
+    (K0, K1) can use, ``a`` being zero outside its shape: the clipping of
+    ``csrc/conv2d_tile.cuh``, with j1 also held below c1."""
+    (a0, a1), (b0, b1), (c0, c1) = a_shape, b_shape, out_shape
+    return (max(0, K0 - a0 + 1), min(b0, K0 + TILE, c0),
+            max(0, K1 - a1 + 1), min(b1, K1 + TILE, c1))
 
-    ``swap``: see ``_swap``.  ``splits`` x ``split_rows``: the j0 axis is
-    cut into ranges of ``split_rows`` rows, one block per (output tile,
-    range), until there are about as many blocks as the card holds at
-    once; the partial tiles are summed in range order by a second
-    kernel."""
-    (a0, a1), (b0, b1) = a_shape, b_shape
-    c0, c1 = out_shape
+
+def _even_cuts(lo: int, n: int, k: int, step: int = 1):
+    """``k`` consecutive ranges covering [lo, lo + n), cut at multiples of
+    ``step`` from ``lo``, their lengths within one ``step`` of each other."""
+    blocks = _cdiv(n, step)
+    marks = [lo + min(n, step * (blocks * i // k)) for i in range(k + 1)]
+    return list(zip(marks[:-1], marks[1:]))
+
+
+class UnitPlan(NamedTuple):
+    """How K2 and K3 cut one pair's product into work units."""
+
+    #: the operands go to the kernel as (b, a): see ``_swap``
+    swap: bool
+    #: int32 (n, 8), heaviest first: K0, K1, j0_lo, j0_hi, j1_lo, j1_hi,
+    #: the unit's slot in the workspace (-1: it writes c directly), 0
+    units: np.ndarray
+    #: int32 (m, 4), one row per output tile of more than one unit: K0,
+    #: K1, its first slot, its number of slots
+    sums: np.ndarray
+    #: workspace tiles (of TILE x TILE floats) one pair needs
+    slots: int
+    #: False where some output tile has no unit (c is then zero-filled)
+    covers: bool
+
+    def weights(self) -> np.ndarray:
+        """j0 x j1 steps of every unit (x TILE^2 multiply-adds)."""
+        u = self.units
+        return (u[:, 3] - u[:, 2]) * (u[:, 5] - u[:, 4])
+
+
+@functools.lru_cache(maxsize=1024)
+def unit_plan(a_shape, b_shape, out_shape) -> UnitPlan:
+    """The work units of ``conv2d_trunc_f32`` for these shapes (and of
+    every entry of ``conv2d_trunc_f32_batched``).
+
+    A unit is (output tile, j0 range, j1 range).  Every tile's clipped
+    ranges (``tile_ranges``: no unit is empty) are cut until a unit holds
+    about ``1 / UNIT_TARGET`` of the product's multiply-adds (the
+    lightest tiles, ``TAIL_SHARE`` of the work, ``TAIL_DIV`` times finer),
+    but not below ``MIN_ROWS`` rows x one chunk of columns: j0 into ranges
+    of at least ``MIN_ROWS`` rows, j1 at multiples of ``CHUNK`` columns (1
+    for a one-column b).  Units are sorted heaviest first, so the card's
+    block scheduler, which hands the next block to the first free SM, ends
+    with the light ones.  A tile of several units gets consecutive slots
+    of a workspace, in (j0, j1) order, which a second kernel adds in slot
+    order: the result depends on the shapes alone, not on the card or on
+    which block ran what."""
     swap = _swap(a_shape, b_shape)
     if swap:
-        b0 = a0
-    tiles = _cdiv(c0, TILE) * _cdiv(c1, TILE)
-    span = min(b0, c0)  # no tile uses a j0 beyond it
-    groups = _cdiv(span, GROUP)
-    splits = max(1, min(groups, _cdiv(BLOCKS_PER_SM * sm_count, tiles)))
-    rows = _cdiv(groups, splits) * GROUP
-    return swap, _cdiv(span, rows), rows
+        a_shape, b_shape = b_shape, a_shape
+    c0, c1 = out_shape
+    chunk = 1 if b_shape[1] == 1 else CHUNK
+    tiles = []
+    for K0 in range(0, c0, TILE):
+        for K1 in range(0, c1, TILE):
+            r = tile_ranges(a_shape, b_shape, out_shape, K0, K1)
+            if r[1] > r[0] and r[3] > r[2]:
+                tiles.append((K0, K1, *r))
+    covers = len(tiles) == _cdiv(c0, TILE) * _cdiv(c1, TILE)
+    weight = [(t[3] - t[2]) * (t[5] - t[4]) for t in tiles]
+    total = sum(weight)
+    floor = MIN_ROWS * chunk
+    target = max(floor, total / UNIT_TARGET)
+    # the lightest tiles, TAIL_SHARE of the work, are cut TAIL_DIV times
+    # finer: sorted last, their units fill the gaps as the card runs dry
+    fine, done = set(), 0
+    for i in sorted(range(len(tiles)), key=lambda i: weight[i]):
+        if done + weight[i] > TAIL_SHARE * total:
+            break
+        done += weight[i]
+        fine.add(i)
+    units, sums, slots = [], [], 0
+    for i, (K0, K1, j0_lo, j0_hi, j1_lo, j1_hi) in enumerate(tiles):
+        n0, n1 = j0_hi - j0_lo, j1_hi - j1_lo
+        goal = max(floor, target / TAIL_DIV) if i in fine else target
+        max0, max1 = max(1, n0 // MIN_ROWS), _cdiv(n1, chunk)
+        # the fewest k0 x k1 cuts whose heaviest piece stays near the goal
+        # (of those, the longest j0 ranges: a range's ends cost three
+        # partly used steps); failing that, the lightest heaviest piece
+        def cost(k):
+            heaviest = _cdiv(n0, k[0]) * min(n1, chunk * _cdiv(max1, k[1]))
+            near = heaviest <= 1.125 * goal
+            return (not near, k[0] * k[1] if near else heaviest, k[0])
+
+        k0, k1 = min(((k0, k1) for k0 in range(1, max0 + 1)
+                      for k1 in range(1, max1 + 1)), key=cost)
+        cuts = [(lo0, hi0, lo1, hi1)
+                for lo0, hi0 in _even_cuts(j0_lo, n0, k0)
+                for lo1, hi1 in _even_cuts(j1_lo, n1, k1, chunk)]
+        if len(cuts) > 1:
+            sums.append((K0, K1, slots, len(cuts)))
+        for n, cut in enumerate(cuts):
+            units.append((K0, K1, *cut, slots + n if len(cuts) > 1 else -1,
+                          0))
+        if len(cuts) > 1:
+            slots += len(cuts)
+    # heaviest first; equal weights keep tile order
+    units.sort(key=lambda u: -(u[3] - u[2]) * (u[5] - u[4]))
+    return UnitPlan(
+        swap, np.asarray(units, dtype=np.int32).reshape(-1, 8),
+        np.asarray(sums, dtype=np.int32).reshape(-1, 4), slots, covers)
 
 
-def batched_launch_plan(batch: int, a_shape, b_shape, out_shape,
-                        sm_count: int):
-    """How ``conv2d_trunc_f32_batched`` launches: ``(swap, splits,
-    split_rows)`` of ``launch_plan`` for one pair, so that every batch
-    entry is the single-pair kernel's result bit for bit.  The grid's z
-    axis holds ``batch * splits`` blocks; beyond CUDA's 65535 it raises."""
-    plan = launch_plan(a_shape, b_shape, out_shape, sm_count)
-    if batch * plan[1] > _MAX_GRID_Z:
+def batched_blocks(batch: int, plan: UnitPlan) -> int:
+    """Blocks of ``conv2d_trunc_f32_batched``'s grid: one per (unit of the
+    single-pair plan, batch entry), unit-major, on the grid's x axis."""
+    blocks = batch * len(plan.units)
+    if blocks > _MAX_GRID_X:
         raise ValueError(
-            f"batch {batch} x {plan[1]} j0 ranges exceeds the grid's "
-            f"{_MAX_GRID_Z} z blocks"
+            f"batch {batch} x {len(plan.units)} units exceeds the grid's "
+            f"{_MAX_GRID_X} blocks"
         )
-    return plan
+    return blocks
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_on_card(a_shape, b_shape, out_shape, device):
+    """``unit_plan`` with its two tables on ``device``, kept for the next
+    call of the same shapes (no host-to-device copy then)."""
+    plan = unit_plan(a_shape, b_shape, out_shape)
+    units = torch.from_numpy(plan.units).to(device)
+    sums = torch.from_numpy(plan.sums).to(device)
+    return plan, units, sums
 
 
 def _check_operand(name: str, t, ndim: int) -> None:
@@ -118,8 +231,12 @@ def _on_card(a) -> bool:
     return True
 
 
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def _on_device(device):
+    """A context in which ``device`` is the current CUDA device (no
+    context switch where it already is)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def conv2d_trunc_f32_reference(a, b, out_shape):
@@ -141,21 +258,21 @@ def conv2d_trunc_f32(a, b, out_shape):
     if not _on_card(a):
         return conv2d_trunc_f32_reference(a, b, (c0, c1))
     lib = _build.load()
-    swap, splits, rows = launch_plan(
-        tuple(a.shape), tuple(b.shape), (c0, c1), _sm_count(a.device)
-    )
-    if swap:
+    plan, units, sums = _plan_on_card(tuple(a.shape), tuple(b.shape),
+                                      (c0, c1), a.device)
+    if plan.swap:
         a, b = b, a
-    out = torch.empty((c0, c1), dtype=torch.float32, device=a.device)
-    work = (torch.empty((splits, c0, c1), dtype=torch.float32,
-                        device=a.device) if splits > 1 else None)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    alloc = torch.empty if plan.covers else torch.zeros
+    out = alloc((c0, c1), dtype=torch.float32, device=a.device)
+    work = (torch.empty((plan.slots, TILE, TILE), dtype=torch.float32,
+                        device=a.device) if plan.slots else None)
+    with _on_device(a.device):
         err = lib.conv2d_trunc_f32(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
             0 if work is None else work.data_ptr(),
-            a.shape[0], a.shape[1], b.shape[0], b.shape[1], c0, c1,
-            splits, rows, stream,
+            units.data_ptr(), len(plan.units), sums.data_ptr(),
+            len(plan.sums), a.shape[0], a.shape[1], b.shape[1], c0, c1,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, "conv2d_trunc_f32", err)
     conv2d_trunc_f32.launches += 1
@@ -172,11 +289,11 @@ def _single_tile_kernel(wrapper, a, b, out_shape):
     if _swap(tuple(a.shape), tuple(b.shape)):
         a, b = b, a
     out = torch.empty((c0, c1), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+    with _on_device(a.device):
         err = getattr(lib, wrapper.__name__)(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            a.shape[0], a.shape[1], b.shape[0], b.shape[1], c0, c1, stream,
+            a.shape[0], a.shape[1], b.shape[0], b.shape[1], c0, c1,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, wrapper.__name__, err)
     wrapper.launches += 1
@@ -216,25 +333,25 @@ def conv2d_trunc_f32_batched(a_batch, b, out_shape):
         return conv2d_trunc_f32_batched_reference(a_batch, b, (c0, c1))
     lib = _build.load()
     batch, a0, a1 = a_batch.shape
-    swap, splits, rows = batched_launch_plan(
-        batch, (a0, a1), tuple(b.shape), (c0, c1),
-        _sm_count(a_batch.device),
-    )
+    plan, units, sums = _plan_on_card((a0, a1), tuple(b.shape), (c0, c1),
+                                      a_batch.device)
+    batched_blocks(batch, plan)
     # the kernel's operand b is the smaller one, as in conv2d_trunc_f32;
     # the shared operand has stride 0
-    ka, kb = (b, a_batch) if swap else (a_batch, b)
-    ka_stride, kb_stride = (0, a0 * a1) if swap else (a0 * a1, 0)
-    out = torch.empty((batch, c0, c1), dtype=torch.float32,
-                      device=a_batch.device)
-    work = (torch.empty((batch, splits, c0, c1), dtype=torch.float32,
-                        device=a_batch.device) if splits > 1 else None)
-    with torch.cuda.device(a_batch.device):
-        stream = torch.cuda.current_stream(a_batch.device).cuda_stream
+    ka, kb = (b, a_batch) if plan.swap else (a_batch, b)
+    ka_stride, kb_stride = (0, a0 * a1) if plan.swap else (a0 * a1, 0)
+    alloc = torch.empty if plan.covers else torch.zeros
+    out = alloc((batch, c0, c1), dtype=torch.float32, device=a_batch.device)
+    work = (torch.empty((batch, plan.slots, TILE, TILE), dtype=torch.float32,
+                        device=a_batch.device) if plan.slots else None)
+    with _on_device(a_batch.device):
         err = lib.conv2d_trunc_f32_batched(
             ka.data_ptr(), kb.data_ptr(), out.data_ptr(),
-            0 if work is None else work.data_ptr(), ka_stride, kb_stride,
-            batch, ka.shape[-2], ka.shape[-1], kb.shape[-2], kb.shape[-1],
-            c0, c1, splits, rows, stream,
+            0 if work is None else work.data_ptr(),
+            units.data_ptr(), len(plan.units), sums.data_ptr(),
+            len(plan.sums), plan.slots, ka_stride, kb_stride, batch,
+            ka.shape[-2], ka.shape[-1], kb.shape[-1], c0, c1,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, "conv2d_trunc_f32_batched", err)
     conv2d_trunc_f32_batched.launches += 1

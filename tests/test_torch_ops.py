@@ -1,6 +1,6 @@
 """The port's K3 (batched), K4a (tile), K4b (grouped) and K6 (1-D) wrappers
 against genfer_tpu's Pallas kernels in interpret mode and the f64 host
-product.
+product, and K3's grid over K2's work-unit plan.
 
 On the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
 themselves are compared on the card by the ``cuda``-marked tests at the
@@ -200,23 +200,37 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, err):
         call()
 
 
-@pytest.mark.parametrize("batch,sa,sb,out,sms,plan", [
+@pytest.mark.parametrize("batch,sa,sb,out,swap", [
     # every entry takes the single-pair plan, swap included
-    (8, (512, 512), (512, 512), (512, 512), 132, (False, 4, 128)),
-    (32, (256, 256), (256, 256), (256, 256), 132, (False, 8, 32)),
-    (3, (95, 1), (95, 87), (95, 87), 132, (True, 3, 32)),
+    (8, (512, 512), (512, 512), (512, 512), False),
+    (32, (256, 256), (256, 256), (256, 256), False),
+    (3, (95, 1), (95, 87), (95, 87), True),
 ])
-def test_batched_launch_plan(batch, sa, sb, out, sms, plan):
-    assert C.batched_launch_plan(batch, sa, sb, out, sms) == plan
-    assert plan == C.launch_plan(sa, sb, out, sms)
+def test_batched_launch_plan(batch, sa, sb, out, swap):
+    """The batched plan is the per-pair plan repeated: the table both
+    wrappers look up is keyed by one pair's shapes, and the batched grid
+    holds every (unit, entry) once, all entries of a unit side by side."""
+    import inspect
+
+    assert list(inspect.signature(C._plan_on_card.__wrapped__).parameters) == [
+        "a_shape", "b_shape", "out_shape", "device"]
+    plan = C.unit_plan(sa, sb, out)
+    assert plan.swap is swap
+    blocks = C.batched_blocks(batch, plan)
+    assert blocks == batch * len(plan.units)
+    # the kernel's index math: unit = block // batch, entry = block % batch
+    pairs = {divmod(block, batch) for block in range(blocks)}
+    assert pairs == {(u, g) for u in range(len(plan.units))
+                     for g in range(batch)}
 
 
 def test_batched_launch_plan_keeps_to_the_grid():
-    # 16384 entries x 4 j0 ranges is over CUDA's 65535 z blocks
-    with pytest.raises(ValueError, match="65535"):
-        C.batched_launch_plan(16384, (512, 512), (512, 512), (512, 512), 132)
-    assert C.batched_launch_plan(16383, (512, 512), (512, 512), (512, 512),
-                                 132)[1] == 4
+    # the batch rides the grid's x axis: 16384 entries of order 512, once
+    # over the z axis's limit, now fit; 2^31 blocks do not
+    plan = C.unit_plan((512, 512), (512, 512), (512, 512))
+    assert C.batched_blocks(16384, plan) == 16384 * len(plan.units)
+    with pytest.raises(ValueError, match="2147483647"):
+        C.batched_blocks((1 << 31) // len(plan.units) + 1, plan)
 
 
 # ------------------------------------------------------------------ card
@@ -226,6 +240,18 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _f64_product(a, b, out):
+    """genfer_tpu's host f64 product, or above order 256 (where that
+    takes a minute a product) the port's own f64 product on the card,
+    itself held against genfer_tpu's in tests/test_torch_backend.py."""
+    if max(out) <= 256:
+        return NumpyF64Backend().conv_trunc(a, b, out)
+    from genfer_tpu_torch.taylor.backend import _conv_impl
+
+    return _conv_impl(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
+                      out).cpu().numpy()
 
 
 CARD_SHAPES = ROWSTRIP_SHAPES + [
@@ -242,7 +268,7 @@ def test_tile_and_grouped_on_card(sa, sb, out):
     _card()
     rng = np.random.default_rng(5)
     a, b = rng.random(sa), rng.random(sb)
-    want = NumpyF64Backend().conv_trunc(a, b, out)
+    want = _f64_product(a, b, out)
     ta, tb = _f32(a).cuda(), _f32(b).cuda()
     strip = ops.conv2d_trunc_f32(ta, tb, out)
     for kernel in (ops.conv2d_trunc_f32_tile, ops.conv2d_trunc_f32_grouped):
@@ -252,15 +278,25 @@ def test_tile_and_grouped_on_card(sa, sb, out):
         assert kernel.launches == before + 1
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL,
                                    atol=ATOL)
-    _, splits, _ = C.launch_plan(sa, sb, out, C._sm_count(ta.device))
-    if splits == 1:  # the same tile code over the same j0 range
-        assert torch.equal(ops.conv2d_trunc_f32_tile(ta, tb, out), strip)
+    # K4a keeps the first tile code (conv2d_tile.cuh) and K2 runs the unit
+    # code, so the two differ in summation order only: each is within
+    # ~5e-7 relative of f64 on these positive operands, and they are held
+    # to 2e-6 of each other (16 ulp of f32)
+    np.testing.assert_allclose(
+        ops.conv2d_trunc_f32_tile(ta, tb, out).cpu().numpy(),
+        strip.cpu().numpy(), rtol=2e-6, atol=0.0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nbatch,sa,sb,out", [
     *BATCHED, *SWAPPED,
     (5, (256, 256), (256, 256), (256, 256)),
+    (32, (130, 140), (120, 100), (130, 140)),
+    (32, (120, 100), (130, 140), (130, 140)),
+    (3, (512, 512), (512, 512), (512, 512)),
+    (2, (768, 768), (768, 768), (768, 768)),
+    # entries whose rows are not 16-byte aligned: the 4-byte staging path
+    (3, (130, 141), (120, 100), (130, 140)),
     # entries smaller than the shared operand: the batch becomes the
     # kernel's b (stride) and the shared one its a (stride 0)
     (3, (95, 1), (95, 87), (95, 87)),
@@ -277,12 +313,33 @@ def test_batched_on_card(nbatch, sa, sb, out):
     torch.cuda.synchronize()
     assert ops.conv2d_trunc_f32_batched.launches == before + 1
     assert got.shape == (nbatch, *out)
-    nb = NumpyF64Backend()
     for g in range(nbatch):
         assert torch.equal(got[g], ops.conv2d_trunc_f32(ta[g], tb, out))
         np.testing.assert_allclose(got[g].cpu().numpy(),
-                                   nb.conv_trunc(a[g], b, out),
+                                   _f64_product(a[g], b, out),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbatch", [3, 32])
+def test_batched_on_card_extreme_scales(nbatch):
+    """Column scales from 1e-30 to 1e30 (a) and 1e-6 to 1e6 (b): relative
+    accuracy holds at every column's own scale, and entries keep the
+    single-pair kernel's bits."""
+    _card()
+    rng = np.random.default_rng(17)
+    out = (130, 140)
+    a = rng.random((nbatch, 130, 140)) * 10.0 ** np.linspace(-30, 30, 140)
+    b = rng.random((120, 100)) * 10.0 ** np.linspace(-6, 6, 100)
+    ta, tb = _f32(a).cuda(), _f32(b).cuda()
+    got = ops.conv2d_trunc_f32_batched(ta, tb, out)
+    nb = NumpyF64Backend()
+    for g in range(nbatch):
+        assert torch.equal(got[g], ops.conv2d_trunc_f32(ta[g], tb, out))
+        want = nb.conv_trunc(a[g], b, out)
+        have = got[g].cpu().numpy().astype(np.float64)
+        assert np.isfinite(have).all()
+        assert (np.abs(have - want) <= RTOL * np.abs(want) + 1e-37).all()
 
 
 @pytest.mark.cuda

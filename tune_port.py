@@ -1,0 +1,254 @@
+#!/usr/bin/env python3
+"""Tuning probes for the work-unit kernels (K2 ``conv2d_trunc_f32``, K3
+``conv2d_trunc_f32_batched``) on one CUDA card.
+
+    python3 tune_port.py
+
+Three measurements, each printed with the card's name and power limit;
+none of them is on any path of the port:
+
+1. the card's f32 FMA ceiling: 16 independent FMA chains a thread, 8
+   blocks of 256 threads an SM, no memory traffic.  It is what the
+   data-sheet rate behind ``bench.F32_FMA_PER_S`` comes to on this card
+   at its power limit;
+2. K2's plain grid over the sorted unit table against persistent blocks
+   that take units from the same table through an atomic counter (2, 3
+   and 4 blocks an SM), at the dense orders, with a check that both give
+   the same bits.  The persistent kernel lives only here, in
+   ``PERSISTENT_CU``; it runs ``csrc/conv2d_unit.cuh`` as K2 does;
+3. K2 and K3 under other constants of ``ops/conv2d.py::unit_plan``
+   (``UNIT_TARGET``, ``MIN_ROWS``, ``TAIL_SHARE``, ``TAIL_DIV``), the
+   shipped ones first and last.
+
+The probes' sources are built with the port's nvcc flags into
+``build/tune/``.  Nothing here imports jax.
+"""
+
+import ctypes
+import subprocess
+import sys
+
+ORDERS = (256, 384, 512, 768)
+BATCHES = ((256, 32), (512, 8))
+#: (UNIT_TARGET, MIN_ROWS, TAIL_SHARE, TAIL_DIV) tried in probe 3
+PLANS = (
+    (1024, 32, 0.0, 1), (1024, 32, 0.2, 3), (512, 32, 0.25, 4),
+    (1584, 32, 0.25, 4), (792, 16, 0.25, 4), (792, 64, 0.25, 4),
+    (792, 32, 0.5, 4),
+)
+
+FMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256)
+fma_peak_kernel(float* out, int iters, float x, float y) {
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = threadIdx.x * 1e-3f + i;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = fmaf(acc[i], x, y);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+// ``blocks`` blocks of 256 threads, 128 * iters FMAs a thread
+extern "C" int fma_peak(float* out, int blocks, int iters, void* stream) {
+  fma_peak_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, iters, 0.999f, 1e-3f);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+PERSISTENT_CU = r"""
+#include "conv2d_unit.cuh"
+namespace {
+__global__ void __launch_bounds__(NT, 3)
+persistent_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ c, float* __restrict__ work,
+                  const int4* __restrict__ units, int n_units, int* counter,
+                  int a0, int a1, int b1, int c0, int c1) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int next;
+  for (;;) {
+    if (threadIdx.x == 0) next = atomicAdd(counter, 1);
+    __syncthreads();
+    const int u = next;
+    __syncthreads();
+    if (u >= n_units) break;
+    run_unit<32, true>(a, b, c, work, units, u, a0, a1, b1, c0, c1, smem);
+  }
+}
+}  // namespace
+// K2's two passes with ``blocks`` persistent blocks; b1 > 1 and a 16-byte
+// aligned with a1 % 4 == 0 (the dense shapes of the probe)
+extern "C" int persistent(const float* a, const float* b, float* c,
+                          float* work, const void* units, int n_units,
+                          const void* sums, int n_sums, int* counter,
+                          int blocks, int a0, int a1, int b1, int c0, int c1,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static bool allowed[64] = {};
+  cudaError_t err = allow_smem(persistent_kernel, Geo<32>::SMEM, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(counter, 0, sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  persistent_kernel<<<blocks, NT, Geo<32>::SMEM, st>>>(
+      a, b, c, work, static_cast<const int4*>(units), n_units, counter, a0,
+      a1, b1, c0, c1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
+  return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
+                                    n_sums, 0, 1, c0, c1, st));
+}
+"""
+
+
+def _compile(name: str, source: str) -> ctypes.CDLL:
+    from genfer_tpu_torch import _build
+
+    out = _build.BUILD_DIR.parent / "tune"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / f"{name}.cu"
+    src.write_text(source)
+    lib = out / f"lib{name}.so"
+    subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-shared", "-o", str(lib), str(src)], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+def fma_ceiling() -> None:
+    import torch
+
+    from genfer_tpu_torch.bench import F32_FMA_PER_S, time_ms
+
+    lib = _compile("fma_peak", FMA_PEAK_CU)
+    lib.fma_peak.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 8 * sms, 200000
+    out = torch.empty(blocks * 256, device="cuda")
+
+    def run():
+        err = lib.fma_peak(out.data_ptr(), blocks, iters,
+                           torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fma_peak launch failed ({err})")
+
+    ms = time_ms(run, 3, warmup=1)
+    rate = blocks * 256 * iters * 128.0 / ms * 1e3
+    print(f"probe 1 f32 FMA ceiling: {rate / 1e12:.3f}e12 FMA/s = "
+          f"{2 * rate / 1e12:.2f} TFLOP/s on {sms} SMs "
+          f"({100 * rate / F32_FMA_PER_S:.1f}% of the data-sheet rate the "
+          "bounds use)")
+
+
+def persistent_against_grid() -> None:
+    import torch
+
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import time_ms
+    from genfer_tpu_torch.ops import conv2d as C
+
+    lib = _compile("persistent", PERSISTENT_CU)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.persistent.argtypes = ([ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 6
+                               + [ptr])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def persistent(a, b, out, blocks):
+        plan, units, sums = C._plan_on_card(tuple(a.shape), tuple(b.shape),
+                                            out, a.device)
+        c = torch.empty(out, device="cuda")
+        work = torch.empty((max(plan.slots, 1), C.TILE, C.TILE),
+                           device="cuda")
+        err = lib.persistent(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), work.data_ptr(),
+            units.data_ptr(), len(plan.units), sums.data_ptr(),
+            len(plan.sums), counter.data_ptr(), blocks, a.shape[0],
+            a.shape[1], b.shape[1], out[0], out[1],
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"persistent launch failed ({err})")
+        return c
+
+    for order in ORDERS:
+        shape = (order, order)
+        a = torch.rand(shape, device="cuda")
+        b = torch.rand(shape, device="cuda")
+        want = ops.conv2d_trunc_f32(a, b, shape)
+        parts = []
+        for per_sm in (2, 3, 4):
+            got = persistent(a, b, shape, per_sm * sms)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"order {order}: persistent blocks and "
+                                   "the plain grid differ")
+            ms = time_ms(lambda: persistent(a, b, shape, per_sm * sms), 20)
+            parts.append(f"persistent x{per_sm} {ms:.4f}")
+        grid = time_ms(lambda: ops.conv2d_trunc_f32(a, b, shape), 20)
+        print(f"probe 2 order {order}: plain grid {grid:.4f} ms, "
+              + ", ".join(parts) + " ms; same bits")
+
+
+def plan_sweep() -> None:
+    import torch
+
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import product_bound, time_ms
+    from genfer_tpu_torch.ops import conv2d as C
+
+    shipped = (C.UNIT_TARGET, C.MIN_ROWS, C.TAIL_SHARE, C.TAIL_DIV)
+    try:
+        for plan in (shipped, *PLANS, shipped):
+            C.UNIT_TARGET, C.MIN_ROWS, C.TAIL_SHARE, C.TAIL_DIV = plan
+            C.unit_plan.cache_clear()
+            C._plan_on_card.cache_clear()
+            parts = []
+            for order in ORDERS:
+                shape = (order, order)
+                a = torch.rand(shape, device="cuda")
+                b = torch.rand(shape, device="cuda")
+                ms = time_ms(lambda: ops.conv2d_trunc_f32(a, b, shape), 10)
+                share = product_bound(shape, shape, shape)[0] / ms
+                units = len(C.unit_plan(shape, shape, shape).units)
+                parts.append(f"{order}: {ms:.4f} ms {100 * share:.1f}% "
+                             f"({units} units)")
+            for order, batch in BATCHES:
+                shape = (order, order)
+                a = torch.rand((batch, *shape), device="cuda")
+                b = torch.rand(shape, device="cuda")
+                ms = time_ms(
+                    lambda: ops.conv2d_trunc_f32_batched(a, b, shape), 3)
+                share = product_bound(shape, shape, shape, batch)[0] / ms
+                parts.append(f"{order}xB{batch}: {ms:.4f} ms "
+                             f"{100 * share:.1f}%")
+            print("probe 3 target {}, min rows {}, tail {} / {}: ".format(
+                *plan) + ", ".join(parts))
+    finally:
+        C.UNIT_TARGET, C.MIN_ROWS, C.TAIL_SHARE, C.TAIL_DIV = shipped
+        C.unit_plan.cache_clear()
+        C._plan_on_card.cache_clear()
+
+
+def main() -> None:
+    import torch
+
+    from genfer_tpu_torch import _build
+    from genfer_tpu_torch.bench import card
+
+    if not torch.cuda.is_available():
+        sys.exit("tune_port: no CUDA card")
+    print(card())
+    _build.load()
+    fma_ceiling()
+    persistent_against_grid()
+    plan_sweep()
+
+
+if __name__ == "__main__":
+    main()
