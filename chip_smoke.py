@@ -17,13 +17,15 @@ result):
    ``conv2d_trunc_f32_batched`` (K3) on the same at B = 3 and 32 (order
    768 at B = 3 only: its cuDNN yardstick alone would take half a
    minute at B = 32), and ``conv1d_trunc_f32`` (K6) on ``SHAPES_1D``.
-   K2 must give the same bits twice, and every K3 entry K2's bits.  Times
+   K2, K4a and K4b must each give the same bits twice, and every K3
+   entry K2's bits; each shape prints the body K4a / K4b ran for it
+   (split TF32 on the tensor cores, or FFMA for a thin b).  Times
    of the kernel, of its plain version and of one library call computing
    the same function (``torch.nn.functional.conv2d`` / ``conv1d`` of the
    flipped operand, cuDNN in IEEE f32; timed once per operands), all
-   from CUDA events.  Then K2's work-unit plans at the dense orders, and
-   the host and device microseconds of one K2 call at the end-to-end
-   run's largest shape;
+   from CUDA events.  Then the work-unit plans at the dense orders, K2's
+   and that of K4a / K4b, and the host and device microseconds of one K2
+   call at the end-to-end run's largest shape;
 4. end to end: the two-population model (``generate_two_populations``,
    seed 0, size ``SIZE``) through ``python -m genfer_tpu_torch --backend
    pallas`` in-process, against the host f64 ``--backend numpy`` run of
@@ -41,11 +43,12 @@ result):
    summed rate in f64; K6 must have been launched.
 
 Each of phases 4-6 sets the launch counts to 0 just before it and reads
-them just after.  Before the table, K2's and K3's shares of their bounds
-at the bench's shapes.  The second-to-last line is the kernel table as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  Everything is
-reached through ``genfer_tpu_torch``; nothing here imports jax or
-genfer_tpu.
+them just after.  Before the table, the shares of their bounds of K2,
+K3, K4a and K4b (the last two against the tensor cores' TF32 rate, three
+passes) with K2's time beside the tensor-core kernels'.  The
+second-to-last line is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.  Everything is reached through
+``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
 
 Why size 500 with ``GENFER_PALLAS_OFFLOAD_FLOPS=1e5``: the f32 route
 casts f64 coefficients to f32 without scaling (as genfer_tpu's
@@ -151,6 +154,9 @@ KERNELS = {
         "genfer_tpu/ops/pallas_conv.py:29",
         ((POISSON_LEN, POISSON_LEN, POISSON_LEN), 1)),
 }
+
+#: the kernels whose operations bound is the tensor cores' TF32 rate
+TENSOR_CORE_KERNELS = ("conv2d_trunc_f32_tile", "conv2d_trunc_f32_grouped")
 
 
 def fail(msg: str) -> None:
@@ -276,6 +282,7 @@ def _measure(name, kernel, plain, library, want, rtol, label,
 
 def phase3_kernels() -> dict:
     from genfer_tpu_torch import ops
+    from genfer_tpu_torch.ops.conv2d import tile_body
     from genfer_tpu_torch.taylor.backend import _conv_impl
 
     rng = np.random.default_rng(0)
@@ -300,9 +307,13 @@ def phase3_kernels() -> dict:
                 name, lambda k=kernel: k(a32, b32, out),
                 lambda: ops.conv2d_trunc_f32_reference(a32, b32, out),
                 library, want, RTOL, label, atol)
-        single = ops.conv2d_trunc_f32(a32, b32, out)
-        if not torch.equal(single, ops.conv2d_trunc_f32(a32, b32, out)):
-            fail(f"conv2d_trunc_f32 {label}: two calls differ")
+        for name in ("conv2d_trunc_f32", "conv2d_trunc_f32_tile",
+                     "conv2d_trunc_f32_grouped"):
+            kernel = getattr(ops, name)
+            if not torch.equal(kernel(a32, b32, out), kernel(a32, b32, out)):
+                fail(f"{name} {label}: two calls differ")
+        print(f"phase 3 {label}: same bits twice from K2, K4a and K4b; "
+              f"K4a / K4b ran the {tile_body(sa, sb)} body")
         del want
         for batch in (BATCHES if max(out) <= MAX_ORDER_B32
                       else BATCHES[:1]):
@@ -342,7 +353,9 @@ def phase3_kernels() -> dict:
 
 
 def phase3_plans_and_host_cost() -> None:
-    """K2's work-unit plans at the dense orders, and what one K2 call of
+    """The work-unit plans at the dense orders (K2's, which K3 shares, and
+    the j0-only plan of K4a / K4b with the multiply-adds it issues over the
+    useful ones), and what one K2 call of
     the end-to-end run's largest shape costs the host (the wrapper, per
     call, without waiting for the card) and the card (its kernels' time
     under ``torch.profiler``)."""
@@ -350,15 +363,22 @@ def phase3_plans_and_host_cost() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from genfer_tpu_torch import ops
-    from genfer_tpu_torch.ops.conv2d import unit_plan
+    from genfer_tpu_torch.ops.conv2d import issued_macs, unit_plan
+    from genfer_tpu_torch.taylor.host import _conv_pair_flops
 
     for order in DENSE_ORDERS:
         shape = (order, order)
-        plan = unit_plan(shape, shape, shape)
-        w = plan.weights()
-        print(f"phase 3 unit plan order {order}: {len(w)} units, "
-              f"{len(plan.sums)} tiles of several units, {plan.slots} "
-              f"slots, heaviest unit {w.max() / w.mean():.3f} x the mean")
+        for kernels, cut_j1 in (("K2 / K3", True), ("K4a / K4b", False)):
+            plan = unit_plan(shape, shape, shape, cut_j1)
+            w = plan.weights()
+            useful = _conv_pair_flops(shape, shape, shape)
+            issued = "" if cut_j1 else (
+                ", issued / useful multiply-adds "
+                f"{issued_macs(plan, shape, shape) / useful:.3f}")
+            print(f"phase 3 unit plan order {order} {kernels}: {len(w)} "
+                  f"units, {len(plan.sums)} tiles of several units, "
+                  f"{plan.slots} slots, heaviest unit "
+                  f"{w.max() / w.mean():.3f} x the mean{issued}")
     sa, sb, out = MAIN_PATH
     a = torch.rand(sa, device="cuda")
     b = torch.rand(sb, device="cuda")
@@ -523,25 +543,37 @@ def phase6_ops_api(launches: dict) -> None:
 
 
 def print_shares(rows: dict, bench: dict) -> None:
-    """K2's and K3's shares of their bounds (``bound_ms`` over the
-    measured time): K2 from phase 3's dense orders, K3 from phase 5's
+    """The kernels' shares of their bounds (``bound_ms`` over the
+    measured time): K2, K4a and K4b from phase 3's dense orders (K4a and
+    K4b against the tensor cores' rate for their three TF32 passes, with
+    K2's time in the same run beside theirs), K3 from phase 5's
     batches."""
-    from genfer_tpu_torch.bench import product_bound
+    from genfer_tpu_torch.bench import SPLIT_PASSES, product_bound
 
-    parts = []
-    for order in DENSE_ORDERS:
-        shape = (order, order)
-        ms = rows["conv2d_trunc_f32"][((shape,) * 3, 1)]["ms"]
-        share = product_bound(shape, shape, shape)[0] / ms
-        parts.append(f"{order}: {ms:.4f} ms = {100 * share:.1f}%")
-    print("share of bound, conv2d_trunc_f32 " + ", ".join(parts))
+    for name, passes in (("conv2d_trunc_f32", None),
+                         ("conv2d_trunc_f32_tile", SPLIT_PASSES),
+                         ("conv2d_trunc_f32_grouped", SPLIT_PASSES)):
+        parts = []
+        for order in DENSE_ORDERS:
+            shape = (order, order)
+            key = ((shape,) * 3, 1)
+            ms = rows[name][key]["ms"]
+            bound, by = product_bound(shape, shape, shape, passes=passes)
+            if not bound <= ms:
+                fail(f"{name} order {order}: {ms} ms is under its bound "
+                     f"{bound} ms")
+            beside = "" if passes is None else (
+                f" (K2 {rows['conv2d_trunc_f32'][key]['ms']:.4f} ms)")
+            parts.append(f"{order}: {ms:.4f} ms = {100 * bound / ms:.1f}%"
+                         f"{beside}")
+        print(f"share of bound ({by}), {name} " + ", ".join(parts))
     print("share of bound, conv2d_trunc_f32_batched " + ", ".join(
         f"{size}: {row['ms_batch']:.4f} ms = {100 * row['bound_share']:.1f}%"
         for size, row in bench["pallas_batched"].items()))
 
 
 def kernel_table(rows: dict, launches: dict) -> list:
-    from genfer_tpu_torch.bench import product_bound
+    from genfer_tpu_torch.bench import SPLIT_PASSES, product_bound
 
     table = []
     for name, (source, replaces, key) in KERNELS.items():
@@ -550,6 +582,9 @@ def kernel_table(rows: dict, launches: dict) -> list:
         if name == "conv1d_trunc_f32":
             la, lb, lc = shape
             bound, by = product_bound((la,), (lb,), (lc,))
+        elif name in TENSOR_CORE_KERNELS:
+            bound, by = product_bound(*shape, batch=batch,
+                                      passes=SPLIT_PASSES)
         else:
             bound, by = product_bound(*shape, batch=batch)
         table.append({
@@ -561,7 +596,11 @@ def kernel_table(rows: dict, launches: dict) -> list:
                                for k, r in rows[name].items()
                                if k[0] != "extreme"),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": bound, "bound_by": by,
+            # "operations": of the f32 FMA rate, or of the TF32 tensor
+            # rate (``bound_rate``) for the kernels that run there
+            "bound_ms": bound, "bound_by": by.split()[-1],
+            "bound_rate": ("tf32 mma x 3" if name in TENSOR_CORE_KERNELS
+                           else "f32 fma"),
             "library_ms": row["library_ms"],
         })
     return table

@@ -103,10 +103,9 @@ def _compile(out: Path) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     for name, args in (
-        ("conv2d_trunc_f32",
-         [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr]),
-        ("conv2d_trunc_f32_tile", [ptr] * 3 + [i32] * 6 + [ptr]),
-        ("conv2d_trunc_f32_grouped", [ptr] * 3 + [i32] * 6 + [ptr]),
+        *((name, [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr])
+          for name in ("conv2d_trunc_f32", "conv2d_trunc_f32_tile",
+                       "conv2d_trunc_f32_grouped")),
         ("conv2d_trunc_f32_batched",
          [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
         ("conv1d_trunc_f32", [ptr] * 3 + [i32] * 3 + [ptr]),

@@ -13,9 +13,9 @@ Sections, at the JAX bench's own sizes:
 * ``pallas_rowstrip``: the row-strip twin against the tile
   (``conv2d_trunc_f32_tile``) and grouped (``conv2d_trunc_f32_grouped``)
   kernels at orders 256, 384 and 512.  On the card the row-strip twin
-  runs balanced work units on its own tile code and the tile kernel one
-  block a tile on the first tile code, so the two agree to f32 rounding,
-  not bit for bit as on the TPU.
+  runs its work units in f32 FMAs and the tile and grouped kernels run
+  theirs as split-TF32 products on the tensor cores, so they agree to
+  f32 rounding, not bit for bit as on the TPU.
 
 Operands are uniform in [0, 1), drawn from ``--seed`` with a numpy
 generator.  Times come from CUDA events over back-to-back calls after a
@@ -52,6 +52,12 @@ RESULTS = Path(__file__).resolve().parent.parent / "build" / (
 #: sheet, at the 700 W power limit
 F32_FMA_PER_S = 67e12 / 2
 BYTES_PER_S = 3.35e12
+#: its dense TF32 rate on the tensor cores (495 TFLOP/s, the same data
+#: sheet), in ``mma`` multiply-adds a second: the ceiling of the kernels
+#: that run an f32 product as several TF32 passes
+TF32_MMA_PER_S = 495e12 / 2
+#: TF32 passes of the split product of K4a / K4b (hi*hi, hi*lo, lo*hi)
+SPLIT_PASSES = 3
 
 #: genfer_tpu bench options this twin does not run yet -> ROADMAP item
 UNPORTED = {
@@ -79,25 +85,33 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def bound_ms(macs: float, nbytes: float) -> tuple[float, str]:
+def bound_ms(macs: float, nbytes: float,
+             passes: int | None = None) -> tuple[float, str]:
     """The least time one H100 could take for ``macs`` f32 multiply-adds
     that read and write ``nbytes`` (each input read once, each output
-    written once), and which of the two bounds it."""
-    ops_ms = macs / F32_FMA_PER_S * 1e3
+    written once), and which of the two bounds it.  ``passes``: the
+    kernel runs every multiply-add as that many TF32 ``mma`` multiply-adds
+    on the tensor cores, whose rate is then the ceiling (a time under the
+    FFMA bound is possible there, and a share of it above 1 would read as
+    impossible)."""
+    if passes is None:
+        ops_ms, by = macs / F32_FMA_PER_S * 1e3, "operations"
+    else:
+        ops_ms = passes * macs / TF32_MMA_PER_S * 1e3
+        by = "tensor operations"
     bytes_ms = nbytes / BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (
-        bytes_ms, "bytes")
+    return (ops_ms, by) if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def product_bound(a_shape, b_shape, out_shape,
-                  batch: int = 1) -> tuple[float, str]:
+def product_bound(a_shape, b_shape, out_shape, batch: int = 1,
+                  passes: int | None = None) -> tuple[float, str]:
     """``bound_ms`` of ``batch`` truncated products of f32 operands (one
     operand of each pair batched, the other shared)."""
     macs = batch * _conv_pair_flops(tuple(a_shape), tuple(b_shape),
                                     tuple(out_shape))
     n = (np.prod(a_shape) * batch + np.prod(b_shape)
          + np.prod(out_shape) * batch)
-    return bound_ms(macs, 4.0 * n)
+    return bound_ms(macs, 4.0 * n, passes)
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -171,7 +185,7 @@ def bench_pallas_batched(rng, order: int, batch: int, iters: int,
 def bench_pallas_rowstrip(rng, order: int, iters: int, where: str) -> dict:
     """``bench.py::bench_pallas_rowstrip``: the row-strip twin against the
     tile and grouped kernels.  The tile kernel matches the row-strip twin
-    to f32 rounding here (the twin sums work units, in another order), and
+    to f32 rounding here (FFMA against split TF32, other sum orders), and
     the grouped one matches the tile kernel to f32 rounding, as on the
     TPU."""
     from .ops import (
@@ -197,6 +211,9 @@ def bench_pallas_rowstrip(rng, order: int, iters: int, where: str) -> dict:
                           ("grouped", conv2d_trunc_f32_grouped))}
     flops = 2 * _conv_pair_flops(shape, shape, shape)
     bound = product_bound(shape, shape, shape)[0]
+    # the tile and grouped kernels run three TF32 passes on the tensor
+    # cores: their ceiling is that rate, not the FFMA rate
+    mma_bound = product_bound(shape, shape, shape, passes=SPLIT_PASSES)[0]
     return {"ms": dt["strip"], "gflops": flops / dt["strip"] / 1e6,
             "tile_ms": dt["tile"],
             "speedup_vs_tile": dt["tile"] / dt["strip"],
@@ -204,8 +221,9 @@ def bench_pallas_rowstrip(rng, order: int, iters: int, where: str) -> dict:
             "grouped_gflops": flops / dt["grouped"] / 1e6,
             "tile_err": tile_err, "grouped_err": grouped_err,
             "bound_ms": bound, "bound_share": bound / dt["strip"],
-            "tile_bound_share": bound / dt["tile"],
-            "grouped_bound_share": bound / dt["grouped"], "card": where}
+            "mma_bound_ms": mma_bound,
+            "tile_bound_share": mma_bound / dt["tile"],
+            "grouped_bound_share": mma_bound / dt["grouped"], "card": where}
 
 
 def run_pallas(seed: int = 0, iters: int | None = None) -> dict:

@@ -1,58 +1,96 @@
-// Truncated 2-D Cauchy product in IEEE f32 on Hopper (sm_90a), with the
-// j0 sum taken in residue-major order:
+// Truncated 2-D Cauchy product of f32 matrices on Hopper's tensor cores
+// (sm_90a), with the j0 sum taken in residue-major order, K4b:
 //
 //     c[k0, k1] = sum_{r < 8} sum_{q} sum_{j1} a[k0 - j0, k1 - j1] * b[j0, j1],
 //     j0 = r + 8 q
 //
 // Replaces the TPU kernel genfer_tpu/ops/pallas_conv2d.py::_build2d_grouped
-// (one program per 128-row output strip, j0 visited by residue class mod 8
-// so that every a window of a class starts 8-row aligned and one slab load
-// and one sublane rotation serve the whole class).  That order is the
-// kernel's defining property and is kept.  Its reason is not: Hopper has
-// no sublane alignment, so whether the order gains or loses here is a
-// measurement (PERF.md).  It equals the tile kernel
-// (conv2d_trunc_f32_tile.cu) to f32 rounding, not bit for bit.
+// (j0 visited by residue class mod 8, so that every a window of a class
+// starts 8-row aligned and one slab load serves the class).  The order is
+// the kernel's defining property and is kept, inside every staged group of
+// 16 j0 rows of a work unit; on this card it buys window reuse by another
+// mechanism.  In the m16n8k8 A fragment a thread holds rows g and g + 8 of
+// each 16-row mma tile, and stepping j0 by 8 moves the a window down by
+// exactly 8 rows: the A operand is carried in registers from one j0 of a
+// class to the next, and only the top 8 rows are loaded (conv2d_mma.cuh,
+// ORDER = RESIDUE).  B fragments are fresh per j0 either way.  Whether
+// the order gains or loses against the tile kernel
+// (conv2d_trunc_f32_tile.cu) is a measurement (PERF.md).  It equals that
+// kernel to f32 rounding, not bit for bit.
 //
-// What bounds it: issued f32 FMAs, as for the other tile kernels.  One
-// block per 64x64 output tile over the whole j0 range (no split).  Rows of
-// one residue class lie 8 apart, so a staged a window of the shared
-// height serves 4 of them (against 32 consecutive rows in the tile
-// kernel): the staging traffic per FMA is about 8 times the tile
-// kernel's.
+// What bounds it: TF32 tensor-core multiply-adds, three per f32
+// multiply-add; the schedule is the tile kernel's (work units of
+// ops/conv2d.py::unit_plan(cut_j1=False), a plain grid, slots added in
+// order: the same bits on any card and from call to call).
+//
+// Which shapes take which body: as in the tile kernel.  b of at least 8
+// columns, the tensor-core body; fewer, conv2d_unit.cuh's FFMA body (CJ =
+// 1 for one column, else 8) with j0 ascending: a class of one thin row
+// has no fragment to carry.
 
-#include "conv2d_tile.cuh"
+#include "conv2d_mma.cuh"
 
 namespace {
 
-constexpr int RESIDUES = 8;  // j0 classes, as in _build2d_grouped
-
-template <int CJ>
-__global__ void __launch_bounds__(NT)
+// CJ = 0: the tensor-core body; CJ = 1 or 8: conv2d_unit.cuh's FFMA body
+// with chunks of CJ columns of b
+template <int CJ, bool VEC>
+__global__ void __launch_bounds__(NT, CJ == 0 ? 2 : 3)
 conv2d_trunc_f32_grouped_kernel(const float* __restrict__ a,
                                 const float* __restrict__ b,
-                                float* __restrict__ c, int a0, int a1,
-                                int b0, int b1, int c0, int c1) {
-  const int K0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int K1 = (gridDim.x - 1 - blockIdx.x) * BN;
-  product_tile<CJ, RESIDUES>(a, b, c, a0, a1, b0, b1, c0, c1, K0, K1, 0,
-                             b0);
+                                float* __restrict__ c, float* __restrict__ work,
+                                const int4* __restrict__ units, int a0, int a1,
+                                int b1, int c0, int c1) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (CJ == 0)
+    run_mma_unit<RESIDUE>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0,
+                         c1, smem);
+  else
+    run_unit<CJ, VEC>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0, c1,
+                      smem);
+}
+
+template <int CJ, bool VEC>
+cudaError_t launch(const float* a, const float* b, float* c, float* work,
+                   const int4* units, int n_units, int a0, int a1, int b1,
+                   int c0, int c1, cudaStream_t st) {
+  static bool allowed[64] = {};
+  constexpr size_t smem = CJ == 0 ? MmaGeo::SMEM : Geo<CJ ? CJ : 1>::SMEM;
+  auto kernel = conv2d_trunc_f32_grouped_kernel<CJ, VEC>;
+  const cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_units, NT, smem, st>>>(a, b, c, work, units, a0, a1, b1, c0, c1);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on ``stream``; returns cudaGetLastError().  All sizes >= 1,
-// every pointer a contiguous row-major f32 array on the current device.
-extern "C" int conv2d_trunc_f32_grouped(const float* a, const float* b,
-                                        float* c, int a0, int a1, int b0,
-                                        int b1, int c0, int c1,
-                                        void* stream) {
-  const dim3 grid((c1 + BN - 1) / BN, (c0 + BM - 1) / BM);
+// Launches on ``stream``; returns the first non-zero CUDA error (0 when
+// every launch was accepted).  The arguments are those of
+// conv2d_trunc_f32 (conv2d_trunc_f32.cu), with ``units`` and ``sums`` from
+// ops/conv2d.py::unit_plan(cut_j1=False).
+extern "C" int conv2d_trunc_f32_grouped(
+    const float* a, const float* b, float* c, float* work, const void* units,
+    int n_units, const void* sums, int n_sums, int a0, int a1, int b1, int c0,
+    int c1, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b1 == 1)
-    conv2d_trunc_f32_grouped_kernel<1><<<grid, NT, 0, st>>>(
-        a, b, c, a0, a1, b0, b1, c0, c1);
+  const int4* u = static_cast<const int4*>(units);
+  const bool vec = aligned16(a) && a1 % 4 == 0;
+  cudaError_t err;
+  if (b1 >= MMA_MIN_COLS)
+    err = launch<0, false>(a, b, c, work, u, n_units, a0, a1, b1, c0, c1,
+                           st);
+  else if (b1 == 1)
+    err = vec ? launch<1, true>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                c1, st)
+              : launch<1, false>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                 c1, st);
   else
-    conv2d_trunc_f32_grouped_kernel<32><<<grid, NT, 0, st>>>(
-        a, b, c, a0, a1, b0, b1, c0, c1);
-  return static_cast<int>(cudaGetLastError());
+    err = vec ? launch<8, true>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                c1, st)
+              : launch<8, false>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                 c1, st);
+  if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
+  return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
+                                    n_sums, 0, 1, c0, c1, st));
 }

@@ -1,50 +1,95 @@
-// Truncated 2-D Cauchy product in IEEE f32 on Hopper (sm_90a), one block
-// per 64x64 output tile over the whole j0 range:
+// Truncated 2-D Cauchy product of f32 matrices on Hopper's tensor cores
+// (sm_90a), K4a:
 //
 //     c[k0, k1] = sum_{j0 < b0, j1 < b1} a[k0 - j0, k1 - j1] * b[j0, j1]
 //
-// Replaces the TPU kernel genfer_tpu/ops/pallas_conv2d.py::_build2d (one
-// program per 128x128 output tile, bit-identical there to the row-strip
-// kernel).  On the H100 the row-strip kernel's counterpart
-// (conv2d_trunc_f32.cu) cuts the product into balanced work units and
-// runs other tile code (conv2d_unit.cuh), so the two agree to f32
-// rounding, not bit for bit.
+// Replaces the TPU kernel genfer_tpu/ops/pallas_conv2d.py::_build2d: one
+// program per 128x128 output tile, j0 ascending, every j0 a matrix-unit
+// product of an a window with a Toeplitz tile of one b row at
+// Precision.HIGHEST (several bf16 passes, f32 accumulate).  Hopper's
+// counterpart of that is a split-precision product on the tensor cores:
+// conv2d_mma.cuh, three TF32 mma.sync passes over operands split into a
+// high and a scaled low part, j0 ascending inside a unit.
 //
-// What bounds it: issued f32 FMAs, on the tile code of conv2d_tile.cuh.
-// One block a tile leaves SMs idle when a product has fewer tiles than
-// the card has SMs, and the heaviest tile ends the call: that is the
-// measurement this kernel is kept for (tile schedule against unit
-// schedule).
+// What bounds it on the H100: TF32 tensor-core multiply-adds (three per
+// f32 multiply-add), and the schedule.  One block per output tile, as on
+// the TPU, leaves the card's 132 SMs to 64 very unequal blocks at order
+// 512; here the product is cut into work units of about equal
+// multiply-add count by ops/conv2d.py::unit_plan(cut_j1=False): j0 ranges
+// only, because a unit of n1 columns of b contracts over n1 + 63 columns
+// of a.  The table is sorted heaviest first and the kernel is a plain grid
+// over it; a tile's units own consecutive workspace slots, added in slot
+// order by sum_units_kernel: the same bits on any card and from call to
+// call.  It equals the FFMA kernel (conv2d_trunc_f32.cu) to f32 rounding.
+//
+// Which shapes take which body (the wrapper passes the smaller operand as
+// b): b of at least 8 columns, the tensor-core body; a one-column b,
+// conv2d_unit.cuh's FFMA body with CJ = 1; 2 to 7 columns, the same with
+// CJ = 8 (a band narrower than one mma tile would be mostly zeros).
 
-#include "conv2d_tile.cuh"
+#include "conv2d_mma.cuh"
 
 namespace {
 
-template <int CJ>
-__global__ void __launch_bounds__(NT)
+// CJ = 0: the tensor-core body; CJ = 1 or 8: conv2d_unit.cuh's FFMA body
+// with chunks of CJ columns of b
+template <int CJ, bool VEC>
+__global__ void __launch_bounds__(NT, CJ == 0 ? 2 : 3)
 conv2d_trunc_f32_tile_kernel(const float* __restrict__ a,
                              const float* __restrict__ b,
-                             float* __restrict__ c, int a0, int a1, int b0,
+                             float* __restrict__ c, float* __restrict__ work,
+                             const int4* __restrict__ units, int a0, int a1,
                              int b1, int c0, int c1) {
-  const int K0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int K1 = (gridDim.x - 1 - blockIdx.x) * BN;
-  product_tile<CJ, 1>(a, b, c, a0, a1, b0, b1, c0, c1, K0, K1, 0, b0);
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (CJ == 0)
+    run_mma_unit<ASCENDING>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0,
+                           c1, smem);
+  else
+    run_unit<CJ, VEC>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0, c1,
+                      smem);
+}
+
+template <int CJ, bool VEC>
+cudaError_t launch(const float* a, const float* b, float* c, float* work,
+                   const int4* units, int n_units, int a0, int a1, int b1,
+                   int c0, int c1, cudaStream_t st) {
+  static bool allowed[64] = {};
+  constexpr size_t smem = CJ == 0 ? MmaGeo::SMEM : Geo<CJ ? CJ : 1>::SMEM;
+  auto kernel = conv2d_trunc_f32_tile_kernel<CJ, VEC>;
+  const cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_units, NT, smem, st>>>(a, b, c, work, units, a0, a1, b1, c0, c1);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on ``stream``; returns cudaGetLastError().  All sizes >= 1,
-// every pointer a contiguous row-major f32 array on the current device.
-extern "C" int conv2d_trunc_f32_tile(const float* a, const float* b,
-                                     float* c, int a0, int a1, int b0,
-                                     int b1, int c0, int c1, void* stream) {
-  const dim3 grid((c1 + BN - 1) / BN, (c0 + BM - 1) / BM);
+// Launches on ``stream``; returns the first non-zero CUDA error (0 when
+// every launch was accepted).  The arguments are those of
+// conv2d_trunc_f32 (conv2d_trunc_f32.cu), with ``units`` and ``sums`` from
+// ops/conv2d.py::unit_plan(cut_j1=False).
+extern "C" int conv2d_trunc_f32_tile(
+    const float* a, const float* b, float* c, float* work, const void* units,
+    int n_units, const void* sums, int n_sums, int a0, int a1, int b1, int c0,
+    int c1, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b1 == 1)
-    conv2d_trunc_f32_tile_kernel<1><<<grid, NT, 0, st>>>(
-        a, b, c, a0, a1, b0, b1, c0, c1);
+  const int4* u = static_cast<const int4*>(units);
+  const bool vec = aligned16(a) && a1 % 4 == 0;
+  cudaError_t err;
+  if (b1 >= MMA_MIN_COLS)
+    err = launch<0, false>(a, b, c, work, u, n_units, a0, a1, b1, c0, c1,
+                           st);
+  else if (b1 == 1)
+    err = vec ? launch<1, true>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                c1, st)
+              : launch<1, false>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                 c1, st);
   else
-    conv2d_trunc_f32_tile_kernel<32><<<grid, NT, 0, st>>>(
-        a, b, c, a0, a1, b0, b1, c0, c1);
-  return static_cast<int>(cudaGetLastError());
+    err = vec ? launch<8, true>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                c1, st)
+              : launch<8, false>(a, b, c, work, u, n_units, a0, a1, b1, c0,
+                                 c1, st);
+  if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
+  return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
+                                    n_sums, 0, 1, c0, c1, st));
 }

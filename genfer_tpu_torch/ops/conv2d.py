@@ -20,10 +20,15 @@ raises; on a CPU tensor it runs the plain version
 for the batch).  There is no other fallback.  Each wrapper counts its
 kernel launches in its ``launches`` attribute (CPU calls add nothing).
 
-``conv2d_trunc_f32`` and ``conv2d_trunc_f32_batched`` run the work units
-of ``unit_plan``, a table computed here from the shapes alone and read by
-the kernels (``csrc/conv2d_unit.cuh``); the tile and grouped kernels run
-one block per output tile (``csrc/conv2d_tile.cuh``).
+Every kernel runs the work units of ``unit_plan``, a table computed here
+from the shapes alone and read on the card.  ``conv2d_trunc_f32`` and
+``conv2d_trunc_f32_batched`` run them in IEEE f32 FMAs
+(``csrc/conv2d_unit.cuh``), on a plan that cuts j0 and j1.  The tile and
+grouped kernels run them on the tensor cores, as split-TF32 ``mma.sync``
+products of an a window with a Toeplitz tile of one b row that is never
+built (``csrc/conv2d_mma.cuh``), on a plan that cuts j0 only: a j1 cut
+would cost them 63 more contraction columns.  ``tile_body`` says which
+shapes take that body and which the FFMA one.
 """
 
 from __future__ import annotations
@@ -49,6 +54,10 @@ MIN_ROWS = 32  # shortest j0 range a tile is cut into
 UNIT_TARGET = 792  # coarse units a large product is cut into, about
 TAIL_SHARE = 0.25  # share of the work, in the lightest tiles, cut finer
 TAIL_DIV = 4  # how much finer
+# the same for the plan of the tensor-core kernels (``cut_j1=False``)
+MMA_MIN_ROWS = 16  # one staged group of j0 rows (MmaGeo::G in the .cuh)
+MMA_J1_STEP = 64  # where that plan does cut j1: at multiples of a tile
+MMA_MIN_COLS = 8  # b columns below which K4a / K4b take the FFMA body
 
 
 def _cdiv(x: int, y: int) -> int:
@@ -79,7 +88,7 @@ def _even_cuts(lo: int, n: int, k: int, step: int = 1):
 
 
 class UnitPlan(NamedTuple):
-    """How K2 and K3 cut one pair's product into work units."""
+    """How the kernels cut one pair's product into work units."""
 
     #: the operands go to the kernel as (b, a): see ``_swap``
     swap: bool
@@ -101,9 +110,10 @@ class UnitPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def unit_plan(a_shape, b_shape, out_shape) -> UnitPlan:
+def unit_plan(a_shape, b_shape, out_shape, cut_j1: bool = True) -> UnitPlan:
     """The work units of ``conv2d_trunc_f32`` for these shapes (and of
-    every entry of ``conv2d_trunc_f32_batched``).
+    every entry of ``conv2d_trunc_f32_batched``), or with ``cut_j1=False``
+    those of ``conv2d_trunc_f32_tile`` and ``conv2d_trunc_f32_grouped``.
 
     A unit is (output tile, j0 range, j1 range).  Every tile's clipped
     ranges (``tile_ranges``: no unit is empty) are cut until a unit holds
@@ -116,12 +126,21 @@ def unit_plan(a_shape, b_shape, out_shape) -> UnitPlan:
     with the light ones.  A tile of several units gets consecutive slots
     of a workspace, in (j0, j1) order, which a second kernel adds in slot
     order: the result depends on the shapes alone, not on the card or on
-    which block ran what."""
+    which block ran what.
+
+    ``cut_j1=False``: a unit of n1 columns of b contracts over n1 + 63
+    columns of a on the tensor cores (the band of the Toeplitz tile), so
+    the plan cuts j0 only, into ranges of at least ``MMA_MIN_ROWS`` rows;
+    j1 is cut, at multiples of ``MMA_J1_STEP``, only in a tile whose j0
+    range cannot be."""
     swap = _swap(a_shape, b_shape)
     if swap:
         a_shape, b_shape = b_shape, a_shape
     c0, c1 = out_shape
-    chunk = 1 if b_shape[1] == 1 else CHUNK
+    if cut_j1:
+        chunk, min_rows = (1 if b_shape[1] == 1 else CHUNK), MIN_ROWS
+    else:
+        chunk, min_rows = MMA_J1_STEP, MMA_MIN_ROWS
     tiles = []
     for K0 in range(0, c0, TILE):
         for K1 in range(0, c1, TILE):
@@ -131,7 +150,7 @@ def unit_plan(a_shape, b_shape, out_shape) -> UnitPlan:
     covers = len(tiles) == _cdiv(c0, TILE) * _cdiv(c1, TILE)
     weight = [(t[3] - t[2]) * (t[5] - t[4]) for t in tiles]
     total = sum(weight)
-    floor = MIN_ROWS * chunk
+    floor = min_rows * (chunk if cut_j1 else 1)
     target = max(floor, total / UNIT_TARGET)
     # the lightest tiles, TAIL_SHARE of the work, are cut TAIL_DIV times
     # finer: sorted last, their units fill the gaps as the card runs dry
@@ -145,19 +164,21 @@ def unit_plan(a_shape, b_shape, out_shape) -> UnitPlan:
     for i, (K0, K1, j0_lo, j0_hi, j1_lo, j1_hi) in enumerate(tiles):
         n0, n1 = j0_hi - j0_lo, j1_hi - j1_lo
         goal = max(floor, target / TAIL_DIV) if i in fine else target
-        max0, max1 = max(1, n0 // MIN_ROWS), _cdiv(n1, chunk)
+        max0, blocks1 = max(1, n0 // min_rows), _cdiv(n1, chunk)
+        max1 = blocks1 if cut_j1 or max0 == 1 else 1
         # the fewest k0 x k1 cuts whose heaviest piece stays near the goal
         # (of those, the longest j0 ranges: a range's ends cost three
         # partly used steps); failing that, the lightest heaviest piece
         def cost(k):
-            heaviest = _cdiv(n0, k[0]) * min(n1, chunk * _cdiv(max1, k[1]))
+            heaviest = _cdiv(n0, k[0]) * min(n1, chunk * _cdiv(blocks1, k[1]))
             near = heaviest <= 1.125 * goal
             return (not near, k[0] * k[1] if near else heaviest, k[0])
 
         k0, k1 = min(((k0, k1) for k0 in range(1, max0 + 1)
                       for k1 in range(1, max1 + 1)), key=cost)
         cuts = [(lo0, hi0, lo1, hi1)
-                for lo0, hi0 in _even_cuts(j0_lo, n0, k0)
+                for lo0, hi0 in _even_cuts(j0_lo, n0, k0,
+                                           1 if cut_j1 else min_rows)
                 for lo1, hi1 in _even_cuts(j1_lo, n1, k1, chunk)]
         if len(cuts) > 1:
             sums.append((K0, K1, slots, len(cuts)))
@@ -173,6 +194,27 @@ def unit_plan(a_shape, b_shape, out_shape) -> UnitPlan:
         np.asarray(sums, dtype=np.int32).reshape(-1, 4), slots, covers)
 
 
+def tile_body(a_shape, b_shape) -> str:
+    """Which body ``conv2d_trunc_f32_tile`` and ``conv2d_trunc_f32_grouped``
+    run for these operands: ``"mma"`` (split TF32 on the tensor cores), or
+    ``"ffma"`` where the kernel's b (the smaller operand) has fewer than
+    ``MMA_MIN_COLS`` columns: a band narrower than one ``mma`` tile."""
+    kb = a_shape if _swap(a_shape, b_shape) else b_shape
+    return "ffma" if kb[1] < MMA_MIN_COLS else "mma"
+
+
+def issued_macs(plan: UnitPlan, a_shape, b_shape) -> int:
+    """Multiply-adds the tensor-core kernels issue for ``plan`` (one
+    pass): every unit a full TILE x TILE tile for each of its j0 and each
+    column of a it contracts over (those whose band meets the unit's j1
+    range), before a warp skips what lies wholly outside a or b."""
+    a1 = (b_shape if plan.swap else a_shape)[1]
+    u = plan.units.astype(np.int64)
+    cols = (np.minimum(a1, u[:, 1] + TILE - u[:, 4])
+            - np.maximum(0, u[:, 1] - u[:, 5] + 1))
+    return int(((u[:, 3] - u[:, 2]) * cols).sum()) * TILE * TILE
+
+
 def batched_blocks(batch: int, plan: UnitPlan) -> int:
     """Blocks of ``conv2d_trunc_f32_batched``'s grid: one per (unit of the
     single-pair plan, batch entry), unit-major, on the grid's x axis."""
@@ -186,10 +228,10 @@ def batched_blocks(batch: int, plan: UnitPlan) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_on_card(a_shape, b_shape, out_shape, device):
+def _plan_on_card(a_shape, b_shape, out_shape, device, cut_j1=True):
     """``unit_plan`` with its two tables on ``device``, kept for the next
     call of the same shapes (no host-to-device copy then)."""
-    plan = unit_plan(a_shape, b_shape, out_shape)
+    plan = unit_plan(a_shape, b_shape, out_shape, cut_j1)
     units = torch.from_numpy(plan.units).to(device)
     sums = torch.from_numpy(plan.sums).to(device)
     return plan, units, sums
@@ -251,15 +293,16 @@ def conv2d_trunc_f32_reference(a, b, out_shape):
     return _antidiag_sum(H, c1)
 
 
-def conv2d_trunc_f32(a, b, out_shape):
-    """Truncated 2-D Cauchy product of f32 matrices ``a`` (a0, a1) and
-    ``b`` (b0, b1) to ``out_shape`` (c0, c1); any sizes >= 1."""
+def _unit_kernel(wrapper, cut_j1, a, b, out_shape):
+    """Launch the single-pair kernel named like ``wrapper`` on its unit
+    plan: the table, the workspace its slots need, the smaller operand as
+    the kernel's b."""
     c0, c1 = _check(a, b, out_shape)
     if not _on_card(a):
         return conv2d_trunc_f32_reference(a, b, (c0, c1))
     lib = _build.load()
     plan, units, sums = _plan_on_card(tuple(a.shape), tuple(b.shape),
-                                      (c0, c1), a.device)
+                                      (c0, c1), a.device, cut_j1)
     if plan.swap:
         a, b = b, a
     alloc = torch.empty if plan.covers else torch.zeros
@@ -267,32 +310,11 @@ def conv2d_trunc_f32(a, b, out_shape):
     work = (torch.empty((plan.slots, TILE, TILE), dtype=torch.float32,
                         device=a.device) if plan.slots else None)
     with _on_device(a.device):
-        err = lib.conv2d_trunc_f32(
+        err = getattr(lib, wrapper.__name__)(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
             0 if work is None else work.data_ptr(),
             units.data_ptr(), len(plan.units), sums.data_ptr(),
             len(plan.sums), a.shape[0], a.shape[1], b.shape[1], c0, c1,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, "conv2d_trunc_f32", err)
-    conv2d_trunc_f32.launches += 1
-    return out
-
-
-def _single_tile_kernel(wrapper, a, b, out_shape):
-    """Launch the one-pass kernel named like ``wrapper`` (tile or
-    grouped): one block per output tile, the smaller operand as b."""
-    c0, c1 = _check(a, b, out_shape)
-    if not _on_card(a):
-        return conv2d_trunc_f32_reference(a, b, (c0, c1))
-    lib = _build.load()
-    if _swap(tuple(a.shape), tuple(b.shape)):
-        a, b = b, a
-    out = torch.empty((c0, c1), dtype=torch.float32, device=a.device)
-    with _on_device(a.device):
-        err = getattr(lib, wrapper.__name__)(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            a.shape[0], a.shape[1], b.shape[0], b.shape[1], c0, c1,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, wrapper.__name__, err)
@@ -300,17 +322,28 @@ def _single_tile_kernel(wrapper, a, b, out_shape):
     return out
 
 
+def conv2d_trunc_f32(a, b, out_shape):
+    """Truncated 2-D Cauchy product of f32 matrices ``a`` (a0, a1) and
+    ``b`` (b0, b1) to ``out_shape`` (c0, c1); any sizes >= 1."""
+    return _unit_kernel(conv2d_trunc_f32, True, a, b, out_shape)
+
+
 def conv2d_trunc_f32_tile(a, b, out_shape):
-    """``conv2d_trunc_f32`` with one block per output tile over the whole
-    j0 range (no split): equal to it bit for bit where its launch plan
-    does not split, and to f32 rounding where it does."""
-    return _single_tile_kernel(conv2d_trunc_f32_tile, a, b, out_shape)
+    """``conv2d_trunc_f32`` on the tensor cores: every (tile, j0) a product
+    of an a window with the Toeplitz tile of one b row, in three TF32
+    passes over operands split into a high and a scaled low part, j0
+    ascending, on the plan that cuts j0 only.  Equal to
+    ``conv2d_trunc_f32`` to f32 rounding, and the same bits from call to
+    call and card to card."""
+    return _unit_kernel(conv2d_trunc_f32_tile, False, a, b, out_shape)
 
 
 def conv2d_trunc_f32_grouped(a, b, out_shape):
-    """``conv2d_trunc_f32_tile`` with the j0 sum in residue-major order
-    (j0 mod 8 outer): equal to it to f32 rounding."""
-    return _single_tile_kernel(conv2d_trunc_f32_grouped, a, b, out_shape)
+    """``conv2d_trunc_f32_tile`` with j0 in residue-major order inside a
+    staged group (j0 mod 8 outer), which lets the kernel carry its a
+    operand in registers from one j0 of a class to the next: equal to it
+    to f32 rounding."""
+    return _unit_kernel(conv2d_trunc_f32_grouped, False, a, b, out_shape)
 
 
 def conv2d_trunc_f32_batched_reference(a_batch, b, out_shape):

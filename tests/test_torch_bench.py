@@ -73,5 +73,9 @@ def test_bench_sections_on_card(tmp_path, monkeypatch):
     for row in results["pallas_kernel"].values():
         assert row["max_rel_err_vs_f64"] < 1e-4
         assert 0 < row["bound_share"] <= 1
+    for row in results["pallas_rowstrip"].values():
+        # against the tensor cores' rate, three TF32 passes
+        assert 0 < row["tile_bound_share"] <= 1
+        assert 0 < row["grouped_bound_share"] <= 1
     assert results["_meta"]["card"] == bench.card()
     assert np.isfinite(results["pallas_rowstrip"]["512"]["grouped_ms"])

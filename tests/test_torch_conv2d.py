@@ -101,12 +101,10 @@ def _kernel_shapes(sa, sb, swap):
     return (sb, sa) if swap else (sa, sb)
 
 
-@pytest.mark.parametrize("sa,sb,out,swap", PLAN_SHAPES)
-def test_unit_plan(sa, sb, out, swap):
+def _check_plan(plan, sa, sb, out, swap):
     """Units cover every (tile, j0, j1) the clipping keeps exactly once,
     none is empty, they come heaviest first, and a tile's slots are
-    contiguous and in (j0, j1) order."""
-    plan = C.unit_plan(sa, sb, out)
+    contiguous and in (j0, j1) order.  Returns the units by tile."""
     assert plan.swap is swap
     ka, kb = _kernel_shapes(sa, sb, swap)
     units = plan.units
@@ -147,6 +145,72 @@ def test_unit_plan(sa, sb, out, swap):
         assert [c[1:] for c in cuts] == sorted(c[1:] for c in cuts)
         used.extend(c[0] for c in cuts)
     assert sorted(used) == list(range(plan.slots))
+    return by_tile
+
+
+@pytest.mark.parametrize("sa,sb,out,swap", PLAN_SHAPES)
+def test_unit_plan(sa, sb, out, swap):
+    _check_plan(C.unit_plan(sa, sb, out), sa, sb, out, swap)
+
+
+@pytest.mark.parametrize("sa,sb,out,swap", PLAN_SHAPES)
+def test_unit_plan_j0_only(sa, sb, out, swap):
+    """The plan of the tensor-core kernels (``cut_j1=False``) is a unit
+    plan like the other, and cuts j0 alone: a tile has one j1 range,
+    unless its j0 range is too short to cut (then j1 is cut at multiples
+    of a tile's width)."""
+    plan = C.unit_plan(sa, sb, out, cut_j1=False)
+    by_tile = _check_plan(plan, sa, sb, out, swap)
+    for cuts in by_tile.values():
+        j0_cuts = {c[1:3] for c in cuts}
+        j1_cuts = sorted({c[3:5] for c in cuts})
+        n0 = max(hi for _, hi in j0_cuts) - min(lo for lo, _ in j0_cuts)
+        if n0 >= 2 * C.MMA_MIN_ROWS:
+            assert len(j1_cuts) == 1
+        else:
+            assert len(j0_cuts) == 1
+            for lo, _ in j1_cuts[1:]:
+                assert (lo - j1_cuts[0][0]) % C.MMA_J1_STEP == 0
+        if len(j0_cuts) > 1:
+            assert min(hi - lo for lo, hi in j0_cuts) >= C.MMA_MIN_ROWS
+
+
+@pytest.mark.parametrize("order,units,issued", [
+    (256, 160, 1.551), (384, 500, 1.355), (512, 963, 1.261),
+    (768, 1274, 1.171),
+])
+def test_unit_plan_j0_only_is_balanced(order, units, issued):
+    """At the dense orders: the coarse units are near their mean, orders
+    from 384 have more units than a card has block slots (396: the
+    kernels no longer run one block a tile), and the kernel issues
+    1.17-1.55 times the useful multiply-adds (full tiles, and the band's
+    edges)."""
+    shape = (order, order)
+    plan = C.unit_plan(shape, shape, shape, cut_j1=False)
+    w = plan.weights()
+    assert len(w) == units
+    coarse = w[w > w.max() / 2]
+    assert coarse.max() <= 1.5 * coarse.mean()
+    if order >= 384:
+        assert len(w) > 396
+    useful = sum((k0 + 1) * (k1 + 1) for k0 in range(order)
+                 for k1 in range(order))
+    assert C.issued_macs(plan, shape, shape) / useful == pytest.approx(
+        issued, abs=1e-3)
+
+
+@pytest.mark.parametrize("sa,sb,body", [
+    ((512, 512), (512, 512), "mma"),
+    ((130, 140), (120, 100), "mma"),
+    ((95, 87), (95, 8), "mma"),
+    ((95, 1), (95, 87), "ffma"),  # the one-column operand becomes b
+    ((308, 274), (308, 1), "ffma"),
+    ((16, 5), (3, 40), "ffma"),  # swapped: b is (16, 5)
+    ((1, 274), (308, 274), "mma"),  # b is the one-row operand
+])
+def test_tile_body_by_shape(sa, sb, body):
+    assert C.tile_body(sa, sb) == body
+    assert C.tile_body(sb, sa) == body
 
 
 @pytest.mark.parametrize("sa,sb,out", [
@@ -173,14 +237,15 @@ def test_unit_plan_depends_on_the_shapes_alone():
     import inspect
 
     assert list(inspect.signature(C.unit_plan.__wrapped__).parameters) == [
-        "a_shape", "b_shape", "out_shape"]
+        "a_shape", "b_shape", "out_shape", "cut_j1"]
     args = ((512, 512), (512, 512), (512, 512))
-    first = C.unit_plan(*args)
-    C.unit_plan.cache_clear()
-    again = C.unit_plan(*args)
-    assert first is not again
-    assert np.array_equal(first.units, again.units)
-    assert np.array_equal(first.sums, again.sums)
+    for cut_j1 in (True, False):
+        first = C.unit_plan(*args, cut_j1)
+        C.unit_plan.cache_clear()
+        again = C.unit_plan(*args, cut_j1)
+        assert first is not again
+        assert np.array_equal(first.units, again.units)
+        assert np.array_equal(first.sums, again.sums)
 
 
 @pytest.mark.parametrize("sa,sb,out", [

@@ -1,0 +1,383 @@
+"""The arithmetic and the index algebra of the tensor-core kernels K4a
+(``conv2d_trunc_f32_tile``) and K4b (``conv2d_trunc_f32_grouped``),
+``genfer_tpu_torch/csrc/conv2d_mma.cuh``, emulated in numpy.
+
+A CUDA kernel cannot run without a card, so what these tests hold is the
+design the kernel follows, against genfer_tpu's host f64 product at the
+Pallas tests' bar (rtol 5e-5 / atol 1e-6):
+
+* the split: hi = tf32(x) rounded to nearest, lo = tf32((x - hi) * 2^11),
+  three TF32 products (hi*hi, hi*lo, lo*hi) on the unit plan that cuts j0
+  only, ``mma`` chains of eight steps from zero accumulators, f32 sums
+  at three levels outside the chain.  Inside a chain the f32 accumulation
+  is emulated as round-toward-zero with results below f32's smallest
+  normal flushed to zero: the pessimistic reading of a tensor core.  The
+  same emulation with one long chain, or without the 2^11 scale, fails
+  the bar: that is why the design has both;
+* the fragment offsets: an ``mma.sync.m16n8k8`` assembled lane by lane
+  from the offsets the kernel computes names the a window times the
+  Toeplitz tile of one b row;
+* the residue carry of K4b: shifting the A halves down and loading the
+  top one names the same window rows as loading all of them.
+"""
+
+import numpy as np
+import pytest
+
+from genfer_tpu.taylor.backend import NumpyF64Backend
+from genfer_tpu_torch import bench
+from genfer_tpu_torch.ops import conv2d as C
+
+RTOL, ATOL = 5e-5, 1e-6
+ATOL_EXTREME = 1e-37
+TILE = C.TILE
+G = 16  # j0 rows a stage (MmaGeo in conv2d_mma.cuh)
+KB = 64  # a columns a stage
+SLICES = KB // 8
+CHAIN = SLICES // 2  # k-slices of one chain of K4b
+TINY = float(np.finfo(np.float32).tiny)
+
+# tests/test_parallel_ops.py::test_pallas_conv2d_rowstrip_interpret
+ROWSTRIP_SHAPES = [
+    ((5, 7), (4, 6), (8, 12)),
+    ((70, 80), (60, 50), (70, 80)),
+    ((200, 300), (150, 100), (280, 380)),
+]
+
+
+def tf32_rn(x):
+    """cvt.rna.tf32.f32: 10 explicit mantissa bits, round to nearest, ties
+    away from zero."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x, scale):
+    x = np.asarray(x, dtype=np.float32)
+    hi = tf32_rn(x)
+    return hi, tf32_rn((x - hi) * np.float32(scale))
+
+
+def chain_step(acc, part):
+    """One ``mma`` into an f32 accumulator, pessimistically: the exact sum
+    of the accumulator and the slice's products, rounded toward zero, and
+    flushed to zero below f32's normal range."""
+    exact = acc.astype(np.float64) + part
+    got = exact.astype(np.float32)
+    over = np.abs(got.astype(np.float64)) > np.abs(exact)
+    got = np.where(over, np.nextafter(got, np.float32(0)), got)
+    return np.where(np.abs(got) < TINY, np.float32(0), got)
+
+
+def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
+            plan=None, tiles=None):
+    """The f32 result of the kernel's arithmetic for f64 operands ``a``,
+    ``b`` (cast to f32 first, as the wrapper's caller does).  ``tiles``
+    restricts the work to those output tiles; the rest of the result is
+    NaN."""
+    plan = plan or C.unit_plan(a.shape, b.shape, out, cut_j1=False)
+    ka, kb = (b, a) if plan.swap else (a, b)
+    ka = np.asarray(ka, dtype=np.float32)
+    kb = np.asarray(kb, dtype=np.float32)
+    a0, a1 = ka.shape
+    unscale = np.float32(1.0 / scale)
+    # a and b with zeros around, so that every window is a plain slice
+    pad0, pad1 = TILE + G, KB + TILE
+    ah, al = split(np.pad(ka, ((pad0, pad0 + out[0]), (0, pad1 + out[1]))),
+                   scale)
+    c = np.full(out, np.nan, dtype=np.float32)
+    work = np.zeros((max(plan.slots, 1), TILE, TILE), dtype=np.float32)
+    wanted = {}
+    for K0, K1, lo0, hi0, lo1, hi1, slot, _ in plan.units.tolist():
+        if tiles is not None and (K0, K1) not in tiles:
+            continue
+        i1_lo, i1_hi = max(0, K1 - hi1 + 1), min(a1, K1 + TILE - lo1)
+        acc = np.zeros((TILE, TILE), dtype=np.float32)
+        hh = np.zeros((TILE, TILE), dtype=np.float32)
+        cr = np.zeros((TILE, TILE), dtype=np.float32)
+        for g0 in range(lo0, hi0, G):
+            for i1_0 in range(i1_lo, i1_hi, KB):
+                # b rows g0 .. g0 + G - 1, words K1 - i1_0 - KB + 1 + x,
+                # masked to the unit
+                col0 = K1 - i1_0 - KB + 1
+                rows = np.zeros((G, KB + TILE - 1), dtype=np.float32)
+                x = np.arange(KB + TILE - 1)
+                ok = (col0 + x >= lo1) & (col0 + x < hi1)
+                n = min(G, hi0 - g0)
+                rows[:n, ok] = kb[g0:g0 + n, (col0 + x)[ok]]
+                bh, bl = split(rows, scale)
+                # T[dj, k, n] = row[dj, n - k + KB - 1]
+                view = np.lib.stride_tricks.sliding_window_view
+                th, tl = (view(r, TILE, axis=1)[:, ::-1, :] for r in (bh, bl))
+                # A[dj, m, k] = a[K0 + m - (g0 + dj), i1_0 + k]
+                r0 = pad0 + K0 - g0
+                wh, wl = (np.stack([p[r0 - dj:r0 - dj + TILE,
+                                      i1_0:i1_0 + KB] for dj in range(G)])
+                          for p in (ah, al))
+                # the slices' exact products, [dj, slice, m, n]
+                def products(w, t):
+                    w = w.reshape(G, TILE, SLICES, 8).transpose(0, 2, 1, 3)
+                    t = t.reshape(G, SLICES, 8, TILE)
+                    return np.matmul(w.astype(np.float64),
+                                     t.astype(np.float64))
+
+                p_hh, p_hl, p_lh = (products(wh, th), products(wh, tl),
+                                    products(wl, th))
+                # rows beyond the unit are zero, and a chain step that
+                # adds zero changes nothing: every stage runs all G rows
+                if long_chain:
+                    for dj in range(n):
+                        for s in range(SLICES):
+                            hh = chain_step(hh, p_hh[dj, s])
+                            cr = chain_step(cr, p_hl[dj, s])
+                            cr = chain_step(cr, p_lh[dj, s])
+                    continue
+                if order == "ascending":  # [step = slice, chain = dj]
+                    steps = [p.transpose(1, 0, 2, 3)
+                             for p in (p_hh, p_hl, p_lh)]
+                else:
+                    # dj = r + 8 q; a chain is (class r, half of the
+                    # slices), its steps (slice, q)
+                    steps = [p.reshape(G // 8, 8, 2, CHAIN, TILE, TILE)
+                             .transpose(3, 0, 1, 2, 4, 5)
+                             .reshape(CHAIN * G // 8, 16, TILE, TILE)
+                             for p in (p_hh, p_hl, p_lh)]
+                hh = np.zeros(steps[0].shape[1:], dtype=np.float32)
+                cr = np.zeros_like(hh)
+                for s_hh, s_hl, s_lh in zip(*steps):
+                    hh = chain_step(hh, s_hh)
+                    cr = chain_step(chain_step(cr, s_hl), s_lh)
+                ends = (cr.astype(np.float64) * unscale + hh).astype(
+                    np.float32)
+                grp = np.zeros((TILE, TILE), dtype=np.float32)
+                for end in ends:  # chain ends, in the kernel's order
+                    grp += end
+                acc += grp
+        if long_chain:
+            acc = (cr.astype(np.float64) * unscale + hh).astype(np.float32)
+        if slot < 0:
+            wanted[(K0, K1)] = acc
+        else:
+            work[slot] = acc
+    for K0, K1, first, n in plan.sums.tolist():
+        if tiles is None or (K0, K1) in tiles:
+            total = np.zeros((TILE, TILE), dtype=np.float32)
+            for z in range(first, first + n):
+                total += work[z]
+            wanted[(K0, K1)] = total
+    for (K0, K1), tile in wanted.items():
+        r, q = min(TILE, out[0] - K0), min(TILE, out[1] - K1)
+        c[K0:K0 + r, K1:K1 + q] = tile[:r, :q]
+    if tiles is None and not plan.covers:
+        c[np.isnan(c)] = 0
+    return c
+
+
+def _rowstrip_operands(i):
+    rng = np.random.RandomState(13)
+    for sa, sb, _ in ROWSTRIP_SHAPES[: i + 1]:
+        a, b = rng.rand(*sa), rng.rand(*sb)
+    return a, b
+
+
+def _extreme_operands(seed):
+    rng = np.random.default_rng(seed)
+    a, b = rng.random((130, 140)), rng.random((120, 100))
+    return (a * 10.0 ** np.linspace(-30, 30, 140),
+            b * 10.0 ** np.linspace(-6, 6, 100))
+
+
+@pytest.mark.parametrize("order,i", [
+    ("ascending", 0), ("ascending", 1), ("ascending", 2),
+    ("residue", 0), ("residue", 1),
+])
+def test_split_arithmetic_holds_the_gate(order, i):
+    sa, sb, out = ROWSTRIP_SHAPES[i]
+    a, b = _rowstrip_operands(i)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    got = emulate(a, b, out, order)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    # well inside it: the kernels are held to 2e-6 on the card
+    assert (np.abs(got - want) <= 2e-6 * np.abs(want) + ATOL).all()
+
+
+@pytest.mark.parametrize("order", ["ascending", "residue"])
+def test_split_arithmetic_holds_every_column_scale(order):
+    """Column scales from 1e-30 to 1e30 (a) and 1e-6 to 1e6 (b): every
+    output column is held to the rtol at its own scale."""
+    a, b = _extreme_operands(13)
+    out = (130, 140)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    got = emulate(a, b, out, order).astype(np.float64)
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= RTOL * np.abs(want) + ATOL_EXTREME).all()
+
+
+def test_unscaled_low_part_loses_the_small_columns():
+    """lo = tf32(x - hi) without the 2^11 scale: where a's columns are
+    1e-30, lo's products with b's 1e-6 columns are subnormal, a chain
+    that flushes them drops the whole cross term (2^-11 relative), and
+    the smallest columns leave the bar."""
+    a, b = _extreme_operands(13)
+    out = (130, 140)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    got = emulate(a, b, out, scale=1.0, tiles={(0, 0)}).astype(np.float64)
+    rel = np.abs(got - want)[:64, :64] / np.abs(want)[:64, :64]
+    assert rel[:, :8].max() > RTOL  # the columns near 1e-36
+    assert rel[:, 48:].max() < 2e-6  # larger columns: lo's products normal
+    scaled = emulate(a, b, out, tiles={(0, 0)}).astype(np.float64)
+    assert (np.abs(scaled - want)[:64, :64]
+            <= 2e-6 * np.abs(want)[:64, :64] + ATOL_EXTREME).all()
+
+
+def test_one_long_chain_drifts_out_of_the_gate(monkeypatch):
+    """One chain over a whole tile (every j0, every k-slice) in the tensor
+    core's own accumulator: truncation is a bias on positive operands, it
+    grows with the chain, and the result leaves the bar that the same
+    tile holds with chains of eight."""
+    monkeypatch.setattr(C, "UNIT_TARGET", 1)  # one unit a tile
+    C.unit_plan.cache_clear()
+    sa = sb = out = (256, 256)
+    try:
+        plan = C.unit_plan(sa, sb, out, cut_j1=False)
+    finally:
+        C.unit_plan.cache_clear()
+    assert plan.slots == 0
+    rng = np.random.default_rng(5)
+    a, b = rng.random(sa), rng.random(sb)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    tile = (192, 192)  # 256 j0 x 32 k-slices in one chain
+    sl = np.s_[tile[0]:tile[0] + TILE, tile[1]:tile[1] + TILE]
+    long = emulate(a, b, out, long_chain=True, plan=plan, tiles={tile})
+    short = emulate(a, b, out, plan=plan, tiles={tile})
+    bar = ATOL + RTOL * np.abs(want[sl])
+    assert (np.abs(long[sl] - want[sl]) > bar).any()
+    assert (long[sl] < want[sl]).all()  # a bias, not noise
+    assert (np.abs(short[sl] - want[sl]) <= 2e-6 * np.abs(want[sl])
+            + ATOL).all()
+
+
+# ------------------------------------------------------- index algebra
+
+
+def _mma_m16n8k8(a_frag, b_frag):
+    """D = A B from per-lane fragments, by the PTX layout of
+    mma.sync.m16n8k8 (.tf32): lane = 4 g + t; A regs (g, t), (g + 8, t),
+    (g, t + 4), (g + 8, t + 4); B regs (k = t, n = g), (k = t + 4, n = g);
+    D regs (g, 2 t), (g, 2 t + 1), (g + 8, 2 t), (g + 8, 2 t + 1)."""
+    A, B = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a_frag[lane]
+        B[t, g], B[t + 4, g] = b_frag[lane]
+    D = A @ B
+    return [[D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t],
+             D[g + 8, 2 * t + 1]] for g, t in (divmod(lane, 4)
+                                                for lane in range(32))]
+
+
+@pytest.mark.parametrize("dj,warp", [
+    (0, 0), (5, 1), (15, 2), (9, 3), (8, 0),
+])
+def test_fragment_offsets_name_the_window_and_the_toeplitz_tile(dj, warp):
+    """A stage staged as the kernel stages it, fragments read at the
+    kernel's offsets, and the 2 x 4 mma tiles of one warp over the eight
+    k-slices: the warp's 32 x 32 block of (a window) x (Toeplitz tile of
+    b row j0)."""
+    rng = np.random.default_rng(dj)
+    a_pitch, b_pitch = KB + 4, KB + TILE
+    K0, K1, g0, i1_0 = 128, 192, 40, 96
+    a = rng.integers(-4, 5, (400, 400)).astype(np.float64)
+    b = rng.integers(-4, 5, (200, 400)).astype(np.float64)
+    # window row r, word k: a[K0 - (g0 + G - 1) + r][i1_0 + k]
+    sA = np.zeros((TILE + G - 1) * a_pitch)
+    for r in range(TILE + G - 1):
+        sA[r * a_pitch:r * a_pitch + KB] = a[K0 - (g0 + G - 1) + r,
+                                             i1_0:i1_0 + KB]
+    # b row dj, word x: b[g0 + dj][K1 - i1_0 - KB + 1 + x]
+    sB = np.zeros(G * b_pitch)
+    for d in range(G):
+        for x in range(KB + TILE - 1):
+            sB[d * b_pitch + x] = b[g0 + d, K1 - i1_0 - KB + 1 + x]
+    mb, nb = (warp // 2) * 32, (warp % 2) * 32
+    got = np.zeros((32, 32))
+    for ks in range(SLICES):
+        kk = 8 * ks
+        for M in range(2):
+            for N in range(4):
+                a_frag, b_frag = [], []
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    wm = ((mb + g - dj + G - 1) * a_pitch + kk + t
+                          + 16 * M * a_pitch)
+                    a_frag.append((sA[wm], sA[wm + 8 * a_pitch], sA[wm + 4],
+                                   sA[wm + 8 * a_pitch + 4]))
+                    x = dj * b_pitch + nb + g - kk - t + KB - 1
+                    b_frag.append((sB[x + 8 * N], sB[x + 8 * N - 4]))
+                d = _mma_m16n8k8(a_frag, b_frag)
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for i in range(4):
+                        got[16 * M + g + 8 * (i // 2),
+                            8 * N + 2 * t + (i & 1)] += d[lane][i]
+    j0 = g0 + dj
+    want = np.zeros((32, 32))
+    for m in range(32):
+        for n in range(32):
+            want[m, n] = sum(
+                a[K0 + mb + m - j0, i1] * b[j0, K1 + nb + n - i1]
+                for i1 in range(i1_0, i1_0 + KB))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("mb", [0, 32])
+@pytest.mark.parametrize("r", range(8))
+def test_residue_carry_names_the_rows_of_direct_loads(mb, r):
+    """K4b steps j0 by 8 inside a class: the window moves down 8 rows, so
+    A half h (rows mb + 8 h + g of the tile) becomes the old half h - 1
+    and only half 0 is loaded.  Followed over a class's steps, the carried
+    registers name the window rows that direct loads would."""
+    halves = 4  # 2 MT halves of 8 rows
+    for g in range(8):
+        def row(h, dj):
+            return mb + 8 * h + g - dj + G - 1
+
+        regs = [row(h, r) for h in range(halves)]  # q = 0: all loaded
+        for q in range(1, G // 8):
+            dj = r + 8 * q
+            regs = [row(0, dj)] + regs[:-1]  # shift down, load the top
+            assert regs == [row(h, dj) for h in range(halves)]
+            assert min(regs) >= 0 and max(regs) < TILE + G - 1
+            # the m16n8k8 A fragment of mma tile M: rows g and g + 8
+            for M in range(halves // 2):
+                assert regs[2 * M + 1] - regs[2 * M] == 8
+
+
+# -------------------------------------------------------------- bound
+
+
+@pytest.mark.parametrize("order", [256, 384, 512, 768])
+def test_bound_of_a_split_product_is_the_tensor_rate(order):
+    """Three TF32 passes at the data-sheet TF32 rate; a kernel that ran
+    at that rate would read a share of exactly 1 against this bound and
+    an impossible one (> 1) against the FFMA bound."""
+    shape = (order, order)
+    ffma, by = bench.product_bound(shape, shape, shape)
+    assert by == "operations"
+    ms, by = bench.product_bound(shape, shape, shape,
+                                 passes=bench.SPLIT_PASSES)
+    assert by == "tensor operations"
+    macs = ffma * 1e-3 * bench.F32_FMA_PER_S
+    fastest = 3 * macs / bench.TF32_MMA_PER_S * 1e3
+    assert ms == pytest.approx(fastest, rel=1e-12)
+    assert ms / fastest <= 1 + 1e-12 < ffma / fastest
+    if order == 512:
+        assert ms == pytest.approx(0.209, rel=5e-3)
+
+
+def test_bound_of_a_thin_split_product_is_still_its_bytes():
+    ms, by = bench.product_bound((1, 87), (95, 87), (95, 87),
+                                 passes=bench.SPLIT_PASSES)
+    assert by == "bytes"
+    assert ms == bench.product_bound((1, 87), (95, 87), (95, 87))[0]

@@ -1,6 +1,7 @@
 """The port's K3 (batched), K4a (tile), K4b (grouped) and K6 (1-D) wrappers
 against genfer_tpu's Pallas kernels in interpret mode and the f64 host
-product, and K3's grid over K2's work-unit plan.
+product, and K3's grid over K2's work-unit plan.  (The arithmetic of the
+tensor-core kernels K4a and K4b is emulated in tests/test_torch_mma.py.)
 
 On the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
 themselves are compared on the card by the ``cuda``-marked tests at the
@@ -213,7 +214,7 @@ def test_batched_launch_plan(batch, sa, sb, out, swap):
     import inspect
 
     assert list(inspect.signature(C._plan_on_card.__wrapped__).parameters) == [
-        "a_shape", "b_shape", "out_shape", "device"]
+        "a_shape", "b_shape", "out_shape", "device", "cut_j1"]
     plan = C.unit_plan(sa, sb, out)
     assert plan.swap is swap
     blocks = C.batched_blocks(batch, plan)
@@ -258,7 +259,10 @@ CARD_SHAPES = ROWSTRIP_SHAPES + [
     ((1, 130), (130, 1), (130, 130)),
     ((95, 1), (95, 87), (95, 87)),
     ((16, 5), (3, 40), (10, 12)),
+    # a's rows not 16-byte aligned
+    ((130, 141), (120, 100), (130, 140)),
     ((512, 512), (512, 512), (512, 512)),
+    ((768, 768), (768, 768), (768, 768)),
 ]
 
 
@@ -271,20 +275,47 @@ def test_tile_and_grouped_on_card(sa, sb, out):
     want = _f64_product(a, b, out)
     ta, tb = _f32(a).cuda(), _f32(b).cuda()
     strip = ops.conv2d_trunc_f32(ta, tb, out)
+    got = {}
     for kernel in (ops.conv2d_trunc_f32_tile, ops.conv2d_trunc_f32_grouped):
         before = kernel.launches
-        got = kernel(ta, tb, out)
+        got[kernel] = kernel(ta, tb, out)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
-        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL,
+        np.testing.assert_allclose(got[kernel].cpu().numpy(), want, rtol=RTOL,
                                    atol=ATOL)
-    # K4a keeps the first tile code (conv2d_tile.cuh) and K2 runs the unit
-    # code, so the two differ in summation order only: each is within
-    # ~5e-7 relative of f64 on these positive operands, and they are held
-    # to 2e-6 of each other (16 ulp of f32)
+        # the slot sum has a fixed order: a second call gives the same bits
+        assert torch.equal(kernel(ta, tb, out), got[kernel])
+    tile = got[ops.conv2d_trunc_f32_tile].cpu().numpy()
+    # K4a and K4b run the same split-TF32 arithmetic in another j0 order
     np.testing.assert_allclose(
-        ops.conv2d_trunc_f32_tile(ta, tb, out).cpu().numpy(),
-        strip.cpu().numpy(), rtol=2e-6, atol=0.0)
+        got[ops.conv2d_trunc_f32_grouped].cpu().numpy(), tile, rtol=1e-5,
+        atol=0.0)
+    # K4a runs three TF32 passes on operands split into hi + 2^-11 lo and
+    # drops lo*lo (2^-22 relative); K2 runs f32 FMAs.  Each reads within
+    # ~5e-7 relative of f64 on these positive operands (the truncation
+    # inside an mma chain included), and they are held to 4e-6 of each
+    # other: 2e-6, the mark either is held to against f64, twice
+    np.testing.assert_allclose(tile, strip.cpu().numpy(), rtol=4e-6,
+                               atol=0.0)
+
+
+@pytest.mark.cuda
+def test_tile_and_grouped_on_card_extreme_scales():
+    """Column scales from 1e-30 to 1e30 (a) and 1e-6 to 1e6 (b): the
+    scaled low part keeps every column at the rtol of its own scale."""
+    _card()
+    rng = np.random.default_rng(13)
+    out = (130, 140)
+    a = rng.random((130, 140)) * 10.0 ** np.linspace(-30, 30, 140)
+    b = rng.random((120, 100)) * 10.0 ** np.linspace(-6, 6, 100)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    ta, tb = _f32(a).cuda(), _f32(b).cuda()
+    for kernel in (ops.conv2d_trunc_f32_tile, ops.conv2d_trunc_f32_grouped):
+        got = kernel(ta, tb, out)
+        assert torch.equal(kernel(ta, tb, out), got)
+        have = got.cpu().numpy().astype(np.float64)
+        assert np.isfinite(have).all()
+        assert (np.abs(have - want) <= RTOL * np.abs(want) + 1e-37).all()
 
 
 @pytest.mark.cuda

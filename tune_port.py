@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Tuning probes for the work-unit kernels (K2 ``conv2d_trunc_f32``, K3
-``conv2d_trunc_f32_batched``) on one CUDA card.
+``conv2d_trunc_f32_batched``, and the tensor-core kernels K4a
+``conv2d_trunc_f32_tile`` and K4b ``conv2d_trunc_f32_grouped``) on one
+CUDA card.
 
     python3 tune_port.py
 
-Three measurements, each printed with the card's name and power limit;
+Six measurements, each printed with the card's name and power limit;
 none of them is on any path of the port:
 
 1. the card's f32 FMA ceiling: 16 independent FMA chains a thread, 8
@@ -18,7 +20,20 @@ none of them is on any path of the port:
    ``PERSISTENT_CU``; it runs ``csrc/conv2d_unit.cuh`` as K2 does;
 3. K2 and K3 under other constants of ``ops/conv2d.py::unit_plan``
    (``UNIT_TARGET``, ``MIN_ROWS``, ``TAIL_SHARE``, ``TAIL_DIV``), the
-   shipped ones first and last.
+   shipped ones first and last;
+4. the card's ``mma.sync`` TF32 ceiling: 8 independent m16n8k8
+   accumulators a warp, 1 to 4 blocks of four warps an SM, no memory
+   traffic.  It is what K4a and K4b could reach at most of the
+   data-sheet rate behind ``bench.TF32_MMA_PER_S``, which only ``wgmma``
+   reaches;
+5. K4a and K4b in a steady state: a grid of identical interior work
+   units (16 j0 x 512 columns of b at order 768, every unit on its own
+   workspace slot), so that neither the tail of a plan nor its unequal
+   units enter: the ``mma`` multiply-adds a second they sustain, as a
+   share of probe 4's ceiling;
+6. K4a and K4b under other constants of their plan
+   (``unit_plan(cut_j1=False)``: ``UNIT_TARGET``, ``MMA_MIN_ROWS``,
+   ``TAIL_SHARE``), the shipped ones first and last.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -35,6 +50,12 @@ PLANS = (
     (1024, 32, 0.0, 1), (1024, 32, 0.2, 3), (512, 32, 0.25, 4),
     (1584, 32, 0.25, 4), (792, 16, 0.25, 4), (792, 64, 0.25, 4),
     (792, 32, 0.5, 4),
+)
+
+#: (UNIT_TARGET, MMA_MIN_ROWS, TAIL_SHARE) tried in probe 6
+MMA_PLANS = (
+    (396, 16, 0.25), (1188, 16, 0.25), (1584, 16, 0.25), (792, 16, 0.5),
+    (792, 32, 0.25), (792, 8, 0.25), (792, 16, 0.0),
 )
 
 FMA_PEAK_CU = r"""
@@ -59,6 +80,42 @@ fma_peak_kernel(float* out, int iters, float x, float y) {
 extern "C" int fma_peak(float* out, int blocks, int iters, void* stream) {
   fma_peak_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       out, iters, 0.999f, 1e-3f);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+MMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+__global__ void __launch_bounds__(128)
+mma_peak_kernel(float* out, int iters) {
+  float d[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
+  uint32_t a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = (threadIdx.x + j) << 13;
+  const uint32_t b0 = threadIdx.x << 14, b1 = threadIdx.x << 15;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += d[i][0] + d[i][1] + d[i][2] + d[i][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+// ``blocks`` blocks of four warps, 8 * iters mma (1024 multiply-adds) a warp
+extern "C" int mma_peak(float* out, int blocks, int iters, void* stream) {
+  mma_peak_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, iters);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -235,6 +292,115 @@ def plan_sweep() -> None:
         C._plan_on_card.cache_clear()
 
 
+def mma_ceiling() -> float:
+    """Probe 4; returns the best rate, in mma multiply-adds a second."""
+    import torch
+
+    from genfer_tpu_torch.bench import TF32_MMA_PER_S, time_ms
+
+    lib = _compile("mma_peak", MMA_PEAK_CU)
+    lib.mma_peak.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    best, iters = 0.0, 20000
+    for per_sm in (1, 2, 3, 4):
+        blocks = per_sm * sms
+        out = torch.empty(blocks * 128, device="cuda")
+
+        def run():
+            err = lib.mma_peak(out.data_ptr(), blocks, iters,
+                               torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"mma_peak launch failed ({err})")
+
+        ms = time_ms(run, 3, warmup=1)
+        rate = blocks * 4 * iters * 8 * 1024.0 / ms * 1e3
+        best = max(best, rate)
+        print(f"probe 4 mma.sync m16n8k8 TF32 ceiling, {per_sm} blocks of "
+              f"four warps an SM: {rate / 1e12:.1f}e12 multiply-adds/s = "
+              f"{2 * rate / 1e12:.0f} TFLOP/s "
+              f"({100 * rate / TF32_MMA_PER_S:.1f}% of the data-sheet TF32 "
+              "rate the bounds use)")
+    return best
+
+
+def steady_state(ceiling: float) -> None:
+    """Probe 5: identical interior units through the shipped kernels."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch import _build
+    from genfer_tpu_torch.bench import time_ms
+    from genfer_tpu_torch.ops.conv2d import TILE
+
+    lib = _build.load()
+    order, K, rows, cols = 768, 448, 16, 512
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = 12 * sms
+    a = torch.rand((order, order), device="cuda")
+    b = torch.rand((order, order), device="cuda")
+    units = np.zeros((n, 8), dtype=np.int32)
+    units[:, :6] = (K, K, 0, rows, 0, cols)
+    units[:, 6] = np.arange(n)
+    table = torch.from_numpy(units).cuda()
+    work = torch.empty((n, TILE, TILE), device="cuda")
+    c = torch.empty((order, order), device="cuda")
+    # a unit's three passes: every j0, every column of a under the band, a
+    # TILE x TILE tile (the half of the warps whose columns miss the band's
+    # last 32 columns skip them)
+    macs = 3.0 * n * rows * (cols - 16) * TILE * TILE
+    for name in ("conv2d_trunc_f32_tile", "conv2d_trunc_f32_grouped"):
+        def run():
+            err = getattr(lib, name)(
+                a.data_ptr(), b.data_ptr(), c.data_ptr(), work.data_ptr(),
+                table.data_ptr(), n, 0, 0, order, order, order, order,
+                order, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name} launch failed ({err})")
+
+        ms = time_ms(run, 5)
+        rate = macs / ms * 1e3
+        print(f"probe 5 {name}: {n} units of {rows} j0 x {cols} columns: "
+              f"{ms:.4f} ms, {rate / 1e12:.1f}e12 mma multiply-adds/s = "
+              f"{100 * rate / ceiling:.1f}% of probe 4's ceiling")
+
+
+def mma_plan_sweep() -> None:
+    """Probe 6."""
+    import torch
+
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import SPLIT_PASSES, product_bound, time_ms
+    from genfer_tpu_torch.ops import conv2d as C
+
+    shipped = (C.UNIT_TARGET, C.MMA_MIN_ROWS, C.TAIL_SHARE)
+    try:
+        for plan in (shipped, *MMA_PLANS, shipped):
+            C.UNIT_TARGET, C.MMA_MIN_ROWS, C.TAIL_SHARE = plan
+            C.unit_plan.cache_clear()
+            C._plan_on_card.cache_clear()
+            parts = []
+            for order in ORDERS:
+                shape = (order, order)
+                a = torch.rand(shape, device="cuda")
+                b = torch.rand(shape, device="cuda")
+                bound = product_bound(shape, shape, shape,
+                                      passes=SPLIT_PASSES)[0]
+                units = len(C.unit_plan(shape, shape, shape, False).units)
+                ms = [time_ms(lambda k=k: k(a, b, shape), 10)
+                      for k in (ops.conv2d_trunc_f32_tile,
+                                ops.conv2d_trunc_f32_grouped)]
+                parts.append(
+                    f"{order}: K4a {ms[0]:.4f} ms {100 * bound / ms[0]:.1f}%"
+                    f", K4b {ms[1]:.4f} ms ({units} units)")
+            print("probe 6 target {}, min rows {}, tail {}: ".format(*plan)
+                  + ", ".join(parts))
+    finally:
+        C.UNIT_TARGET, C.MMA_MIN_ROWS, C.TAIL_SHARE = shipped
+        C.unit_plan.cache_clear()
+        C._plan_on_card.cache_clear()
+
+
 def main() -> None:
     import torch
 
@@ -248,6 +414,8 @@ def main() -> None:
     fma_ceiling()
     persistent_against_grid()
     plan_sweep()
+    steady_state(mma_ceiling())
+    mma_plan_sweep()
 
 
 if __name__ == "__main__":
