@@ -16,16 +16,20 @@ result):
    extreme-scale pair ``EXTREME`` (column scales from 1e-30 to 1e30),
    ``conv2d_trunc_f32_batched`` (K3) on the same at B = 3 and 32 (order
    768 at B = 3 only: its cuDNN yardstick alone would take half a
-   minute at B = 32), and ``conv1d_trunc_f32`` (K6) on ``SHAPES_1D``.
-   K2, K4a and K4b must each give the same bits twice, and every K3
-   entry K2's bits; each shape prints the body K4a / K4b ran for it
-   (split TF32 on the tensor cores, or FFMA for a thin b).  Times
+   minute at B = 32), and ``conv1d_trunc_f32`` (K6) on ``SHAPES_1D`` (up
+   to length 262144) and on the geometric pair ``GEOMETRIC_LEN`` (outputs
+   from 1 down to 1e-36, each held at its own scale, atol 1e-37), its f64
+   reference the folded product on the card.  K2, K4a, K4b and K6 must
+   each give the same bits twice, and every K3 entry K2's bits; each
+   shape prints the body K4a / K4b or K6 ran for it (split TF32 on the
+   tensor cores, or FFMA for a thin or small product).  Times
    of the kernel, of its plain version and of one library call computing
    the same function (``torch.nn.functional.conv2d`` / ``conv1d`` of the
    flipped operand, cuDNN in IEEE f32; timed once per operands), all
-   from CUDA events.  Then the work-unit plans at the dense orders, K2's
-   and that of K4a / K4b, and the host and device microseconds of one K2
-   call at the end-to-end run's largest shape;
+   from CUDA events.  Then the work-unit plans at the dense orders,
+   K2's and that of K4a / K4b, and K6's at its long lengths, and the
+   host and device microseconds of one K2 call at the end-to-end run's
+   largest shape and of one K6 call at length 4096;
 4. end to end: the two-population model (``generate_two_populations``,
    seed 0, size ``SIZE``) through ``python -m genfer_tpu_torch --backend
    pallas`` in-process, against the host f64 ``--backend numpy`` run of
@@ -44,8 +48,8 @@ result):
 
 Each of phases 4-6 sets the launch counts to 0 just before it and reads
 them just after.  Before the table, the shares of their bounds of K2,
-K3, K4a and K4b (the last two against the tensor cores' TF32 rate, three
-passes) with K2's time beside the tensor-core kernels'.  The
+K3, K4a, K4b and K6 (the tensor-core kernels against the TF32 rate,
+three passes) with K2's time beside K4a's and K4b's.  The
 second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Everything is reached through
 ``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
@@ -119,14 +123,20 @@ SHAPES = [
 EXTREME = ((130, 140), (120, 100), (130, 140))
 ATOL_EXTREME = 1e-37
 MAX_ORDER_B32 = 512  # larger outputs run K3 at the first of BATCHES only
-# (la, lb, lc): the Pallas test's shape, edge lengths, and phase 6's
+# (la, lb, lc): the Pallas test's shape, edge lengths, phase 6's, and
+# the long lengths where K6 does real work
+LONG_1D = (16384, 65536, 262144)
 SHAPES_1D = [
     (100, 37, 120),
     (1, 1, 1),
     (300, 7, 129),
     (7, 300, 300),
     (POISSON_LEN, POISSON_LEN, POISSON_LEN),
+    *((n, n, n) for n in LONG_1D),
 ]
+# a[i] = u_i rho^i, b[j] = v_j rho^j (u, v in [0.5, 1)), rho^n = 1e-36:
+# output k is a sum of terms of one scale rho^k, held at atol 1e-37
+GEOMETRIC_LEN = 16384
 DENSE_512 = ((512, 512), (512, 512), (512, 512))
 DENSE_256 = ((256, 256), (256, 256), (256, 256))
 MAIN_PATH = ((95, 1), (95, 87), (95, 87))  # phase 4's largest product
@@ -155,8 +165,10 @@ KERNELS = {
         ((POISSON_LEN, POISSON_LEN, POISSON_LEN), 1)),
 }
 
-#: the kernels whose operations bound is the tensor cores' TF32 rate
-TENSOR_CORE_KERNELS = ("conv2d_trunc_f32_tile", "conv2d_trunc_f32_grouped")
+#: the kernels whose operations bound is the tensor cores' TF32 rate (K6
+#: where it runs its tensor-core body: ``_passes``)
+TENSOR_CORE_KERNELS = ("conv2d_trunc_f32_tile", "conv2d_trunc_f32_grouped",
+                       "conv1d_trunc_f32")
 
 
 def fail(msg: str) -> None:
@@ -338,31 +350,106 @@ def phase3_kernels() -> dict:
                     fail(f"conv2d_trunc_f32_batched {blabel}: entry {g} "
                          "differs from the single-pair kernel")
             del ab, ab32, want_b, got_b
-    for la, lb, lc in SHAPES_1D:
-        a, b = rng.random(la), rng.random(lb)
+    rows["conv1d_trunc_f32"] = phase3_conv1d(rng)
+    return rows
+
+
+def phase3_conv1d(rng) -> dict:
+    """K6 on ``SHAPES_1D`` and the geometric pair against its plain
+    version and the folded f64 product, the same bits twice, and the body
+    it ran."""
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.ops.conv1d import fold_body, folded_product
+
+    rows = {}
+    # cuDNN's first conv1d of the process sets itself up (0.6 s): not in
+    # any timed call
+    x = torch.ones((1, 1, 8), device="cuda")
+    F.conv1d(x, x[..., :3])
+    torch.cuda.synchronize()
+    cases = [(shape, False) for shape in SHAPES_1D]
+    cases.append(((GEOMETRIC_LEN,) * 3, True))
+    for (la, lb, lc), geometric in cases:
+        if geometric:
+            rho = 10.0 ** (-36.0 / lc)
+            a = (0.5 + 0.5 * rng.random(la)) * rho ** np.arange(la)
+            b = (0.5 + 0.5 * rng.random(lb)) * rho ** np.arange(lb)
+        else:
+            a, b = rng.random(la), rng.random(lb)
         a64, b64 = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
         a32, b32 = a64.float(), b64.float()
-        want = _conv_impl(a64, b64, (lc,))
-        rows["conv1d_trunc_f32"][((la, lb, lc), 1)] = _measure(
-            "conv1d_trunc_f32",
-            lambda: ops.conv1d_trunc_f32(a32, b32, lc),
+        want = folded_product(a64, b64, lc)
+        atol = ATOL_EXTREME if geometric else ATOL
+        label = f"({la},)x({lb},)->({lc},)" + (
+            " geometric" if geometric else "")
+
+        def kernel():
+            return ops.conv1d_trunc_f32(a32, b32, lc)
+
+        rows[("geometric" if geometric else (la, lb, lc), 1)] = _measure(
+            "conv1d_trunc_f32", kernel,
             lambda: ops.conv1d_trunc_f32_reference(a32, b32, lc),
-            _library(_conv1d_library(a32, b32, lc), want), want, RTOL_1D,
-            f"({la},)x({lb},)->({lc},)")
+            _library(_conv1d_library(a32, b32, lc), want, atol), want,
+            RTOL_1D, label, atol)
+        if not torch.equal(kernel(), kernel()):
+            fail(f"conv1d_trunc_f32 {label}: two calls differ")
+        print(f"phase 3 {label}: same bits twice from K6; it ran the "
+              f"{fold_body(la, lb, lc)} body")
+        del want
     return rows
+
+
+def device_us_by_kernel(call, calls: int) -> dict:
+    """The card's time of one ``call()`` in microseconds by kernel name:
+    the device events ``torch.profiler`` records over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+            kernels[name] = (kernels.get(name, 0.0)
+                             + e.time_range.elapsed_us() / calls)
+    return kernels
+
+
+def _host_and_device_us(call, what: str, calls: int = 200) -> str:
+    """What one ``call()`` costs the host (the wrapper and its launches,
+    not waiting for the card) and the card (``device_us_by_kernel``)."""
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    kernels = device_us_by_kernel(call, calls)
+    device_us = sum(kernels.values())
+    if not device_us > 0:
+        fail(f"torch.profiler recorded no device time for {what}")
+    return (f"host {host_us:.2f} us a call (wrapper and launch, not "
+            f"waiting), device {device_us:.2f} us a call (torch.profiler: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in kernels.items()) + ")")
 
 
 def phase3_plans_and_host_cost() -> None:
     """The work-unit plans at the dense orders (K2's, which K3 shares, and
     the j0-only plan of K4a / K4b with the multiply-adds it issues over the
-    useful ones), and what one K2 call of
-    the end-to-end run's largest shape costs the host (the wrapper, per
-    call, without waiting for the card) and the card (its kernels' time
-    under ``torch.profiler``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    useful ones) and K6's at its long lengths, and what one K2 call of the
+    end-to-end run's largest shape and one K6 call of phase 6's length
+    cost the host and the card (``_host_and_device_us``)."""
     from genfer_tpu_torch import ops
+    from genfer_tpu_torch.ops import conv1d as C1
     from genfer_tpu_torch.ops.conv2d import issued_macs, unit_plan
     from genfer_tpu_torch.taylor.host import _conv_pair_flops
 
@@ -379,31 +466,28 @@ def phase3_plans_and_host_cost() -> None:
                   f"units, {len(plan.sums)} tiles of several units, "
                   f"{plan.slots} slots, heaviest unit "
                   f"{w.max() / w.mean():.3f} x the mean{issued}")
+    for n in (POISSON_LEN, *LONG_1D):
+        plan = C1.fold_plan(n, n, n)
+        w = plan.weights()
+        print(f"phase 3 fold plan length {n} K6: {len(w)} units, "
+              f"{len(plan.sums)} tiles of several units, {plan.slots} "
+              f"slots, heaviest unit {w.max() / w.mean():.3f} x the mean, "
+              "issued / useful multiply-adds "
+              f"{C1.issued_macs(plan) / (n * (n + 1) / 2):.4f}")
     sa, sb, out = MAIN_PATH
     a = torch.rand(sa, device="cuda")
     b = torch.rand(sb, device="cuda")
-    plan = unit_plan(sa, sb, out)
-    calls = 200
-    for _ in range(20):
-        ops.conv2d_trunc_f32(a, b, out)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        ops.conv2d_trunc_f32(a, b, out)
-    host_us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            ops.conv2d_trunc_f32(a, b, out)
-        torch.cuda.synchronize()
-    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA) / calls
-    if not device_us > 0:
-        fail("torch.profiler recorded no device time for conv2d_trunc_f32")
-    print(f"phase 3 conv2d_trunc_f32 {sa}x{sb}->{out}: {len(plan.units)} "
-          f"units; host {host_us:.2f} us a call (wrapper and launch, not "
-          f"waiting), device {device_us:.2f} us a call (torch.profiler)")
+    cost = _host_and_device_us(lambda: ops.conv2d_trunc_f32(a, b, out),
+                               "conv2d_trunc_f32")
+    print(f"phase 3 conv2d_trunc_f32 {sa}x{sb}->{out}: "
+          f"{len(unit_plan(sa, sb, out).units)} units; {cost}")
+    n = POISSON_LEN
+    a, b = torch.rand(n, device="cuda"), torch.rand(n, device="cuda")
+    cost = _host_and_device_us(lambda: ops.conv1d_trunc_f32(a, b, n),
+                               "conv1d_trunc_f32")
+    print(f"phase 3 conv1d_trunc_f32 ({n},)x({n},)->({n},): "
+          f"{len(C1.fold_plan(n, n, n).units)} units, "
+          f"{C1.fold_body(n, n, n)} body; {cost}")
 
 
 _POINT = re.compile(r"^(?:Normalized:\s+)?(.+?)\s+=\s+(\S+)$")
@@ -570,37 +654,61 @@ def print_shares(rows: dict, bench: dict) -> None:
     print("share of bound, conv2d_trunc_f32_batched " + ", ".join(
         f"{size}: {row['ms_batch']:.4f} ms = {100 * row['bound_share']:.1f}%"
         for size, row in bench["pallas_batched"].items()))
+    parts = []
+    for n in (POISSON_LEN, *LONG_1D):
+        shape = (n, n, n)
+        ms = rows["conv1d_trunc_f32"][(shape, 1)]["ms"]
+        bound, by = product_bound((n,), (n,), (n,),
+                                  passes=_passes("conv1d_trunc_f32", shape))
+        if not bound <= ms:
+            fail(f"conv1d_trunc_f32 length {n}: {ms} ms is under its bound "
+                 f"{bound} ms")
+        parts.append(f"{n}: {ms:.4f} ms = {100 * bound / ms:.1f}% of "
+                     f"{bound:.4g} ms, {by}")
+    print("share of bound, conv1d_trunc_f32 " + ", ".join(parts))
+
+
+def _passes(name: str, shape) -> int | None:
+    """The TF32 passes behind ``name``'s bound at ``shape`` (None: the
+    FFMA rate): K4a and K4b always, K6 where it runs its tensor-core
+    body."""
+    from genfer_tpu_torch.bench import SPLIT_PASSES
+    from genfer_tpu_torch.ops.conv1d import fold_body
+
+    if name not in TENSOR_CORE_KERNELS:
+        return None
+    if name == "conv1d_trunc_f32" and fold_body(*shape) == "ffma":
+        return None
+    return SPLIT_PASSES
 
 
 def kernel_table(rows: dict, launches: dict) -> list:
-    from genfer_tpu_torch.bench import SPLIT_PASSES, product_bound
+    from genfer_tpu_torch.bench import product_bound
 
     table = []
     for name, (source, replaces, key) in KERNELS.items():
         row = rows[name][key]
         shape, batch = key
+        passes = _passes(name, shape)
         if name == "conv1d_trunc_f32":
             la, lb, lc = shape
-            bound, by = product_bound((la,), (lb,), (lc,))
-        elif name in TENSOR_CORE_KERNELS:
-            bound, by = product_bound(*shape, batch=batch,
-                                      passes=SPLIT_PASSES)
+            bound, by = product_bound((la,), (lb,), (lc,), passes=passes)
         else:
-            bound, by = product_bound(*shape, batch=batch)
+            bound, by = product_bound(*shape, batch=batch, passes=passes)
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
-            # over the unit-scale shapes (the extreme pair's outputs
-            # reach 1e36, and are held by their relative error)
+            # over the unit-scale shapes (the extreme and geometric
+            # pairs' outputs reach 1e36 and 1e-36, and are held by their
+            # relative error)
             "max_abs_err": max(r["max_abs_err"]
                                for k, r in rows[name].items()
-                               if k[0] != "extreme"),
+                               if k[0] not in ("extreme", "geometric")),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             # "operations": of the f32 FMA rate, or of the TF32 tensor
             # rate (``bound_rate``) for the kernels that run there
             "bound_ms": bound, "bound_by": by.split()[-1],
-            "bound_rate": ("tf32 mma x 3" if name in TENSOR_CORE_KERNELS
-                           else "f32 fma"),
+            "bound_rate": "f32 fma" if passes is None else "tf32 mma x 3",
             "library_ms": row["library_ms"],
         })
     return table

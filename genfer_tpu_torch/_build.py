@@ -108,7 +108,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                        "conv2d_trunc_f32_grouped")),
         ("conv2d_trunc_f32_batched",
          [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
-        ("conv1d_trunc_f32", [ptr] * 3 + [i32] * 3 + [ptr]),
+        ("conv1d_trunc_f32", [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -366,7 +366,8 @@ sum_units_kernel(const float* __restrict__ work, float* __restrict__ c,
   const float4* part = reinterpret_cast<const float4*>(
       work + (static_cast<size_t>(g) * slots + s.z) * TILE_WORDS + e);
   float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
+  // slot order, with 16 loads in flight: a thread's loads are its latency
+#pragma unroll 16
   for (int z = 0; z < s.w; ++z) {
     const float4 x = part[z * (TILE_WORDS / 4)];
     sum.x += x.x;

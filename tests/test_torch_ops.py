@@ -154,6 +154,26 @@ def test_conv1d_matches_pallas():
 
 
 @pytest.mark.parametrize("la,lb,lc", [
+    (300, 200, 450), (1, 129, 129), (129, 1, 200),
+])
+def test_conv1d_matches_pallas_across_the_fold(la, lb, lc):
+    """Lengths that cross the plain version's 64-word rows: a of one
+    row, b of one word, a product of several rows and diagonals."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(la * 1000 + lb)
+    a = rng.random(la).astype(np.float32)
+    b = rng.random(lb).astype(np.float32)
+    ref = np.asarray(conv1d_pallas(jnp.asarray(a), jnp.asarray(b), lc,
+                                   interpret=True))
+    got = ops.conv1d_trunc_f32(_f32(a), _f32(b), lc).numpy()
+    assert got.shape == (lc,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, _conv1d_f64(a, b, lc), rtol=RTOL_1D,
+                               atol=ATOL)
+    np.testing.assert_allclose(got, ref, rtol=RTOL_1D, atol=ATOL)
+
+
+@pytest.mark.parametrize("la,lb,lc", [
     (1, 1, 1), (5, 3, 2), (3, 5, 20), (300, 7, 129), (7, 300, 300),
 ])
 def test_conv1d_reference_edge_lengths(la, lb, lc):
@@ -376,15 +396,28 @@ def test_batched_on_card_extreme_scales(nbatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("la,lb,lc", [
     (100, 37, 120), (1, 1, 1), (300, 7, 129), (7, 300, 300),
-    (4096, 4096, 4096),
+    (4096, 4096, 4096), (16384, 16384, 16384), (65536, 65536, 65536),
+    (262144, 262144, 262144),
+    # b the longer, truncated, output beyond the full product
+    (3000, 9000, 12000), (2600, 2600, 20000),
+    # either side of the shorter operand's threshold for the FFMA body
+    (100000, 511, 100000), (100000, 512, 100000),
+    # the cap: int32 index math and the grid at 2^20
+    (1 << 20, 1 << 20, 1 << 20),
 ])
 def test_conv1d_on_card(la, lb, lc):
+    """Held to the folded product in f64 on the card (np.convolve at
+    these lengths would take minutes), the same bits twice."""
     _card()
     rng = np.random.default_rng(la + lb)
     a, b = rng.random(la).astype(np.float32), rng.random(lb).astype(np.float32)
+    ta, tb = _f32(a).cuda(), _f32(b).cuda()
     before = ops.conv1d_trunc_f32.launches
-    got = ops.conv1d_trunc_f32(_f32(a).cuda(), _f32(b).cuda(), lc)
+    got = ops.conv1d_trunc_f32(ta, tb, lc)
     torch.cuda.synchronize()
     assert ops.conv1d_trunc_f32.launches == before + 1
-    np.testing.assert_allclose(got.cpu().numpy(), _conv1d_f64(a, b, lc),
-                               rtol=RTOL_1D, atol=ATOL)
+    assert got.shape == (lc,)
+    want = C1.folded_product(ta.double(), tb.double(), lc).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=RTOL_1D,
+                               atol=ATOL)
+    assert torch.equal(ops.conv1d_trunc_f32(ta, tb, lc), got)

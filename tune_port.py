@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Tuning probes for the work-unit kernels (K2 ``conv2d_trunc_f32``, K3
-``conv2d_trunc_f32_batched``, and the tensor-core kernels K4a
-``conv2d_trunc_f32_tile`` and K4b ``conv2d_trunc_f32_grouped``) on one
-CUDA card.
+``conv2d_trunc_f32_batched``, the tensor-core kernels K4a
+``conv2d_trunc_f32_tile`` and K4b ``conv2d_trunc_f32_grouped``, and the
+1-D kernel K6 ``conv1d_trunc_f32``) on one CUDA card.
 
-    python3 tune_port.py
+    python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Six measurements, each printed with the card's name and power limit;
-none of them is on any path of the port:
+Eight measurements (all, or the numbered ones), each printed with the
+card's name and power limit; none of them is on any path of the port.
+``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
+unpacked parent commit, say), whose kernels are built there: probe 8 of
+two trees run in turns compares their K6.
 
 1. the card's f32 FMA ceiling: 16 independent FMA chains a thread, 8
    blocks of 256 threads an SM, no memory traffic.  It is what the
@@ -33,7 +36,18 @@ none of them is on any path of the port:
    share of probe 4's ceiling;
 6. K4a and K4b under other constants of their plan
    (``unit_plan(cut_j1=False)``: ``UNIT_TARGET``, ``MMA_MIN_ROWS``,
-   ``TAIL_SHARE``), the shipped ones first and last.
+   ``TAIL_SHARE``), the shipped ones first and last;
+7. K6 under other constants of ``ops/conv1d.py`` (``UNIT_TARGET``,
+   ``MIN_DIAG``, ``MIN_UNITS`` of ``fold_plan``; ``MMA_MIN_MACS`` and
+   ``MMA_MIN_LEN`` set to 0 or out of reach, which forces the tensor-core
+   or the FFMA body) on ``FOLD_SHAPES``, the shipped ones first and
+   last: the card's device
+   time a call (``torch.profiler``: below ~0.1 ms a CUDA-event time reads
+   the host) and the CUDA-event time;
+8. K6 as it is in the tree, at ``K6_LENGTHS`` (la = lb = lc): the
+   CUDA-event time, the card's device time and the host's time a call
+   (the wrapper and its launches, not waiting for the card).  It uses
+   only the wrapper's public signature, so it runs on any tree.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -42,6 +56,9 @@ The probes' sources are built with the port's nvcc flags into
 import ctypes
 import subprocess
 import sys
+from pathlib import Path
+
+from chip_smoke import device_us_by_kernel
 
 ORDERS = (256, 384, 512, 768)
 BATCHES = ((256, 32), (512, 8))
@@ -57,6 +74,23 @@ MMA_PLANS = (
     (396, 16, 0.25), (1188, 16, 0.25), (1584, 16, 0.25), (792, 16, 0.5),
     (792, 32, 0.25), (792, 8, 0.25), (792, 16, 0.0),
 )
+
+#: constants of ops/conv1d.py tried in probe 7 (each on top of the shipped
+#: ones): the plan's, and the bodies' thresholds (0, or out of reach,
+#: forces the tensor-core or the FFMA body)
+FOLD_PLANS = (
+    {"MIN_DIAG": 4}, {"MIN_DIAG": 16}, {"MIN_UNITS": 16}, {"MIN_UNITS": 64},
+    {"UNIT_TARGET": 396}, {"UNIT_TARGET": 1584},
+    {"MMA_MIN_MACS": 0, "MMA_MIN_LEN": 0},
+    {"MMA_MIN_MACS": 1 << 62, "MMA_MIN_LEN": 1 << 30},
+)
+#: (la, lb, lc) of probe 7: dense products, and thin ones (a short b)
+FOLD_SHAPES = (
+    *((n, n, n) for n in (512, 1024, 2048, 4096, 8192, 16384, 65536,
+                          262144)),
+    *((65536, lb, 65536) for lb in (16, 64, 256, 1024)),
+)
+K6_LENGTHS = (120, 300, 4096, 16384, 65536, 262144)
 
 FMA_PEAK_CU = r"""
 #include <cuda_runtime.h>
@@ -401,7 +435,97 @@ def mma_plan_sweep() -> None:
         C._plan_on_card.cache_clear()
 
 
-def main() -> None:
+def fold_plan_sweep() -> None:
+    """Probe 7."""
+    import torch
+
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import time_ms
+    from genfer_tpu_torch.ops import conv1d as C1
+
+    shipped = {k: getattr(C1, k) for k in
+               ("UNIT_TARGET", "MIN_DIAG", "MIN_UNITS", "MMA_MIN_LEN",
+                "MMA_MIN_MACS")}
+    operands = {s: (torch.rand(s[0], device="cuda"),
+                    torch.rand(s[1], device="cuda")) for s in FOLD_SHAPES}
+    want = {s: ops.conv1d_trunc_f32(*operands[s], s[2]) for s in FOLD_SHAPES}
+    try:
+        for plan in ({}, *FOLD_PLANS, {}):
+            for k, v in {**shipped, **plan}.items():
+                setattr(C1, k, v)
+            C1.fold_plan.cache_clear()
+            C1._plan_on_card.cache_clear()
+            parts = []
+            for shape in FOLD_SHAPES:
+                (a, b), lc = operands[shape], shape[2]
+
+                def call():
+                    return ops.conv1d_trunc_f32(a, b, lc)
+
+                got = call()
+                rel = float(((got - want[shape]).abs()
+                             / want[shape].abs()).max())
+                reps = 20 if lc <= 16384 else 5
+                us = sum(device_us_by_kernel(call, reps).values())
+                parts.append(
+                    f"{shape}: {C1.fold_body(*shape)} "
+                    f"{len(C1.fold_plan(*shape).units)} units, device "
+                    f"{us:.2f} us, events {time_ms(call, reps):.4f} ms, "
+                    f"rel to shipped {rel:.1e}")
+            print(f"probe 7 {plan or shipped}: " + ", ".join(parts))
+    finally:
+        for k, v in shipped.items():
+            setattr(C1, k, v)
+        C1.fold_plan.cache_clear()
+        C1._plan_on_card.cache_clear()
+
+
+def k6_lengths() -> None:
+    """Probe 8."""
+    import time
+
+    import numpy as np
+    import torch
+
+    import genfer_tpu_torch
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import time_ms
+
+    rng = np.random.default_rng(8)
+    for n in K6_LENGTHS:
+        a, b = (torch.from_numpy(rng.random(n)).float().cuda()
+                for _ in range(2))
+
+        def call():
+            return ops.conv1d_trunc_f32(a, b, n)
+
+        first = call()
+        if not torch.equal(call(), first):
+            raise RuntimeError(f"length {n}: two calls differ")
+        # calls that fit in ~0.1 s
+        reps = max(3, min(200, int(100 / max(time_ms(call, 1), 1e-3))))
+        ms = time_ms(call, reps)
+        kernels = device_us_by_kernel(call, 20 if n <= 16384 else 5)
+        calls = 200 if n <= 16384 else 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        host = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        print(f"probe 8 K6 of {Path(genfer_tpu_torch.__file__).parent} "
+              f"length {n}: events {ms:.4f} ms, device "
+              f"{sum(kernels.values()):.2f} us ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in kernels.items())
+              + f"), host {host:.2f} us a call, sum "
+              f"{float(first.double().sum()):.9g}")
+
+
+def main(argv) -> None:
+    if "--tree" in argv:  # before the first import of the package
+        i = argv.index("--tree")
+        sys.path.insert(0, str(Path(argv[i + 1]).resolve()))
+        argv = argv[:i] + argv[i + 2:]
     import torch
 
     from genfer_tpu_torch import _build
@@ -409,14 +533,16 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("tune_port: no CUDA card")
+    probes = {
+        1: fma_ceiling, 2: persistent_against_grid, 3: plan_sweep,
+        4: mma_ceiling, 5: lambda: steady_state(mma_ceiling()),
+        6: mma_plan_sweep, 7: fold_plan_sweep, 8: k6_lengths,
+    }
     print(card())
     _build.load()
-    fma_ceiling()
-    persistent_against_grid()
-    plan_sweep()
-    steady_state(mma_ceiling())
-    mma_plan_sweep()
+    for number in sorted({int(x) for x in argv} or probes):
+        probes[number]()
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
