@@ -46,13 +46,42 @@ result):
    product of their probability series, against the Poisson pmf of the
    summed rate in f64; K6 must have been launched.
 
-Each of phases 4-6 sets the launch counts to 0 just before it and reads
-them just after.  Before the table, the shares of their bounds of K2,
-K3, K4a, K4b and K6 (the tensor-core kernels against the TF32 rate,
-three passes) with K2's time beside K4a's and K4b's.  The
-second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.  Everything is reached through
-``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
+7. K1 (``conv2d_trunc_f64``, the f64 2-D product on the FP64 tensor
+   cores) against its plain version (``conv2d_trunc_f64_reference``, in
+   row strips above order 512) on the card: on ``K1_SHAPES`` (those of
+   tests/test_conv_block.py) and the square ``K1_ORDERS`` 256 to 1024
+   with standard-normal operands (max abs error over max |plain| <=
+   ``K1_TOL`` = 1e-12) and with operands in [0, 1) (elementwise rtol
+   1e-12, to 512), at phase 8's largest product, on the extreme pair
+   ``K1_EXTREME`` (a's columns 1e-150 .. 1e150, b's 1e-20 .. 1e20, each
+   output column against its own max), the same bits twice everywhere;
+   a batch whose entries equal their single-pair calls bit for bit; a
+   3-axis product through ``TorchF64Backend.conv_trunc`` (one launch over
+   every pair) against the host f64 product.  Times of K1, its plain
+   version and, at phase 8's largest product and at order 512, one cuDNN
+   f64 ``conv2d``;
+8. ``--backend jax`` (``TorchF64Backend``, every coefficient tensor on the
+   card) end to end through ``python -m genfer_tpu_torch`` in-process on
+   ``examples/*.sgcl``, two_populations (seed 0, size ``E2E_SIZE`` =
+   2000, where the f32 route prints NaN) and population (size 1000, 2
+   variables), against ``--backend numpy`` at the reference's is_close
+   (rel 1e-9, abs 1e-8) on Z, the moments and every printed p(k) (and
+   the intervals a program with loops prints); one ``--bounds --backend
+   jax`` run (``TorchIntervalBackend``) whose intervals hold the host
+   f64 points; K1 must have been launched;
+9. the ``entry()`` twin (``genfer_tpu_torch.entry``) on the card against
+   the same operands on the CPU; K1 must have been launched;
+10. the bench twin's f64 headline at order 512 (K1's chain in GF/s, the
+   host C++ kernel's, K1's bound); K1 must have been launched.
+
+Each of phases 4-6 and 8-10 sets the launch counts to 0 just before it
+and reads them just after.  Before the table, the shares of their bounds
+of K2, K3, K4a, K4b, K6 (the tensor-core kernels against the TF32 rate,
+three passes) with K2's time beside K4a's and K4b's, and of K1 (against
+the FP64 tensor rate).  The second-to-last line is the kernel table as
+JSON; the last line is ``{"ok": true, "device": {...}}``.  Everything is
+reached through ``genfer_tpu_torch``; nothing here imports jax or
+genfer_tpu.
 
 Why size 500 with ``GENFER_PALLAS_OFFLOAD_FLOPS=1e5``: the f32 route
 casts f64 coefficients to f32 without scaling (as genfer_tpu's
@@ -140,6 +169,8 @@ GEOMETRIC_LEN = 16384
 DENSE_512 = ((512, 512), (512, 512), (512, 512))
 DENSE_256 = ((256, 256), (256, 256), (256, 256))
 MAIN_PATH = ((95, 1), (95, 87), (95, 87))  # phase 4's largest product
+# the largest product phase 8's two_populations run gives K1
+K1_MAIN_PATH = ((308, 1), (308, 274), (308, 274))
 DENSE_ORDERS = (256, 384, 512, 768)
 
 #: kernel -> (source, TPU kernel it replaces, the shape of the kernel
@@ -163,7 +194,42 @@ KERNELS = {
         "genfer_tpu_torch/csrc/conv1d_trunc_f32.cu",
         "genfer_tpu/ops/pallas_conv.py:29",
         ((POISSON_LEN, POISSON_LEN, POISSON_LEN), 1)),
+    "conv2d_trunc_f64": (
+        "genfer_tpu_torch/csrc/conv2d_trunc_f64.cu",
+        "genfer_tpu/taylor/backend.py:979",
+        (K1_MAIN_PATH, 1)),
 }
+
+# K1, the f64 2-D product (phases 7-10).  Its shapes: those of
+# tests/test_conv_block.py::SHAPES (ragged, c1 > a1 + b1 - 1, square
+# truncated, full, c0 < b0, degenerate first axis) and square orders, each
+# on standard-normal operands (max abs error over max |plain| <= K1_TOL)
+# and on operands in [0, 1) (elementwise rtol K1_TOL); a 3-axis product
+# through TorchF64Backend.conv_trunc (one launch over the pairs); and an
+# extreme pair, a's columns scaled 1e-150 .. 1e150 and b's 1e-20 .. 1e20,
+# each output column held against its own max
+K1_TOL = 1e-12
+K1_SHAPES = [
+    ((60, 47), (52, 61), (55, 50)),
+    ((33, 64), (64, 20), (96, 83)),
+    ((64, 64), (64, 64), (64, 64)),
+    ((64, 64), (64, 64), (127, 127)),
+    ((40, 30), (20, 25), (59, 54)),
+    ((16, 5), (3, 40), (10, 12)),
+    ((1, 33), (9, 33), (9, 40)),
+]
+K1_ORDERS = (256, 512, 768, 1024)
+K1_3AXIS = ((24, 20, 18), (16, 20, 18), (24, 20, 18))
+K1_EXTREME = ((130, 140), (120, 100), (130, 140))
+K1_BATCH = 4  # entries of the batched call held against single pairs
+PLAIN_ROWS = 128  # output rows a strip of the plain version above 512
+# phase 8: --backend jax end to end at these sizes (seed 0), against the
+# host f64 --backend numpy run at the reference's is_close
+E2E_SIZE = 2000  # two_populations; the f32 route prints Z = NaN here
+POP_SIZE, POP_VARS = 1000, 2
+BOUNDS_EXAMPLE = "scam_calls.sgcl"
+IS_CLOSE = (1e-9, 1e-8)  # rel, abs
+HEADLINE_ITERS, HEADLINE_HOST_ITERS = 4, 1  # the bench's are 8 and 3
 
 #: the kernels whose operations bound is the tensor cores' TF32 rate (K6
 #: where it runs its tensor-core body: ``_passes``)
@@ -295,7 +361,7 @@ def _measure(name, kernel, plain, library, want, rtol, label,
 def phase3_kernels() -> dict:
     from genfer_tpu_torch import ops
     from genfer_tpu_torch.ops.conv2d import tile_body
-    from genfer_tpu_torch.taylor.backend import _conv_impl
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64_reference
 
     rng = np.random.default_rng(0)
     rows: dict = {name: {} for name in KERNELS}
@@ -307,7 +373,7 @@ def phase3_kernels() -> dict:
             b = b * 10.0 ** np.linspace(-6, 6, sb[1])
         a64, b64 = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
         a32, b32 = a64.float(), b64.float()
-        want = _conv_impl(a64, b64, out)
+        want = conv2d_trunc_f64_reference(a64, b64, out)
         library = _library(_conv2d_library(a32[None], b32, out), want, atol)
         label = f"{sa}x{sb}->{out}" + (
             " extreme scales" if atol == ATOL_EXTREME else "")
@@ -334,7 +400,8 @@ def phase3_kernels() -> dict:
                 ab = ab * 10.0 ** np.linspace(-30, 30, sa[1])
             ab = torch.from_numpy(ab).cuda()
             ab32 = ab.float()
-            want_b = torch.stack([_conv_impl(x, b64, out) for x in ab])
+            want_b = torch.stack([conv2d_trunc_f64_reference(x, b64, out)
+                                  for x in ab])
             blabel = f"B={batch} {label}"
             rows["conv2d_trunc_f32_batched"][(key, batch)] = _measure(
                 "conv2d_trunc_f32_batched",
@@ -577,6 +644,10 @@ def phase4_end_to_end(launches: dict) -> None:
           f"{worst:.3e}; tail bounds not compared: they are differences of "
           f"nearly equal sums), port {port_s:.3f} s, host {host_s:.3f} s "
           "wall")
+    _check_no_jax()
+
+
+def _check_no_jax() -> None:
     loaded = [m for m in sys.modules
               if m in ("jax", "genfer_tpu")
               or m.startswith(("jax.", "genfer_tpu."))]
@@ -626,13 +697,239 @@ def phase6_ops_api(launches: dict) -> None:
           f"total mass {float(got.double().sum()):.9f})")
 
 
+def _plain_rows(out):
+    """Strip height of K1's plain version: whole above order 512 would
+    hold ~8 c0 a1 b1 doubles (~69 GB at 1024)."""
+    return PLAIN_ROWS if max(out) > 512 else None
+
+
+def _k1_gate(name, got, want, how) -> float:
+    """Fail unless ``got`` is finite, of ``want``'s shape and within
+    ``K1_TOL`` of it: ``"norm"`` (max abs error over max |want|),
+    ``"elementwise"`` (each entry at rtol), ``"columns"`` (each output
+    column against its own max).  Returns the max abs error."""
+    if tuple(got.shape) != tuple(want.shape) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"{name}: bad shape {tuple(got.shape)} or non-finite")
+    diff = (got - want).abs()
+    if how == "norm":
+        bar = K1_TOL * want.abs().max()
+    elif how == "elementwise":
+        bar = K1_TOL * want.abs()
+    else:
+        bar = K1_TOL * want.abs().amax(dim=-2, keepdim=True)
+    if not bool((diff <= bar).all()):
+        worst = float((diff / bar.clamp_min(1e-300)).max())
+        fail(f"{name}: off by {worst:.3g}x the {how} bar {K1_TOL}")
+    return float(diff.max())
+
+
+def phase7_k1() -> dict:
+    """K1 against its plain version on the card (module docstring)."""
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import F64_MMA, product_bound
+    from genfer_tpu_torch.taylor.backend import TorchF64Backend
+    from genfer_tpu_torch.taylor.host import NumpyF64Backend
+
+    K = ops.conv2d_trunc_f64
+    rng = np.random.default_rng(1)
+    rows: dict = {}
+    cases = [(shape, "normal") for shape in K1_SHAPES]
+    cases += [(((n, n),) * 3, "normal") for n in K1_ORDERS]
+    cases += [(shape, "uniform") for shape in K1_SHAPES]
+    cases += [(((n, n),) * 3, "uniform") for n in K1_ORDERS[:2]]
+    cases += [(K1_MAIN_PATH, "uniform"), (K1_EXTREME, "extreme")]
+    for (sa, sb, out), kind in cases:
+        if kind == "normal":
+            a, b = rng.standard_normal(sa), rng.standard_normal(sb)
+        else:
+            a, b = rng.random(sa), rng.random(sb)
+        if kind == "extreme":
+            a = a * 10.0 ** np.linspace(-150, 150, sa[1])
+            b = b * 10.0 ** np.linspace(-20, 20, sb[1])
+        a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        label = f"{sa}x{sb}->{out} {kind}"
+        got = K(a, b, out)
+        want = ops.conv2d_trunc_f64_reference(a, b, out, _plain_rows(out))
+        how = {"normal": "norm", "uniform": "elementwise",
+               "extreme": "columns"}[kind]
+        err = _k1_gate(f"conv2d_trunc_f64 {label}", got, want, how)
+        if not torch.equal(got, K(a, b, out)):
+            fail(f"conv2d_trunc_f64 {label}: two calls differ")
+        del want
+        row = {"max_abs_err": err, "ms": _time(lambda: K(a, b, out)),
+               "plain_ms": _time(lambda: ops.conv2d_trunc_f64_reference(
+                   a, b, out, _plain_rows(out)))}
+        if (sa, sb, out) in (K1_MAIN_PATH, ((512, 512),) * 3):
+            row["library_ms"], lib_err = _library(
+                _conv2d_library(a[None], b, out), got, ATOL)
+        bound = product_bound(sa, sb, out, rate=F64_MMA)[0]
+        row["bound_ms"] = bound
+        rows[((sa, sb, out), kind)] = row
+        print(f"phase 7 conv2d_trunc_f64 {label}: max abs err {err:.3e} "
+              f"({how} gate {K1_TOL}), same bits twice; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+              + (f", library {row['library_ms']:.4f} ms (cuDNN f64, max "
+                 f"rel err {lib_err:.3e})" if "library_ms" in row else "")
+              + f", bound {bound:.4g} ms ({F64_MMA}), share "
+              f"{100 * bound / row['ms']:.1f}%")
+        del got
+    # the batch: every entry equals its single-pair call bit for bit
+    sa, sb, out = K1_EXTREME
+    ab = torch.from_numpy(rng.standard_normal((K1_BATCH, *sa))).cuda()
+    bb = torch.from_numpy(rng.standard_normal((K1_BATCH, *sb))).cuda()
+    got = ops.conv2d_trunc_f64_batched(ab, bb, out)
+    _k1_gate("conv2d_trunc_f64_batched", got,
+             ops.conv2d_trunc_f64_batched_reference(ab, bb, out), "norm")
+    for z in range(K1_BATCH):
+        if not torch.equal(got[z], K(ab[z], bb[z], out)):
+            fail(f"conv2d_trunc_f64_batched entry {z} differs from the "
+                 "single-pair call")
+    # a 3-axis product: one launch over every pair of leading rows
+    sa, sb, out = K1_3AXIS
+    a, b = rng.standard_normal(sa), rng.standard_normal(sb)
+    before = K.launches
+    got = TorchF64Backend().conv_trunc(torch.from_numpy(a).cuda(),
+                                       torch.from_numpy(b).cuda(), out)
+    launched = K.launches - before
+    want = torch.from_numpy(NumpyF64Backend().conv_trunc(a, b, out)).cuda()
+    err = _k1_gate("TorchF64Backend.conv_trunc 3-axis", got, want, "norm")
+    if launched != 1:
+        fail(f"the 3-axis product launched K1 {launched} times, not once")
+    print(f"phase 7 batch of {K1_BATCH} {K1_EXTREME[:2]} normal: every entry "
+          "equals its single-pair call bit for bit; TorchF64Backend."
+          f"conv_trunc {sa}x{sb}->{out}: one K1 launch over "
+          f"{sa[0] * sb[0]} pairs, max abs err {err:.3e} against the host "
+          "f64 product (norm gate)")
+    return rows
+
+
+def _agree(got: dict, want: dict, what: str) -> int:
+    """Hold ``got`` to ``want`` at the reference's is_close (equal
+    non-finite values agree); return the number compared."""
+    rel, abs_ = IS_CLOSE
+    if set(got) != set(want):
+        fail(f"{what}: printed results differ: "
+             f"{sorted(set(got) ^ set(want))}")
+    for key, w in want.items():
+        g = got[key]
+        same = g == w or (math.isnan(g) and math.isnan(w))
+        if not (same or abs(g - w) <= abs_ + rel * abs(w)):
+            fail(f"{what}: {key} = {g} against host f64 {w}")
+    return len(want)
+
+
+def read_intervals(text: str) -> dict[str, tuple[float, float]]:
+    """The intervals a run printed (``X ∈ [lo, hi]``), by symbol, as
+    ``read_results`` reads points."""
+    out = {}
+    for line in text.splitlines():
+        if "∈ [" in line and "<=" not in line:
+            key, rest = line.split("∈ [")
+            lo, hi = rest.rstrip("]").split(", ")
+            out[key.split(":")[-1].strip()] = (float(lo), float(hi))
+    return out
+
+
+def _endpoints(text: str) -> dict[str, float]:
+    return {f"{key} {end}": v for key, iv in read_intervals(text).items()
+            for end, v in zip(("lo", "hi"), iv)}
+
+
+def phase8_backend_jax(launches: dict) -> None:
+    """``--backend jax`` end to end on the card against ``--backend
+    numpy``: the examples, two_populations and population at the sizes
+    above; one ``--bounds --backend jax`` run whose intervals hold the
+    host f64 points."""
+    from genfer_tpu_torch import cli
+    from genfer_tpu_torch.tools.generators import (
+        generate_population,
+        generate_two_populations,
+    )
+
+    examples = sorted((Path(__file__).resolve().parent / "examples")
+                      .glob("*.sgcl"))
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = Path(tmp) / f"two_populations_{E2E_SIZE}.sgcl"
+        generate_two_populations(tp, E2E_SIZE, seed=0)
+        pop = Path(tmp) / f"population_{POP_SIZE}_{POP_VARS}.sgcl"
+        generate_population(pop, POP_SIZE, POP_VARS, seed=0)
+        with _counted(launches, ("conv2d_trunc_f64",), "phase 8"):
+            for path in [*examples, tp, pop]:
+                flags = [str(path), "--no-timing", "--backend"]
+                port_out, port_s = _capture(cli.main, flags + ["jax"])
+                host_out, host_s = _capture(cli.main, flags + ["numpy"])
+                n = _agree(read_results(port_out), read_results(host_out),
+                           path.name)
+                n += _agree(_endpoints(port_out), _endpoints(host_out),
+                            path.name)
+                print(f"phase 8 {path.name} --backend jax: {n} results at "
+                      f"is_close (rel {IS_CLOSE[0]}, abs {IS_CLOSE[1]}) to "
+                      f"--backend numpy; port {port_s:.3f} s, host "
+                      f"{host_s:.3f} s wall")
+            path = [p for p in examples if p.name == BOUNDS_EXAMPLE][0]
+            flags = [str(path), "--no-timing", "--backend"]
+            iv_out, iv_s = _capture(cli.main, flags + ["jax", "--bounds"])
+            host_out, _ = _capture(cli.main, flags + ["numpy"])
+            ivs, points = read_intervals(iv_out), read_results(host_out)
+            held = 0
+            for key, v in points.items():
+                if key in ivs and math.isfinite(v):
+                    lo, hi = ivs[key]
+                    if not lo <= v <= hi:
+                        fail(f"--bounds --backend jax {path.name}: {key} = "
+                             f"{v} outside [{lo}, {hi}]")
+                    held += 1
+            if held < 3:
+                fail(f"--bounds --backend jax {path.name}: {held} intervals")
+            print(f"phase 8 {path.name} --bounds --backend jax: {held} "
+                  f"intervals hold the host f64 points ({iv_s:.3f} s wall)")
+    _check_no_jax()
+
+
+def phase9_entry(launches: dict) -> None:
+    """The ``entry()`` twin on the card against its operands on the CPU."""
+    from genfer_tpu_torch.entry import entry
+
+    with _counted(launches, ("conv2d_trunc_f64",), "phase 9"):
+        forward, args = entry()
+        quot, total = forward(*args)
+        torch.cuda.synchronize()
+    want_q, want_t = forward(*(x.cpu() for x in args))
+    err = _k1_gate("entry() quotient", quot.cpu(), want_q, "norm")
+    dt = abs(float(total) - float(want_t))
+    if not dt <= K1_TOL * abs(float(want_t)):
+        fail(f"entry() total {float(total)} against {float(want_t)}")
+    print(f"phase 9 entry(): quotient {tuple(quot.shape)} within {K1_TOL} "
+          f"of its max of the CPU run (max abs err {err:.3e}), total "
+          f"{float(total):.15g}")
+
+
+def phase10_headline(launches: dict) -> dict:
+    from genfer_tpu_torch import bench
+
+    with _counted(launches, ("conv2d_trunc_f64",), "phase 10"):
+        results = bench.run_headline(seed=0, iters=HEADLINE_ITERS,
+                                     host_iters=HEADLINE_HOST_ITERS)
+    row = results["f64_kernel"][str(bench.ORDER)]
+    host = results["host_kernel"][str(bench.ORDER)]
+    print(f"phase 10 f64 headline order {bench.ORDER}: K1 {row['ms']:.4f} ms "
+          f"a step, {row['gflops']:.1f} GF/s ({HEADLINE_ITERS} steps), "
+          f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({100 * row['bound_share']:.1f}%), max err "
+          f"{row['max_err_vs_plain']:.3e} of the max; host C++ "
+          f"{host['ms']:.1f} ms, {host['gflops']:.2f} GF/s; K1 "
+          f"{results['vs_host']:.1f} x the host")
+    return results
+
+
 def print_shares(rows: dict, bench: dict) -> None:
     """The kernels' shares of their bounds (``bound_ms`` over the
     measured time): K2, K4a and K4b from phase 3's dense orders (K4a and
     K4b against the tensor cores' rate for their three TF32 passes, with
     K2's time in the same run beside theirs), K3 from phase 5's
     batches."""
-    from genfer_tpu_torch.bench import SPLIT_PASSES, product_bound
+    from genfer_tpu_torch.bench import F64_MMA, SPLIT_PASSES, product_bound
 
     for name, passes in (("conv2d_trunc_f32", None),
                          ("conv2d_trunc_f32_tile", SPLIT_PASSES),
@@ -666,6 +963,17 @@ def print_shares(rows: dict, bench: dict) -> None:
         parts.append(f"{n}: {ms:.4f} ms = {100 * bound / ms:.1f}% of "
                      f"{bound:.4g} ms, {by}")
     print("share of bound, conv1d_trunc_f32 " + ", ".join(parts))
+    parts = []
+    for n in K1_ORDERS:
+        shape = (n, n)
+        ms = rows["conv2d_trunc_f64"][((shape,) * 3, "normal")]["ms"]
+        bound, by = product_bound(shape, shape, shape, rate=F64_MMA)
+        if not bound <= ms:
+            fail(f"conv2d_trunc_f64 order {n}: {ms} ms is under its bound "
+                 f"{bound} ms")
+        parts.append(f"{n}: {ms:.4f} ms = {100 * bound / ms:.1f}%")
+    print(f"share of bound ({by}, {F64_MMA}), conv2d_trunc_f64 "
+          + ", ".join(parts))
 
 
 def _passes(name: str, shape) -> int | None:
@@ -683,17 +991,21 @@ def _passes(name: str, shape) -> int | None:
 
 
 def kernel_table(rows: dict, launches: dict) -> list:
-    from genfer_tpu_torch.bench import product_bound
+    from genfer_tpu_torch.bench import F64_MMA, product_bound
 
     table = []
     for name, (source, replaces, key) in KERNELS.items():
-        row = rows[name][key]
         shape, batch = key
         passes = _passes(name, shape)
-        if name == "conv1d_trunc_f32":
+        if name == "conv2d_trunc_f64":
+            row = rows[name][(shape, "uniform")]
+            bound, by = product_bound(*shape, rate=F64_MMA)
+        elif name == "conv1d_trunc_f32":
+            row = rows[name][key]
             la, lb, lc = shape
             bound, by = product_bound((la,), (lb,), (lc,), passes=passes)
         else:
+            row = rows[name][key]
             bound, by = product_bound(*shape, batch=batch, passes=passes)
         table.append({
             "name": name, "route": "cuda", "source": source,
@@ -703,12 +1015,16 @@ def kernel_table(rows: dict, launches: dict) -> list:
             # relative error)
             "max_abs_err": max(r["max_abs_err"]
                                for k, r in rows[name].items()
-                               if k[0] not in ("extreme", "geometric")),
+                               if k[0] not in ("extreme", "geometric")
+                               and k[1] != "extreme"),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
-            # "operations": of the f32 FMA rate, or of the TF32 tensor
-            # rate (``bound_rate``) for the kernels that run there
+            # "operations": of the f32 FMA rate, of the TF32 tensor rate
+            # for the kernels that run there, or of the FP64 tensor rate
+            # for K1 (``bound_rate``)
             "bound_ms": bound, "bound_by": by.split()[-1],
-            "bound_rate": "f32 fma" if passes is None else "tf32 mma x 3",
+            "bound_rate": (F64_MMA if name == "conv2d_trunc_f64"
+                           else "f32 fma" if passes is None
+                           else "tf32 mma x 3"),
             "library_ms": row["library_ms"],
         })
     return table
@@ -726,6 +1042,10 @@ def main() -> None:
     phase4_end_to_end(launches)
     bench = phase5_bench(launches)
     phase6_ops_api(launches)
+    rows["conv2d_trunc_f64"] = phase7_k1()
+    phase8_backend_jax(launches)
+    phase9_entry(launches)
+    phase10_headline(launches)
     print_shares(rows, bench)
     print(json.dumps({"kernels": kernel_table(rows, launches)}))
     print(json.dumps({"ok": True, "device": {

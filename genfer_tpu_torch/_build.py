@@ -106,8 +106,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         *((name, [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr])
           for name in ("conv2d_trunc_f32", "conv2d_trunc_f32_tile",
                        "conv2d_trunc_f32_grouped")),
-        ("conv2d_trunc_f32_batched",
-         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
+        *((name, [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6
+           + [ptr])
+          for name in ("conv2d_trunc_f32_batched",
+                       "conv2d_trunc_f64_batched")),
         ("conv1d_trunc_f32", [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]),
     ):
         fn = getattr(lib, name)

@@ -1,9 +1,22 @@
-"""Benchmark of the port's f32 kernels on one CUDA card: the twin of the
-``--pallas`` sections of genfer_tpu's ``bench.py``.
+"""Benchmark of the port's kernels on one CUDA card: the twin of the f64
+headline and of the ``--pallas`` sections of genfer_tpu's ``bench.py``.
 
+    python -m genfer_tpu_torch.bench [--seed N]
     python -m genfer_tpu_torch.bench --pallas [--seed N]
 
-Sections, at the JAX bench's own sizes:
+The headline (no option) twins ``bench_kernel`` and ``bench_host_kernel``:
+
+* ``f64_kernel``: the 2-variable truncated f64 product at ``ORDER`` (512,
+  the JAX bench's default) through ``_conv_impl`` (K1 on the card),
+  iterated ``ITERS`` times, each step's output renormalized by its max and
+  fed to the next step with the step's first operand, in GF/s (two flops a
+  useful multiply-add); beside it the plain version's time (the einsum
+  PyTorch computes the same function with, one step), K1's bound and
+  share of it, and K1's max error against the plain version;
+* ``host_kernel``: the same product on the port's host C++ kernel
+  (``_seriesops``), in GF/s, and K1's speed over it (``vs_host``).
+
+The ``--pallas`` sections, at the JAX bench's own sizes:
 
 * ``pallas_kernel``: the row-strip kernel's twin ``conv2d_trunc_f32`` at
   orders 256 and 512, with its max relative error against the f64
@@ -26,9 +39,8 @@ take for the same work (``bound_ms``) and the measured time's share of it
 which used the TPU's ceiling.  A failed check raises.  The results are
 printed as one JSON line and written to ``build/bench-results-torch.json``.
 
-The other sections and the f64 headline of genfer_tpu's bench are not
-ported yet; asking for one raises ``NotImplementedError`` naming its
-ROADMAP item.
+The other sections of genfer_tpu's bench are not ported yet; asking for
+one raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -58,12 +70,17 @@ BYTES_PER_S = 3.35e12
 TF32_MMA_PER_S = 495e12 / 2
 #: TF32 passes of the split product of K4a / K4b (hi*hi, hi*lo, lo*hi)
 SPLIT_PASSES = 3
+#: its dense FP64 tensor-core rate (67 TFLOP/s, the same data sheet), in
+#: ``mma`` multiply-adds a second: the ceiling of K1
+F64_MMA_PER_S = 67e12 / 2
+#: the bound of K1 (``bound_ms``'s third rate)
+F64_MMA = "f64 mma"
 
 #: genfer_tpu bench options this twin does not run yet -> ROADMAP item
 UNPORTED = {
     "suite": "Queue 1 item 3 (bench twin; end-to-end suite)",
-    "scaling": "Queue 1 item 3 (bench twin; needs K1 and TorchF64Backend, "
-               "Queue 1 item 1)",
+    "scaling": "Queue 1 item 3 (bench twin; the scaling table over K1, the "
+               "host kernel and K2, which Queue 1 item 1 unblocked)",
     "serving": "Queue 1 items 8 and 10 (compile.py, scanc.py)",
     "scan": "Queue 1 items 9 and 10 (models/, scanc.py)",
     "highorder": "Queue 1 item 11 (ops/blocked_conv.py)",
@@ -71,8 +88,6 @@ UNPORTED = {
     "nested": "Queue 1 item 3 (bench twin)",
     "all": "Queue 1 item 3 (bench twin; every section)",
 }
-HEADLINE = ("Queue 1 item 3 (bench twin): the f64 headline bench_kernel and "
-            "bench_host_kernel need K1 and TorchF64Backend (Queue 1 item 1)")
 
 
 def card() -> str:
@@ -85,16 +100,19 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def bound_ms(macs: float, nbytes: float,
-             passes: int | None = None) -> tuple[float, str]:
+def bound_ms(macs: float, nbytes: float, passes: int | None = None,
+             rate: str | None = None) -> tuple[float, str]:
     """The least time one H100 could take for ``macs`` f32 multiply-adds
     that read and write ``nbytes`` (each input read once, each output
     written once), and which of the two bounds it.  ``passes``: the
     kernel runs every multiply-add as that many TF32 ``mma`` multiply-adds
     on the tensor cores, whose rate is then the ceiling (a time under the
     FFMA bound is possible there, and a share of it above 1 would read as
-    impossible)."""
-    if passes is None:
+    impossible).  ``rate=F64_MMA``: f64 multiply-adds on the FP64 tensor
+    cores (K1)."""
+    if rate == F64_MMA:
+        ops_ms, by = macs / F64_MMA_PER_S * 1e3, "tensor operations"
+    elif passes is None:
         ops_ms, by = macs / F32_FMA_PER_S * 1e3, "operations"
     else:
         ops_ms = passes * macs / TF32_MMA_PER_S * 1e3
@@ -104,14 +122,17 @@ def bound_ms(macs: float, nbytes: float,
 
 
 def product_bound(a_shape, b_shape, out_shape, batch: int = 1,
-                  passes: int | None = None) -> tuple[float, str]:
+                  passes: int | None = None,
+                  rate: str | None = None) -> tuple[float, str]:
     """``bound_ms`` of ``batch`` truncated products of f32 operands (one
-    operand of each pair batched, the other shared)."""
+    operand of each pair batched, the other shared), or of f64 operands
+    with ``rate=F64_MMA``."""
     macs = batch * _conv_pair_flops(tuple(a_shape), tuple(b_shape),
                                     tuple(out_shape))
     n = (np.prod(a_shape) * batch + np.prod(b_shape)
          + np.prod(out_shape) * batch)
-    return bound_ms(macs, 4.0 * n, passes)
+    word = 8.0 if rate == F64_MMA else 4.0
+    return bound_ms(macs, word * n, passes, rate)
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -142,15 +163,14 @@ def _max_rel(got, want) -> float:
 def bench_pallas_kernel(rng, order: int, iters: int, where: str) -> dict:
     """``bench.py::bench_pallas_kernel``: the single-pair kernel's time
     and its max relative error against the f64 product."""
-    from .ops import conv2d_trunc_f32
-    from .taylor.backend import _conv_impl
+    from .ops import conv2d_trunc_f32, conv2d_trunc_f64_reference
 
     shape = (order, order)
     a, b = rng.random(shape), rng.random(shape)
     a64, b64 = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     a32, b32 = a64.float(), b64.float()
     rel = _max_rel(conv2d_trunc_f32(a32, b32, shape),
-                   _conv_impl(a64, b64, shape))
+                   conv2d_trunc_f64_reference(a64, b64, shape))
     if not rel < 1e-4:  # genfer_tpu's bench holds its smoke to 1e-4
         raise RuntimeError(f"conv2d_trunc_f32 order {order}: max rel err "
                            f"{rel:.3e} against f64")
@@ -226,6 +246,86 @@ def bench_pallas_rowstrip(rng, order: int, iters: int, where: str) -> dict:
             "grouped_bound_share": mma_bound / dt["grouped"], "card": where}
 
 
+ORDER = 512  # the headline's order (genfer_tpu's bench default)
+ITERS = 8  # steps of the headline's chain (bench_kernel's default)
+HOST_ITERS = 3  # timed host calls (bench_host_kernel's default)
+
+
+def bench_f64_kernel(rng, order: int, iters: int, where: str) -> dict:
+    """``bench.py::bench_kernel`` on the card: ``iters`` steps of the
+    truncated f64 product through ``_conv_impl`` (K1), each output
+    renormalized by its max and multiplied with the step's first operand
+    next, timed with CUDA events after a warm chain; the plain version
+    (one step, timed once: it is the slow part) and K1's max error
+    against it over the first step's max."""
+    from .ops.conv2d_f64 import conv2d_trunc_f64_reference
+    from .taylor.backend import _conv_impl
+
+    shape = (order, order)
+    a = torch.from_numpy(rng.random(shape)).cuda()
+    b = torch.from_numpy(rng.random(shape)).cuda()
+
+    def chain():
+        x, y = a, b
+        for _ in range(iters):
+            out = _conv_impl(x, y, shape)
+            x, y = out / out.abs().max(), x
+        return x
+
+    got = _conv_impl(a, b, shape)
+    want = conv2d_trunc_f64_reference(a, b, shape)
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= 1e-12:
+        raise RuntimeError(f"K1 order {order}: max abs err {err:.3e} of the "
+                           "max against the plain version")
+    ms = time_ms(chain, 1, warmup=1) / iters
+    plain_ms = time_ms(lambda: conv2d_trunc_f64_reference(a, b, shape), 1,
+                       warmup=0)
+    flops = 2 * _conv_pair_flops(shape, shape, shape)
+    bound = product_bound(shape, shape, shape, rate=F64_MMA)[0]
+    return {"ms": ms, "gflops": flops / ms / 1e6, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_share": bound / ms,
+            "max_err_vs_plain": err, "iters": iters, "card": where}
+
+
+def bench_host_kernel(rng, order: int, iters: int) -> dict:
+    """``bench.py::bench_host_kernel``: the same product on the port's
+    host C++ kernel, one warm-up call, then ``iters`` timed calls."""
+    from .taylor.host import _SERIESOPS
+
+    if _SERIESOPS is None:
+        raise RuntimeError("the port's host C++ kernel did not build")
+    shape = (order, order)
+    a, b = rng.random(shape), rng.random(shape)
+    out = np.zeros(shape)
+    _SERIESOPS.conv_trunc(a, shape, b, shape, out, shape)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out.fill(0.0)
+        _SERIESOPS.conv_trunc(a, shape, b, shape, out, shape)
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    flops = 2 * _conv_pair_flops(shape, shape, shape)
+    return {"ms": ms, "gflops": flops / ms / 1e6, "iters": iters}
+
+
+def run_headline(seed: int = 0, iters: int = ITERS,
+                 host_iters: int = HOST_ITERS) -> dict:
+    """The f64 headline: K1's chain and the host kernel at ``ORDER``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the bench measures the CUDA card and found none")
+    where = card()
+    rng = np.random.default_rng(seed)
+    kernel = bench_f64_kernel(rng, ORDER, iters, where)
+    host = bench_host_kernel(rng, ORDER, host_iters)
+    return {
+        "f64_kernel": {str(ORDER): kernel},
+        "host_kernel": {str(ORDER): host},
+        "vs_host": kernel["gflops"] / host["gflops"],
+        "_meta": {"device": torch.cuda.get_device_name(0), "card": where,
+                  "seed": seed, "run": time.strftime("%Y-%m-%dT%H:%M:%S")},
+    }
+
+
 def run_pallas(seed: int = 0, iters: int | None = None) -> dict:
     """The three sections at the JAX bench's sizes and iteration counts
     (``iters`` overrides the counts)."""
@@ -255,7 +355,8 @@ def run_pallas(seed: int = 0, iters: int | None = None) -> dict:
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m genfer_tpu_torch.bench")
     ap.add_argument("--pallas", action="store_true",
-                    help="the f32 kernel sections (the only ones ported)")
+                    help="the f32 kernel sections (default: the f64 "
+                    "headline)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the numpy generator of the operands")
     for name in UNPORTED:
@@ -270,10 +371,8 @@ def main(argv=None) -> dict:
         if getattr(args, name):
             raise NotImplementedError(
                 f"--{name} is not ported yet: ROADMAP {item}")
-    if not args.pallas:
-        raise NotImplementedError(f"not ported yet: ROADMAP {HEADLINE}; "
-                                  "run with --pallas")
-    results = run_pallas(args.seed)
+    results = (run_pallas(args.seed) if args.pallas
+               else run_headline(args.seed))
     RESULTS.parent.mkdir(parents=True, exist_ok=True)
     RESULTS.write_text(json.dumps(results, indent=2) + "\n")
     print(json.dumps(results))

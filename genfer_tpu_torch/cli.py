@@ -5,9 +5,11 @@ GF -> simplify -> extract moments and probability masses -> print (with
 interval clamping and rest-mass corrections exactly as the reference,
 main.rs:301-473) -> optional JSON export.  The argument parser, the GF
 translation and the printing pipeline are the port's copies of
-genfer_tpu's; the backend selection builds the port's backends.
-``--backend jax`` and ``sharded``, ``--compile-scan``, ``--profile`` and
-``--debug-nans`` reach code not yet ported and raise.
+genfer_tpu's; the backend selection builds the port's backends
+(``--backend jax`` keeps its name and builds ``TorchF64Backend``, or
+``TorchIntervalBackend`` with ``--bounds``, on the card).  ``--backend
+sharded``, ``--compile-scan``, ``--profile`` and ``--debug-nans`` reach
+code not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from .semantics.supportset import SupportSet
 
 __all__ = ["build_arg_parser", "main", "run", "select_mode"]
 
-_NOT_PORTED = ("jax", "sharded")
+_NOT_PORTED = ("sharded",)
 MAX_PROB_LIMIT = 1000
 
 
@@ -130,7 +132,12 @@ def select_mode(args, program=None, device=None):
     """Choose (host scalar type, array backend, element type) as
     genfer_tpu's ``select_mode`` does.  ``device`` is the torch device of
     the offload backends (``None``: the CUDA card, which must exist)."""
-    from .taylor.backend import HybridBackend, PallasBackend
+    from .taylor.backend import (
+        HybridBackend,
+        PallasBackend,
+        TorchF64Backend,
+        TorchIntervalBackend,
+    )
     from .taylor.host import (
         NumpyF64Backend,
         NumpyIntervalBackend,
@@ -166,13 +173,17 @@ def select_mode(args, program=None, device=None):
             choice = "numpy"
     if args.bounds:
         T = Interval.over(elem)
-        if elem is F64 and choice in ("numpy", "hybrid"):
+        if elem is F64 and choice == "jax":
+            backend = TorchIntervalBackend(device)
+        elif elem is F64 and choice in ("numpy", "hybrid"):
             backend = NumpyIntervalBackend()
         else:
             backend = ObjectBackend(T)
         return T, backend, elem
     T = elem
-    if elem is F64 and choice == "hybrid":
+    if elem is F64 and choice == "jax":
+        backend = TorchF64Backend(device)
+    elif elem is F64 and choice == "hybrid":
         backend = HybridBackend(device)
     elif elem is F64 and choice == "pallas":
         backend = PallasBackend(device)

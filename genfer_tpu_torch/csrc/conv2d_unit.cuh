@@ -113,9 +113,10 @@ struct Geo {
 // where window word w is stored in its row
 __device__ __forceinline__ int swizzle(int w) { return w ^ ((w >> 3) & 4); }
 
-// cp.async of BYTES (4 or 16) from global to shared; zero-fills when !ok
+// cp.async of BYTES (4, 8 or 16) from global to shared; zero-fills when
+// !ok
 template <int BYTES>
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
                                            bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = ok ? BYTES : 0;
@@ -351,11 +352,30 @@ __device__ __forceinline__ void run_unit(
 
 // One block per (batch entry g, tile of several units m, quarter of the
 // tile): the tile's slots added in slot order, 4 outputs a thread.  sums
-// row m: K0, K1, first slot, slots.
+// row m: K0, K1, first slot, slots.  T is float (K2-K6) or double (K1).
 constexpr int SUM_NT = TILE_WORDS / 16;  // threads of a quarter tile
 
+// the four consecutive words at p (16-byte aligned), in one or two loads
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double (&x)[4]) {
+  const double2 v = reinterpret_cast<const double2*>(p)[0];
+  const double2 w = reinterpret_cast<const double2*>(p)[1];
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = w.x;
+  x[3] = w.y;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(SUM_NT)
-sum_units_kernel(const float* __restrict__ work, float* __restrict__ c,
+sum_units_kernel(const T* __restrict__ work, T* __restrict__ c,
                  const int4* __restrict__ sums, int n_sums, int slots,
                  int c0, int c1) {
   const int quarter = blockIdx.x % 4;
@@ -363,26 +383,24 @@ sum_units_kernel(const float* __restrict__ work, float* __restrict__ c,
   const int g = blockIdx.x / 4 / n_sums;
   const int4 s = sums[m];
   const int e = 4 * (quarter * SUM_NT + threadIdx.x);
-  const float4* part = reinterpret_cast<const float4*>(
-      work + (static_cast<size_t>(g) * slots + s.z) * TILE_WORDS + e);
-  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  const T* part =
+      work + (static_cast<size_t>(g) * slots + s.z) * TILE_WORDS + e;
+  T sum[4] = {0, 0, 0, 0};
   // slot order, with 16 loads in flight: a thread's loads are its latency
 #pragma unroll 16
   for (int z = 0; z < s.w; ++z) {
-    const float4 x = part[z * (TILE_WORDS / 4)];
-    sum.x += x.x;
-    sum.y += x.y;
-    sum.z += x.z;
-    sum.w += x.w;
+    T x[4];
+    load4(part + z * TILE_WORDS, x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sum[i] += x[i];
   }
   const int k0 = s.x + e / BN;
   const int k1 = s.y + e % BN;
   if (k0 >= c0) return;
-  float* out = c + (static_cast<size_t>(g) * c0 + k0) * c1 + k1;
-  if (k1 < c1) out[0] = sum.x;
-  if (k1 + 1 < c1) out[1] = sum.y;
-  if (k1 + 2 < c1) out[2] = sum.z;
-  if (k1 + 3 < c1) out[3] = sum.w;
+  T* out = c + (static_cast<size_t>(g) * c0 + k0) * c1 + k1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (k1 + i < c1) out[i] = sum[i];
 }
 
 // whether 16-byte cp.async may read rows of an array at ``p``
@@ -407,10 +425,11 @@ inline cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   return cudaSuccess;
 }
 
-inline cudaError_t sum_units(const float* work, float* c, const int4* sums,
+template <typename T>
+inline cudaError_t sum_units(const T* work, T* c, const int4* sums,
                              int n_sums, int slots, int batch, int c0,
                              int c1, cudaStream_t stream) {
-  sum_units_kernel<<<4u * n_sums * batch, SUM_NT, 0, stream>>>(
+  sum_units_kernel<T><<<4u * n_sums * batch, SUM_NT, 0, stream>>>(
       work, c, sums, n_sums, slots, c0, c1);
   return cudaGetLastError();
 }

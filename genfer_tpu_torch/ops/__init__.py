@@ -7,6 +7,12 @@ from .conv2d import (
     conv2d_trunc_f32_reference,
     conv2d_trunc_f32_tile,
 )
+from .conv2d_f64 import (
+    conv2d_trunc_f64,
+    conv2d_trunc_f64_batched,
+    conv2d_trunc_f64_batched_reference,
+    conv2d_trunc_f64_reference,
+)
 
 __all__ = [
     "conv1d_trunc_f32",
@@ -17,4 +23,8 @@ __all__ = [
     "conv2d_trunc_f32_grouped",
     "conv2d_trunc_f32_reference",
     "conv2d_trunc_f32_tile",
+    "conv2d_trunc_f64",
+    "conv2d_trunc_f64_batched",
+    "conv2d_trunc_f64_batched_reference",
+    "conv2d_trunc_f64_reference",
 ]

@@ -237,24 +237,27 @@ def _plan_on_card(a_shape, b_shape, out_shape, device, cut_j1=True):
     return plan, units, sums
 
 
-def _check_operand(name: str, t, ndim: int) -> None:
+def _check_operand(name: str, t, ndim: int,
+                   dtype: torch.dtype = torch.float32) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(
             f"{name} must be {ndim}-D, got shape {tuple(t.shape)}"
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if min(t.shape) < 1 or max(t.shape) > _MAX_DIM:
+    # a batch axis is bounded by the grid (``batched_blocks``)
+    if min(t.shape) < 1 or max(t.shape[-2:]) > _MAX_DIM:
         raise ValueError(f"{name} has unsupported shape {tuple(t.shape)}")
 
 
-def _check(a, b, out_shape, a_ndim: int = 2) -> tuple[int, int]:
-    _check_operand("a", a, a_ndim)
-    _check_operand("b", b, 2)
+def _check(a, b, out_shape, a_ndim: int = 2, b_ndim: int = 2,
+           dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    _check_operand("a", a, a_ndim, dtype)
+    _check_operand("b", b, b_ndim, dtype)
     if a.device != b.device:
         raise ValueError(f"a is on {a.device}, b on {b.device}")
     c0, c1 = (int(s) for s in out_shape)

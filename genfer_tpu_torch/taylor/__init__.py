@@ -1,4 +1,9 @@
-from .backend import HybridBackend, PallasBackend
+from .backend import (
+    HybridBackend,
+    PallasBackend,
+    TorchF64Backend,
+    TorchIntervalBackend,
+)
 from .host import (
     ArrayF64Backend,
     ArrayIntervalBackend,
@@ -19,5 +24,7 @@ __all__ = [
     "ObjectBackend",
     "PallasBackend",
     "TaylorPoly",
+    "TorchF64Backend",
+    "TorchIntervalBackend",
     "INF_DEGREE",
 ]

@@ -5,15 +5,21 @@
   plus an anti-diagonal sum) and the 1-axis ``_div1d`` / ``_exp1d`` /
   ``_log1d`` triangular solves.  They run on whatever device their
   tensors are on.
+* ``TorchF64Backend`` and ``TorchIntervalBackend`` (``--backend jax``,
+  ``--bounds --backend jax``): every coefficient tensor on one torch
+  device, the twins of ``JaxF64Backend`` and ``JaxIntervalBackend``.
 * ``HybridBackend`` and ``PallasBackend``: host numpy f64 state, with the
   ops above a size threshold sent to one torch device.  ``PallasBackend``
   sends large 2-axis products to the f32 kernel of ``ops.conv2d``.
 
+Every 2-axis f64 product goes to K1 (``ops.conv2d_f64``) on a card.
+
 What the JAX versions do only for the TPU is left out: the gather-free
 skew-reshape Toeplitz build (a gather is cheap on a GPU), the ozaki route
 and the truncation staircase (both engage only on a TPU, so JAX on the CPU
-runs the same plain einsum as these twins), and ``SHAPE_BUCKET`` padding
-(it bounds XLA recompiles; eager torch compiles nothing).
+runs the same plain einsum as these twins; K1's work units clip the
+product where the staircase did), and ``SHAPE_BUCKET`` padding (it bounds
+XLA recompiles; eager torch compiles nothing).
 """
 
 from __future__ import annotations
@@ -25,11 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from .host import (
+    ArrayF64Backend,
+    ArrayIntervalBackend,
     NumpyF64Backend,
     _conv_pair_flops,
     _effective_axes,
     _norm_shape,
 )
+from .xp import TorchNamespace
 
 Shape = tuple[int, ...]
 
@@ -38,10 +47,10 @@ Shape = tuple[int, ...]
 # device helpers
 # ===================================================================
 
-def _toeplitz(a, out_len: int, b_len: int):
-    """T[k, j, ...] = a[k - j, ...] (zero outside the band)."""
+def _toeplitz(a, out_len: int, b_len: int, start: int = 0):
+    """T[k, j, ...] = a[start + k - j, ...] (zero outside the band)."""
     la = a.shape[0]
-    k = torch.arange(out_len, device=a.device)[:, None]
+    k = torch.arange(start, start + out_len, device=a.device)[:, None]
     j = torch.arange(b_len, device=a.device)[None, :]
     idx = k - j
     valid = (idx >= 0) & (idx < la)
@@ -90,10 +99,13 @@ def _conv_dense_batched(a, b, out_shape: Shape):
     """``_conv_dense`` over a leading batch axis shared by ``a`` and ``b``:
     * 0 axes: elementwise product,
     * 1 axis: Toeplitz matrix times vector,
-    * 2 axes: Toeplitz einsum along axis 0, anti-diagonal sum along axis 1,
+    * 2 axes: ``ops.conv2d_f64.conv2d_trunc_f64_batched`` (f64 only): K1
+      on a card, on the CPU a Toeplitz einsum along axis 0 and an
+      anti-diagonal sum along axis 1,
     * >=3 axes: every (i0, j0) pair of leading rows is one batch entry of
-      the (n-1)-axis product; anti-diagonals of the pair grid then give
-      the leading output axis (the JAX version vmaps over the pairs)."""
+      the (n-1)-axis product, so the 2-axis level is one K1 launch over
+      all pairs; anti-diagonals of the pair grid then give the leading
+      output axis (the JAX version vmaps over the pairs)."""
     n = len(out_shape)
     if n == 0:
         return a * b
@@ -102,10 +114,12 @@ def _conv_dense_batched(a, b, out_shape: Shape):
         T = _toeplitz(a.movedim(0, -1), c0, b.shape[1])  # [c0, b0, B]
         return torch.einsum("kjz,zj->zk", T, b)
     if n == 2:
-        c0, c1 = out_shape
-        Ta = _toeplitz(a.movedim(0, -1), c0, b.shape[1])  # [c0, b0, a1, B]
-        H = torch.einsum("kjiz,zjl->zkil", Ta, b)  # [B, c0, a1, b1]
-        return _antidiag_sum(H, c1)
+        # K1 on a card; on the CPU its plain version, the Toeplitz einsum
+        # [c0, b0, a1, B] -> [B, c0, a1, b1] and an anti-diagonal sum
+        from ..ops.conv2d_f64 import conv2d_trunc_f64_batched
+
+        return conv2d_trunc_f64_batched(a.contiguous(), b.contiguous(),
+                                        out_shape)
     nb, a0, b0 = a.shape[0], a.shape[1], b.shape[1]
     ra, rb = tuple(a.shape[2:]), tuple(b.shape[2:])
     ap = a[:, :, None].expand((nb, a0, b0) + ra).reshape((-1,) + ra)
@@ -187,6 +201,66 @@ def _resolve_device(device) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+class TorchF64Backend(ArrayF64Backend):
+    """IEEE-f64 coefficient tensors kept on ``device`` (``--backend
+    jax``): the twin of genfer_tpu's ``JaxF64Backend``.  Its array body
+    and the Newton-lifted n-axis div / exp / log are ``ArrayF64Backend``'s
+    over ``TorchNamespace(device)``; the four kernels take the JAX
+    backend's branches: ``conv_trunc`` is ``_conv_impl`` (K1 for 2-axis
+    products on a card), the 0- and 1-axis ``poly_div`` / ``poly_exp`` /
+    ``poly_log`` the triangular solves ``_div1d`` / ``_exp1d`` /
+    ``_log1d``.  As for the JAX backend, ``gf/nativeeval.py`` gives it no
+    C++ eval tape, and ``tensorpoly``'s numpy-only native paths skip its
+    tensors.  ``to_host`` and ``_all_finite`` read the card (one
+    synchronize each)."""
+
+    def __init__(self, device=None):
+        self.device = _resolve_device(device)
+        super().__init__(TorchNamespace(self.device))
+
+    def conv_trunc(self, a, b, out_shape):
+        return _conv_impl(a, b, _norm_shape(out_shape))
+
+    def poly_div(self, xs, ys, out_shape):
+        out_shape = _norm_shape(out_shape)
+        eff_ys = _effective_axes(tuple(ys.shape))
+        if len(eff_ys) == 0:
+            return self.pad_to(xs, out_shape) / ys  # constant divisor
+        if len(eff_ys) == 1:
+            return _div1d(xs, ys, out_shape, eff_ys[0])
+        return self._poly_div_nd(xs, ys, out_shape)
+
+    def poly_exp(self, xs, out_shape):
+        out_shape = _norm_shape(out_shape)
+        eff = _effective_axes(tuple(xs.shape))
+        if len(eff) == 0:
+            return self.jnp.broadcast_to(self.jnp.exp(xs), out_shape)
+        if len(eff) == 1:
+            return _exp1d(xs, out_shape, eff[0])
+        return self._poly_exp_nd(xs, out_shape)
+
+    def poly_log(self, xs, out_shape):
+        out_shape = _norm_shape(out_shape)
+        eff = _effective_axes(tuple(xs.shape))
+        if len(eff) == 0:
+            return self.jnp.broadcast_to(self.jnp.log(xs), out_shape)
+        if len(eff) == 1:
+            return _log1d(xs, out_shape, eff[0])
+        return self._poly_log_nd(xs, out_shape)
+
+
+class TorchIntervalBackend(ArrayIntervalBackend):
+    """Interval tensors on ``device`` (``--bounds --backend jax``): the
+    twin of genfer_tpu's ``JaxIntervalBackend``, ``ArrayIntervalBackend``'s
+    body (one-ULP outward widening, the zero / one masks) over
+    ``TorchNamespace(device)``.  Its products are the generic recursions,
+    as in the JAX backend: no device kernel."""
+
+    def __init__(self, device=None):
+        self.device = _resolve_device(device)
+        super().__init__(TorchNamespace(self.device))
 
 
 class HybridBackend(NumpyF64Backend):

@@ -1219,18 +1219,15 @@ def _set_first(b: Backend, arr, val0d):
         out = arr.copy()
         out[idx] = val0d[()] if hasattr(val0d, "shape") else val0d
         return out
+    # numpy arrays copy, torch tensors (TorchF64Backend) clone
     if isinstance(b, ArrayIntervalBackend):
-        if isinstance(arr.data, _np.ndarray):
-            data = arr.data.copy()
-            data[(slice(None),) + idx] = val0d.data
-            return IvArr(data)
-        data = arr.data.at[(slice(None),) + idx].set(val0d.data)
+        data = arr.data.copy() if isinstance(arr.data, _np.ndarray) else (
+            arr.data.clone())
+        data[(slice(None),) + idx] = val0d.data
         return IvArr(data)
-    if isinstance(arr, _np.ndarray):
-        out = arr.copy()
-        out[idx] = val0d
-        return out
-    return arr.at[idx].set(val0d)
+    out = arr.copy() if isinstance(arr, _np.ndarray) else arr.clone()
+    out[idx] = val0d
+    return out
 
 
 def _lin_add(a: TaylorPoly, b: TaylorPoly):

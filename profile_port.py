@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of one ``--backend pallas`` inference goes on a CUDA card.
+"""Where the time of one ``--backend pallas`` or ``--backend jax`` inference
+goes on a CUDA card.
 
-    python3 profile_port.py [--out table.txt]
+    python3 profile_port.py [--backend pallas|jax] [--out table.txt]
 
 Builds the port's kernels, writes the end-to-end model of
-``chip_smoke.py`` (``generate_two_populations``, seed 0, its ``SIZE``, at
-its ``OFFLOAD_FLOPS``) to a temporary file and runs it through ``python
--m genfer_tpu_torch --backend pallas`` in-process: ``WARM`` times
-untraced (their wall times are printed), then once under
-``torch.profiler`` with CPU and CUDA activities.  The host f64 ``--backend
+``chip_smoke.py`` (``generate_two_populations``, seed 0: for ``pallas``
+its ``SIZE`` at its ``OFFLOAD_FLOPS``, phase 4's f32 route through K2;
+for ``jax`` its ``E2E_SIZE``, phase 8's f64 device path through K1) to a
+temporary file and runs it through ``python -m genfer_tpu_torch
+--backend ...`` in-process: ``WARM`` times untraced (their wall times are
+printed), then once under ``torch.profiler`` with CPU and CUDA
+activities.  The host f64 ``--backend
 numpy`` run of the same CLI is timed twice beside it.  Printed: the card's
 name and power limit, the untraced walls, the traced wall, the device's
 busy time and share of it, each device kernel and copy with its calls and
@@ -28,7 +31,7 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
-from chip_smoke import OFFLOAD_FLOPS, SIZE
+from chip_smoke import E2E_SIZE, OFFLOAD_FLOPS, SIZE
 
 WARM = 5  # untraced runs before the traced one
 
@@ -42,6 +45,8 @@ def _wall(main, argv) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="profile_port")
+    ap.add_argument("--backend", choices=["pallas", "jax"],
+                    default="pallas", help="the path profiled")
     ap.add_argument("--out", type=Path, default=None,
                     help="file for the profiler's full table")
     args = ap.parse_args(argv)
@@ -52,8 +57,7 @@ def main(argv=None) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from genfer_tpu_torch import _build, cli
-    from genfer_tpu_torch.ops import conv2d_trunc_f32
+    from genfer_tpu_torch import _build, cli, ops
     from genfer_tpu_torch.tools.generators import generate_two_populations
 
     if not torch.cuda.is_available():
@@ -66,29 +70,32 @@ def main(argv=None) -> None:
     print(smi.stdout.strip().splitlines()[0])
     _build.load()
 
+    size, kernel, setting = (
+        (SIZE, ops.conv2d_trunc_f32,
+         f" at GENFER_PALLAS_OFFLOAD_FLOPS={OFFLOAD_FLOPS}")
+        if args.backend == "pallas" else (E2E_SIZE, ops.conv2d_trunc_f64, ""))
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / f"two_populations_{SIZE}.sgcl"
-        generate_two_populations(path, SIZE, seed=0)
+        path = Path(tmp) / f"two_populations_{size}.sgcl"
+        generate_two_populations(path, size, seed=0)
         flags = [str(path), "--no-timing", "--backend"]
-        walls = [_wall(cli.main, flags + ["pallas"])
+        walls = [_wall(cli.main, flags + [args.backend])
                  for _ in range(WARM)]
         host = [_wall(cli.main, flags + ["numpy"]) for _ in range(2)]
-        conv2d_trunc_f32.launches = 0
+        kernel.launches = 0
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            traced = _wall(cli.main, flags + ["pallas"])
+            traced = _wall(cli.main, flags + [args.backend])
             torch.cuda.synchronize()
-    print(f"two_populations({SIZE}) --backend pallas at "
-          f"GENFER_PALLAS_OFFLOAD_FLOPS={OFFLOAD_FLOPS}: untraced wall "
-          f"{', '.join(f'{w:.4f}' for w in walls)} s (first run of the "
-          f"process first); host --backend numpy "
+    print(f"two_populations({size}) --backend {args.backend}{setting}: "
+          f"untraced wall {', '.join(f'{w:.4f}' for w in walls)} s (first "
+          f"run of the process first); host --backend numpy "
           f"{', '.join(f'{w:.4f}' for w in host)} s")
 
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    print(f"traced wall {traced:.4f} s, kernel launches "
-          f"{conv2d_trunc_f32.launches}; device busy {busy_us / 1e3:.4f} ms = "
+    print(f"traced wall {traced:.4f} s, {kernel.__name__} launches "
+          f"{kernel.launches}; device busy {busy_us / 1e3:.4f} ms = "
           f"{100 * busy_us / 1e6 / traced:.4f}% of the traced wall")
     by_name: dict[str, list[float]] = defaultdict(list)
     for e in dev:

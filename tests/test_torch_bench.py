@@ -1,6 +1,6 @@
 """The bench twin ``python -m genfer_tpu_torch.bench``: its options on the
-CPU (what is not ported raises, ``--pallas`` needs a card), the bound
-arithmetic it reports, and, on the card, its three sections."""
+CPU (what is not ported raises, the f64 headline and ``--pallas`` need a
+card), the bound arithmetic it reports, and, on the card, its sections."""
 
 import numpy as np
 import pytest
@@ -10,7 +10,8 @@ from genfer_tpu_torch import bench
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "Queue 1 item 3"),
+    # an unported section raises before the headline runs
+    (["--nested", "--seed", "1"], "Queue 1 item 3"),
     (["--suite"], "Queue 1 item 3"),
     (["--scaling"], "Queue 1 item 1"),
     (["--serving"], "Queue 1 items 8 and 10"),
@@ -31,6 +32,12 @@ def test_pallas_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         bench.main(["--pallas", "--seed", "3"])
+
+
+def test_headline_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        bench.main(["--seed", "3"])
 
 
 def test_unknown_option_is_refused():
@@ -58,6 +65,20 @@ def test_bound_of_a_thin_product_is_its_bytes():
     one_d, by_1d = bench.product_bound((4096,), (4096,), (4096,))
     assert by_1d == "operations"
     assert one_d == pytest.approx(4096 * 4097 / 2 / 33.5e12 * 1e3)
+
+
+@pytest.mark.cuda
+def test_bench_headline_on_card(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(bench, "RESULTS", tmp_path / "results.json")
+    results = bench.main([])
+    row = results["f64_kernel"]["512"]
+    assert row["max_err_vs_plain"] <= 1e-12
+    assert 0 < row["bound_share"] <= 1 and row["gflops"] > 0
+    assert results["host_kernel"]["512"]["gflops"] > 0
+    assert results["vs_host"] == pytest.approx(
+        row["gflops"] / results["host_kernel"]["512"]["gflops"])
 
 
 @pytest.mark.cuda

@@ -119,7 +119,6 @@ def test_main_reads_the_file(tmp_path):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--backend", "jax"], "--backend jax"),
     (["--backend", "sharded"], "--backend sharded"),
     (["--compile-scan"], "--compile-scan"),
     (["--debug-nans"], "--debug-nans"),
@@ -239,9 +238,11 @@ def test_native_eval_gate_names_the_ports_classes():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Every module of the port imported, then one CLI inference run, in
-    a fresh interpreter: neither jax nor genfer_tpu (nor any module of
-    it) is loaded."""
+    """Every module of the port imported (the f64 device path's namespace,
+    K1's wrapper and the ``entry()`` twin among them), then one CLI
+    inference run on the host path and one with ``--backend jax``, in a
+    fresh interpreter: neither jax nor genfer_tpu (nor any module of it)
+    is loaded."""
     path = tmp_path / "model.sgcl"
     generate_two_populations(path, 20, seed=0)
     code = (
@@ -251,9 +252,16 @@ def test_port_never_imports_jax(tmp_path):
         "p.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 25, mods\n"
+        "assert len(mods) >= 28, mods\n"
+        "for m in ('taylor.xp', 'ops.conv2d_f64', 'entry'):\n"
+        "    assert 'genfer_tpu_torch.' + m in mods, m\n"
         "from genfer_tpu_torch import cli\n"
+        "from genfer_tpu_torch.lang.parser import parse_program\n"
         f"cli.main([{str(path)!r}, '--no-timing'])\n"
+        "args = cli.build_arg_parser().parse_args("
+        f"[{str(path)!r}, '--no-timing', '--backend', 'jax'])\n"
+        f"text = open({str(path)!r}).read()\n"
+        "cli.run(parse_program(text), args, device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'genfer_tpu.')) or m == 'genfer_tpu']\n"
         "assert not bad, bad\n"

@@ -265,14 +265,16 @@ def _card():
 
 def _f64_product(a, b, out):
     """genfer_tpu's host f64 product, or above order 256 (where that
-    takes a minute a product) the port's own f64 product on the card,
-    itself held against genfer_tpu's in tests/test_torch_backend.py."""
+    takes a minute a product) the port's plain f64 product on the card
+    (K1's plain version), itself held against genfer_tpu's in
+    tests/test_torch_backend.py and tests/test_torch_conv2d_f64.py."""
     if max(out) <= 256:
         return NumpyF64Backend().conv_trunc(a, b, out)
-    from genfer_tpu_torch.taylor.backend import _conv_impl
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64_reference
 
-    return _conv_impl(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
-                      out).cpu().numpy()
+    return conv2d_trunc_f64_reference(
+        torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
+        out).cpu().numpy()
 
 
 CARD_SHAPES = ROWSTRIP_SHAPES + [

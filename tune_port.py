@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Tuning probes for the work-unit kernels (K2 ``conv2d_trunc_f32``, K3
 ``conv2d_trunc_f32_batched``, the tensor-core kernels K4a
-``conv2d_trunc_f32_tile`` and K4b ``conv2d_trunc_f32_grouped``, and the
-1-D kernel K6 ``conv1d_trunc_f32``) on one CUDA card.
+``conv2d_trunc_f32_tile`` and K4b ``conv2d_trunc_f32_grouped``, the
+1-D kernel K6 ``conv1d_trunc_f32`` and the f64 kernel K1
+``conv2d_trunc_f64``) on one CUDA card.
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Eight measurements (all, or the numbered ones), each printed with the
+Nine measurements (all, or the numbered ones), each printed with the
 card's name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
@@ -47,7 +48,12 @@ two trees run in turns compares their K6.
 8. K6 as it is in the tree, at ``K6_LENGTHS`` (la = lb = lc): the
    CUDA-event time, the card's device time and the host's time a call
    (the wrapper and its launches, not waiting for the card).  It uses
-   only the wrapper's public signature, so it runs on any tree.
+   only the wrapper's public signature, so it runs on any tree;
+9. the card's f64 ``mma.sync`` ceiling, the twin of probe 4 for K1: 8
+   independent accumulators a warp of ``m8n8k4`` (K1's shape) and of
+   ``m16n8k8`` (Hopper's larger f64 shape), 1 to 4 blocks of four warps
+   an SM, no memory traffic: what K1 could reach at most of the
+   data-sheet FP64 tensor rate behind ``bench.F64_MMA_PER_S``.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -150,6 +156,57 @@ mma_peak_kernel(float* out, int iters) {
 extern "C" int mma_peak(float* out, int blocks, int iters, void* stream) {
   mma_peak_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+F64_MMA_PEAK_CU = r"""
+#include <cuda_runtime.h>
+// SHAPE 0: m8n8k4 (256 multiply-adds an mma), 1: m16n8k8 (1024)
+template <int SHAPE>
+__global__ void __launch_bounds__(128)
+f64_mma_peak_kernel(double* out, int iters) {
+  double d[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d[i][j] = 0.0;
+  double a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = 1e-3 * (threadIdx.x + j);
+  const double b0 = 1e-3 * threadIdx.x, b1 = b0 + 1e-3;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if constexpr (SHAPE == 0)
+        asm volatile(
+            "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+            "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+            : "+d"(d[i][0]), "+d"(d[i][1])
+            : "d"(a[0]), "d"(b0));
+      else
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+d"(d[i][0]), "+d"(d[i][1]), "+d"(d[i][2]), "+d"(d[i][3])
+            : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0),
+              "d"(b1));
+    }
+  }
+  double s = 0.0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += d[i][0] + d[i][1] + d[i][2] + d[i][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+// ``blocks`` blocks of four warps, 8 * iters mma a warp
+extern "C" int f64_mma_peak(double* out, int shape, int blocks, int iters,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shape == 0)
+    f64_mma_peak_kernel<0><<<blocks, 128, 0, st>>>(out, iters);
+  else
+    f64_mma_peak_kernel<1><<<blocks, 128, 0, st>>>(out, iters);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -358,6 +415,43 @@ def mma_ceiling() -> float:
     return best
 
 
+def f64_mma_ceiling() -> float:
+    """Probe 9; returns the best rate of K1's shape (m8n8k4), in mma
+    multiply-adds a second."""
+    import torch
+
+    from genfer_tpu_torch.bench import F64_MMA_PER_S, time_ms
+
+    lib = _compile("f64_mma_peak", F64_MMA_PEAK_CU)
+    lib.f64_mma_peak.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    best, iters = 0.0, 20000
+    for shape, name, macs in ((0, "m8n8k4", 256), (1, "m16n8k8", 1024)):
+        for per_sm in (1, 2, 3, 4):
+            blocks = per_sm * sms
+            out = torch.empty(blocks * 128, dtype=torch.float64,
+                              device="cuda")
+
+            def run():
+                err = lib.f64_mma_peak(
+                    out.data_ptr(), shape, blocks, iters,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"f64_mma_peak launch failed ({err})")
+
+            ms = time_ms(run, 3, warmup=1)
+            rate = blocks * 4 * iters * 8 * macs / ms * 1e3
+            if shape == 0:
+                best = max(best, rate)
+            print(f"probe 9 mma.sync {name} f64 ceiling, {per_sm} blocks of "
+                  f"four warps an SM: {rate / 1e12:.2f}e12 multiply-adds/s = "
+                  f"{2 * rate / 1e12:.1f} TFLOP/s "
+                  f"({100 * rate / F64_MMA_PER_S:.1f}% of the data-sheet "
+                  "FP64 tensor rate the bound uses)")
+    return best
+
+
 def steady_state(ceiling: float) -> None:
     """Probe 5: identical interior units through the shipped kernels."""
     import numpy as np
@@ -537,6 +631,7 @@ def main(argv) -> None:
         1: fma_ceiling, 2: persistent_against_grid, 3: plan_sweep,
         4: mma_ceiling, 5: lambda: steady_state(mma_ceiling()),
         6: mma_plan_sweep, 7: fold_plan_sweep, 8: k6_lengths,
+        9: f64_mma_ceiling,
     }
     print(card())
     _build.load()
