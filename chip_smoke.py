@@ -46,20 +46,26 @@ result):
    product of their probability series, against the Poisson pmf of the
    summed rate in f64; K6 must have been launched.
 
-7. K1 (``conv2d_trunc_f64``, the f64 2-D product on the FP64 tensor
-   cores) against its plain version (``conv2d_trunc_f64_reference``, in
-   row strips above order 512) on the card: on ``K1_SHAPES`` (those of
+7. K1 (``conv2d_trunc_f64``, the f64 2-D product: its small body on
+   the FFMA units and its dense body on the FP64 tensor cores, as given
+   or transposed, ``k1_route`` picking one from the shapes) against its
+   plain version (``conv2d_trunc_f64_reference``, in row strips above
+   order 512) on the card: on ``K1_SHAPES`` (those of
    tests/test_conv_block.py) and the square ``K1_ORDERS`` 256 to 1024
    with standard-normal operands (max abs error over max |plain| <=
    ``K1_TOL`` = 1e-12) and with operands in [0, 1) (elementwise rtol
-   1e-12, to 512), at phase 8's largest product, on the extreme pair
-   ``K1_EXTREME`` (a's columns 1e-150 .. 1e150, b's 1e-20 .. 1e20, each
-   output column against its own max), the same bits twice everywhere;
-   a batch whose entries equal their single-pair calls bit for bit; a
-   3-axis product through ``TorchF64Backend.conv_trunc`` (one launch over
-   every pair) against the host f64 product.  Times of K1, its plain
-   version and, at phase 8's largest product and at order 512, one cuDNN
-   f64 ``conv2d``;
+   1e-12, to 512), on the main path's shape classes ``K1_CLASSES`` (two
+   2x2 stencils, the (n, 1) operands of two_populations(2000)) in [0, 1),
+   on the extreme pair ``K1_EXTREME`` (a's columns 1e-150 .. 1e150, b's
+   1e-20 .. 1e20, each output column against its own max), the same bits
+   twice everywhere, and the body each shape took; for each body a batch
+   whose entries equal their single-pair calls bit for bit; a 3-axis
+   product through ``TorchF64Backend.conv_trunc`` (one launch over every
+   pair) against the host f64 product.  Times of K1, its plain version
+   and, at the classes and the orders, one cuDNN f64 ``conv2d`` (timed
+   once where it takes over 0.5 s), each beside its bound; the host and
+   device microseconds of one K1 and one cuDNN call at the main path's
+   stencil and its largest product;
 8. ``--backend jax`` (``TorchF64Backend``, every coefficient tensor on the
    card) end to end through ``python -m genfer_tpu_torch`` in-process on
    ``examples/*.sgcl``, two_populations (seed 0, size ``E2E_SIZE`` =
@@ -68,20 +74,23 @@ result):
    (rel 1e-9, abs 1e-8) on Z, the moments and every printed p(k) (and
    the intervals a program with loops prints); one ``--bounds --backend
    jax`` run (``TorchIntervalBackend``) whose intervals hold the host
-   f64 points; K1 must have been launched;
+   f64 points; K1 must have been launched, and its launches by body on
+   two_populations and population are printed: the small body must have
+   run on both, and carried at least ``K1_SMALL_MIN`` of
+   two_populations' K1 launches;
 9. the ``entry()`` twin (``genfer_tpu_torch.entry``) on the card against
    the same operands on the CPU; K1 must have been launched;
 10. the bench twin's f64 headline at order 512 (K1's chain in GF/s, the
    host C++ kernel's, K1's bound); K1 must have been launched.
 
 Each of phases 4-6 and 8-10 sets the launch counts to 0 just before it
-and reads them just after.  Before the table, the shares of their bounds
+and reads them just after. Before the table, the shares of their bounds
 of K2, K3, K4a, K4b, K6 (the tensor-core kernels against the TF32 rate,
 three passes) with K2's time beside K4a's and K4b's, and of K1 (against
-the FP64 tensor rate).  The second-to-last line is the kernel table as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  Everything is
-reached through ``genfer_tpu_torch``; nothing here imports jax or
-genfer_tpu.
+the FP64 tensor rate). The second-to-last line is the kernel table as
+JSON, with one entry for each of K1's bodies; the last line is ``{"ok":
+true, "device": {...}}``. Everything is reached through
+``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
 
 Why size 500 with ``GENFER_PALLAS_OFFLOAD_FLOPS=1e5``: the f32 route
 casts f64 coefficients to f32 without scaling (as genfer_tpu's
@@ -169,8 +178,29 @@ GEOMETRIC_LEN = 16384
 DENSE_512 = ((512, 512), (512, 512), (512, 512))
 DENSE_256 = ((256, 256), (256, 256), (256, 256))
 MAIN_PATH = ((95, 1), (95, 87), (95, 87))  # phase 4's largest product
-# the largest product phase 8's two_populations run gives K1
+# the largest product phase 8's two_populations run gives K1 (an (n, 1)
+# operand: K1's dense body transposed)
 K1_MAIN_PATH = ((308, 1), (308, 274), (308, 274))
+# the shape classes of K1's calls on phase 8's two_populations(2000): 2x2
+# stencils (nearly every call) and (n, 1) operands; the small body takes
+# those of at most SMALL_MAX_COEFFS coefficients, the dense body
+# transposed the longer ones
+K1_SMALL_PATH = ((255, 268), (2, 2), (255, 268))
+K1_CLASSES = [
+    K1_SMALL_PATH,
+    ((308, 314), (2, 2), (308, 314)),
+    ((268, 274), (41, 1), (268, 274)),
+    K1_MAIN_PATH,
+]
+K1_DENSE_512 = ((512, 512),) * 3
+#: K1's body -> (source, the shape of the kernel table's times: the main
+#: path's stencil, the bench's order, the main path's largest product)
+K1_BODIES = {
+    "small": ("genfer_tpu_torch/csrc/conv2d_small_f64.cu", K1_SMALL_PATH),
+    "dense": ("genfer_tpu_torch/csrc/conv2d_trunc_f64.cu", K1_DENSE_512),
+    "dense_t": ("genfer_tpu_torch/csrc/conv2d_trunc_f64.cu", K1_MAIN_PATH),
+}
+K1_REPLACES = "genfer_tpu/taylor/backend.py:979"
 DENSE_ORDERS = (256, 384, 512, 768)
 
 #: kernel -> (source, TPU kernel it replaces, the shape of the kernel
@@ -194,10 +224,8 @@ KERNELS = {
         "genfer_tpu_torch/csrc/conv1d_trunc_f32.cu",
         "genfer_tpu/ops/pallas_conv.py:29",
         ((POISSON_LEN, POISSON_LEN, POISSON_LEN), 1)),
-    "conv2d_trunc_f64": (
-        "genfer_tpu_torch/csrc/conv2d_trunc_f64.cu",
-        "genfer_tpu/taylor/backend.py:979",
-        (K1_MAIN_PATH, 1)),
+    # one table entry for each of its bodies (``K1_BODIES``)
+    "conv2d_trunc_f64": None,
 }
 
 # K1, the f64 2-D product (phases 7-10).  Its shapes: those of
@@ -222,11 +250,14 @@ K1_ORDERS = (256, 512, 768, 1024)
 K1_3AXIS = ((24, 20, 18), (16, 20, 18), (24, 20, 18))
 K1_EXTREME = ((130, 140), (120, 100), (130, 140))
 K1_BATCH = 4  # entries of the batched call held against single pairs
+# a batch of each body: dense, small, dense transposed
+K1_BATCH_SHAPES = [K1_EXTREME, K1_SMALL_PATH, K1_MAIN_PATH]
 PLAIN_ROWS = 128  # output rows a strip of the plain version above 512
 # phase 8: --backend jax end to end at these sizes (seed 0), against the
 # host f64 --backend numpy run at the reference's is_close
 E2E_SIZE = 2000  # two_populations; the f32 route prints Z = NaN here
 POP_SIZE, POP_VARS = 1000, 2
+K1_SMALL_MIN = 1400  # of two_populations(2000)'s K1 launches (of ~1530)
 BOUNDS_EXAMPLE = "scam_calls.sgcl"
 IS_CLOSE = (1e-9, 1e-8)  # rel, abs
 HEADLINE_ITERS, HEADLINE_HOST_ITERS = 4, 1  # the bench's are 8 and 3
@@ -589,16 +620,28 @@ def _wrappers() -> dict:
     return {name: getattr(ops, name) for name in KERNELS}
 
 
+def _k1_by_body() -> dict:
+    """K1's launch counts by body, under their kernel-table names."""
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
+
+    return {f"conv2d_trunc_f64[{body}]": n
+            for body, n in conv2d_trunc_f64.launches_by_body.items()}
+
+
 @contextlib.contextmanager
 def _counted(launches: dict, must: tuple, what: str):
-    """Set every kernel's launch count to 0, run the block, then add the
-    counts to ``launches``; fail if a kernel of ``must`` was not
-    launched."""
+    """Set every kernel's launch count (and K1's by body) to 0, run the
+    block, then add the counts to ``launches``; fail if a kernel of
+    ``must`` was not launched."""
+    from genfer_tpu_torch.ops.conv2d_f64 import reset_launches
+
     wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
+    reset_launches()
     yield
     counts = {name: w.launches for name, w in wrappers.items()}
+    counts.update(_k1_by_body())
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
     for name in must:
@@ -728,8 +771,9 @@ def phase7_k1() -> dict:
     """K1 against its plain version on the card (module docstring)."""
     from genfer_tpu_torch import ops
     from genfer_tpu_torch.bench import F64_MMA, product_bound
+    from genfer_tpu_torch.ops.conv2d_f64 import dense_issued_macs, k1_body
     from genfer_tpu_torch.taylor.backend import TorchF64Backend
-    from genfer_tpu_torch.taylor.host import NumpyF64Backend
+    from genfer_tpu_torch.taylor.host import NumpyF64Backend, _conv_pair_flops
 
     K = ops.conv2d_trunc_f64
     rng = np.random.default_rng(1)
@@ -738,7 +782,11 @@ def phase7_k1() -> dict:
     cases += [(((n, n),) * 3, "normal") for n in K1_ORDERS]
     cases += [(shape, "uniform") for shape in K1_SHAPES]
     cases += [(((n, n),) * 3, "uniform") for n in K1_ORDERS[:2]]
-    cases += [(K1_MAIN_PATH, "uniform"), (K1_EXTREME, "extreme")]
+    cases += [(shape, "uniform") for shape in K1_CLASSES]
+    cases += [(K1_EXTREME, "extreme")]
+    # cuDNN beside the classes and the orders (standard-normal operands)
+    library_cases = [(shape, "uniform") for shape in K1_CLASSES]
+    library_cases += [(((n, n),) * 3, "normal") for n in K1_ORDERS]
     for (sa, sb, out), kind in cases:
         if kind == "normal":
             a, b = rng.standard_normal(sa), rng.standard_normal(sb)
@@ -748,43 +796,68 @@ def phase7_k1() -> dict:
             a = a * 10.0 ** np.linspace(-150, 150, sa[1])
             b = b * 10.0 ** np.linspace(-20, 20, sb[1])
         a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
-        label = f"{sa}x{sb}->{out} {kind}"
+        body = k1_body(sa, sb, out)
+        label = f"{sa}x{sb}->{out} {kind} ({body} body)"
+        before = dict(K.launches_by_body)
         got = K(a, b, out)
+        if K.launches_by_body[body] != before[body] + 1:
+            fail(f"conv2d_trunc_f64 {label}: the {body} body did not run")
         want = ops.conv2d_trunc_f64_reference(a, b, out, _plain_rows(out))
         how = {"normal": "norm", "uniform": "elementwise",
                "extreme": "columns"}[kind]
         err = _k1_gate(f"conv2d_trunc_f64 {label}", got, want, how)
+        of_max = err / float(want.abs().max())
         if not torch.equal(got, K(a, b, out)):
             fail(f"conv2d_trunc_f64 {label}: two calls differ")
         del want
-        row = {"max_abs_err": err, "ms": _time(lambda: K(a, b, out)),
+        row = {"body": body, "max_abs_err": err,
+               "ms": _time(lambda: K(a, b, out)),
                "plain_ms": _time(lambda: ops.conv2d_trunc_f64_reference(
                    a, b, out, _plain_rows(out)))}
-        if (sa, sb, out) in (K1_MAIN_PATH, ((512, 512),) * 3):
+        if ((sa, sb, out), kind) in library_cases:
             row["library_ms"], lib_err = _library(
                 _conv2d_library(a[None], b, out), got, ATOL)
-        bound = product_bound(sa, sb, out, rate=F64_MMA)[0]
-        row["bound_ms"] = bound
+        bound, by = product_bound(sa, sb, out, rate=F64_MMA)
+        row["bound_ms"], row["bound_by"] = bound, by
         rows[((sa, sb, out), kind)] = row
+        issued = "" if body == "small" else (
+            ", issued / useful multiply-adds {:.3f}".format(
+                dense_issued_macs(sa, sb, out, body == "dense_t")
+                / _conv_pair_flops(sa, sb, out)))
         print(f"phase 7 conv2d_trunc_f64 {label}: max abs err {err:.3e} "
-              f"({how} gate {K1_TOL}), same bits twice; kernel "
+              f"({of_max:.3e} of the max; {how} gate {K1_TOL}), same bits "
+              "twice; kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
               + (f", library {row['library_ms']:.4f} ms (cuDNN f64, max "
                  f"rel err {lib_err:.3e})" if "library_ms" in row else "")
-              + f", bound {bound:.4g} ms ({F64_MMA}), share "
-              f"{100 * bound / row['ms']:.1f}%")
+              + f", bound {bound:.4g} ms ({by}), share "
+              f"{100 * bound / row['ms']:.1f}%{issued}")
         del got
-    # the batch: every entry equals its single-pair call bit for bit
-    sa, sb, out = K1_EXTREME
-    ab = torch.from_numpy(rng.standard_normal((K1_BATCH, *sa))).cuda()
-    bb = torch.from_numpy(rng.standard_normal((K1_BATCH, *sb))).cuda()
-    got = ops.conv2d_trunc_f64_batched(ab, bb, out)
-    _k1_gate("conv2d_trunc_f64_batched", got,
-             ops.conv2d_trunc_f64_batched_reference(ab, bb, out), "norm")
-    for z in range(K1_BATCH):
-        if not torch.equal(got[z], K(ab[z], bb[z], out)):
-            fail(f"conv2d_trunc_f64_batched entry {z} differs from the "
-                 "single-pair call")
+    # host and device time of one call at the main path's stencil and its
+    # largest product, K1 beside cuDNN (calls of a few us read the host's
+    # launch rate in CUDA-event time)
+    for sa, sb, out in (K1_SMALL_PATH, K1_MAIN_PATH):
+        a = torch.from_numpy(rng.random(sa)).cuda()
+        b = torch.from_numpy(rng.random(sb)).cuda()
+        k1 = _host_and_device_us(lambda: K(a, b, out), "conv2d_trunc_f64")
+        lib = _host_and_device_us(_conv2d_library(a[None], b, out),
+                                  "cuDNN conv2d")
+        print(f"phase 7 {sa}x{sb}->{out} ({k1_body(sa, sb, out)} body): "
+              f"K1 {k1}; cuDNN f64 {lib}")
+    # a batch of each body: every entry equals its single-pair call
+    for sa, sb, out in K1_BATCH_SHAPES:
+        ab = torch.from_numpy(rng.standard_normal((K1_BATCH, *sa))).cuda()
+        bb = torch.from_numpy(rng.standard_normal((K1_BATCH, *sb))).cuda()
+        got = ops.conv2d_trunc_f64_batched(ab, bb, out)
+        body = k1_body(sa, sb, out)
+        _k1_gate(f"conv2d_trunc_f64_batched {sa}x{sb} ({body} body)", got,
+                 ops.conv2d_trunc_f64_batched_reference(ab, bb, out), "norm")
+        for z in range(K1_BATCH):
+            if not torch.equal(got[z], K(ab[z], bb[z], out)):
+                fail(f"conv2d_trunc_f64_batched {sa}x{sb} ({body} body) "
+                     f"entry {z} differs from the single-pair call")
+        print(f"phase 7 batch of {K1_BATCH} {sa}x{sb}->{out} normal ({body} "
+              "body): every entry equals its single-pair call bit for bit")
     # a 3-axis product: one launch over every pair of leading rows
     sa, sb, out = K1_3AXIS
     a, b = rng.standard_normal(sa), rng.standard_normal(sb)
@@ -796,11 +869,9 @@ def phase7_k1() -> dict:
     err = _k1_gate("TorchF64Backend.conv_trunc 3-axis", got, want, "norm")
     if launched != 1:
         fail(f"the 3-axis product launched K1 {launched} times, not once")
-    print(f"phase 7 batch of {K1_BATCH} {K1_EXTREME[:2]} normal: every entry "
-          "equals its single-pair call bit for bit; TorchF64Backend."
-          f"conv_trunc {sa}x{sb}->{out}: one K1 launch over "
-          f"{sa[0] * sb[0]} pairs, max abs err {err:.3e} against the host "
-          "f64 product (norm gate)")
+    print(f"phase 7 TorchF64Backend.conv_trunc {sa}x{sb}->{out}: one K1 "
+          f"launch over {sa[0] * sb[0]} pairs, max abs err {err:.3e} "
+          "against the host f64 product (norm gate)")
     return rows
 
 
@@ -842,6 +913,7 @@ def phase8_backend_jax(launches: dict) -> None:
     above; one ``--bounds --backend jax`` run whose intervals hold the
     host f64 points."""
     from genfer_tpu_torch import cli
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
     from genfer_tpu_torch.tools.generators import (
         generate_population,
         generate_two_populations,
@@ -854,10 +926,14 @@ def phase8_backend_jax(launches: dict) -> None:
         generate_two_populations(tp, E2E_SIZE, seed=0)
         pop = Path(tmp) / f"population_{POP_SIZE}_{POP_VARS}.sgcl"
         generate_population(pop, POP_SIZE, POP_VARS, seed=0)
-        with _counted(launches, ("conv2d_trunc_f64",), "phase 8"):
+        by_body = conv2d_trunc_f64.launches_by_body
+        with _counted(launches, ("conv2d_trunc_f64",
+                                 "conv2d_trunc_f64[small]"), "phase 8"):
             for path in [*examples, tp, pop]:
                 flags = [str(path), "--no-timing", "--backend"]
+                before = dict(by_body)
                 port_out, port_s = _capture(cli.main, flags + ["jax"])
+                runs = {k: by_body[k] - before[k] for k in by_body}
                 host_out, host_s = _capture(cli.main, flags + ["numpy"])
                 n = _agree(read_results(port_out), read_results(host_out),
                            path.name)
@@ -866,7 +942,14 @@ def phase8_backend_jax(launches: dict) -> None:
                 print(f"phase 8 {path.name} --backend jax: {n} results at "
                       f"is_close (rel {IS_CLOSE[0]}, abs {IS_CLOSE[1]}) to "
                       f"--backend numpy; port {port_s:.3f} s, host "
-                      f"{host_s:.3f} s wall")
+                      f"{host_s:.3f} s wall; K1 launches by body "
+                      + ", ".join(f"{k} {v}" for k, v in runs.items()))
+                if path in (tp, pop) and runs["small"] < 1:
+                    fail(f"{path.name}: K1's small body never ran")
+                if path == tp and runs["small"] < K1_SMALL_MIN:
+                    fail(f"{path.name}: K1's small body ran {runs['small']} "
+                         f"of {sum(runs.values())} launches, under "
+                         f"{K1_SMALL_MIN}")
             path = [p for p in examples if p.name == BOUNDS_EXAMPLE][0]
             flags = [str(path), "--no-timing", "--backend"]
             iv_out, iv_s = _capture(cli.main, flags + ["jax", "--bounds"])
@@ -990,43 +1073,55 @@ def _passes(name: str, shape) -> int | None:
     return SPLIT_PASSES
 
 
+def _entry(name, source, replaces, launches, row, rows, bound, by,
+           bound_rate) -> dict:
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        # over the unit-scale shapes (the extreme and geometric pairs'
+        # outputs reach 1e36 and 1e-36, and are held by their relative
+        # error)
+        "max_abs_err": max(r["max_abs_err"] for k, r in rows.items()
+                           if k[0] not in ("extreme", "geometric")
+                           and k[1] != "extreme"),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        # "operations": of the f32 FMA rate, of the TF32 tensor rate for
+        # the kernels that run there, or of the FP64 tensor rate for K1
+        # (``bound_rate``)
+        "bound_ms": bound, "bound_by": by.split()[-1],
+        "bound_rate": bound_rate, "library_ms": row["library_ms"],
+    }
+
+
 def kernel_table(rows: dict, launches: dict) -> list:
     from genfer_tpu_torch.bench import F64_MMA, product_bound
 
     table = []
-    for name, (source, replaces, key) in KERNELS.items():
+    for name, spec in KERNELS.items():
+        if name == "conv2d_trunc_f64":
+            continue
+        source, replaces, key = spec
         shape, batch = key
         passes = _passes(name, shape)
-        if name == "conv2d_trunc_f64":
-            row = rows[name][(shape, "uniform")]
-            bound, by = product_bound(*shape, rate=F64_MMA)
-        elif name == "conv1d_trunc_f32":
-            row = rows[name][key]
+        row = rows[name][key]
+        if name == "conv1d_trunc_f32":
             la, lb, lc = shape
             bound, by = product_bound((la,), (lb,), (lc,), passes=passes)
         else:
-            row = rows[name][key]
             bound, by = product_bound(*shape, batch=batch, passes=passes)
-        table.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(name, 0),
-            # over the unit-scale shapes (the extreme and geometric
-            # pairs' outputs reach 1e36 and 1e-36, and are held by their
-            # relative error)
-            "max_abs_err": max(r["max_abs_err"]
-                               for k, r in rows[name].items()
-                               if k[0] not in ("extreme", "geometric")
-                               and k[1] != "extreme"),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            # "operations": of the f32 FMA rate, of the TF32 tensor rate
-            # for the kernels that run there, or of the FP64 tensor rate
-            # for K1 (``bound_rate``)
-            "bound_ms": bound, "bound_by": by.split()[-1],
-            "bound_rate": (F64_MMA if name == "conv2d_trunc_f64"
-                           else "f32 fma" if passes is None
-                           else "tf32 mma x 3"),
-            "library_ms": row["library_ms"],
-        })
+        table.append(_entry(name, source, replaces, launches.get(name, 0),
+                            row, rows[name], bound, by,
+                            "f32 fma" if passes is None else "tf32 mma x 3"))
+    k1 = rows["conv2d_trunc_f64"]
+    for body, (source, shape) in K1_BODIES.items():
+        kind = "normal" if shape == K1_DENSE_512 else "uniform"
+        bound, by = product_bound(*shape, rate=F64_MMA)
+        name = f"conv2d_trunc_f64[{body}]"
+        table.append(_entry(
+            name, source, K1_REPLACES, launches.get(name, 0),
+            k1[(shape, kind)],
+            {k: r for k, r in k1.items() if r["body"] == body}, bound, by,
+            F64_MMA))
     return table
 
 

@@ -111,6 +111,7 @@ def _declare(lib: ctypes.CDLL) -> None:
           for name in ("conv2d_trunc_f32_batched",
                        "conv2d_trunc_f64_batched")),
         ("conv1d_trunc_f32", [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]),
+        ("conv2d_small_f64", [ptr] * 3 + [i32] * 8 + [ptr]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -11,40 +11,51 @@
 // sum) with its truncation staircase _conv_dense_2d_blocked; its >= 3-axis
 // products batch every (i0, j0) pair of leading rows into one launch here.
 //
+// This is K1's dense body; ops/conv2d_f64.py::k1_route sends a product
+// whose smaller operand holds at most SMALL_MAX_COEFFS coefficients to the
+// small body (conv2d_small_f64.cu) instead, and runs this body on the
+// transposed operands, c^T = K1(a^T, b^T), where that plan issues fewer
+// multiply-adds: a thin, tall operand is then contracted along its long
+// axis.
+//
 // The work units are those of K4a (ops/conv2d.py::unit_plan with
 // cut_j1=False): (64x64 output tile at (K0, K1), j0 range, j1 range), the
 // ranges clipped to where a and b are nonzero, which plays the part of
-// the staircase.  For each j0 of a unit and each 4-wide slice of a's
+// the staircase.  For each j0 of a unit and each 8-wide slice of a's
 // columns starting at i1:
 //
 //     C[m, n] += A[m, k] * T[k, n]
 //     A[m, k] = a[K0 + m - j0, i1 + k]
 //     T[k, n] = b[j0, K1 + n - (i1 + k)]     (zero outside the unit's j1)
 //
-// as mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64.  T is never built: a
-// thread reads its B-fragment value from the staged b row at offset
+// as mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64.  T is never built: a
+// thread reads its B-fragment values from the staged b row at offset
 // n - k, as conv2d_mma.cuh does for TF32.  Native f64 needs one pass and
 // no split.
 //
 // What bounds it on the H100: FP64 tensor-core multiply-adds (67 TFLOP/s
-// on the data sheet, 33.5e12 multiply-adds a second), at the rate
-// mma.sync reaches (tune_port.py's f64 probe).  Shared memory is far from
-// binding: a k-slice is 16 mma of 256 multiply-adds for 8 fragment words
-// a thread.  The design:
+// on the data sheet, 33.5e12 multiply-adds a second), which m16n8k8
+// reaches and Ampere's m8n8k4 reaches half of (tune_port.py probe 9).
+// Shared memory is not binding: a k-slice is 8 mma of 1024 multiply-adds
+// for 16 fragment words a thread.  The design:
 //
-//   * register blocking: 128 threads; a warp owns 32x32 of the tile, 4 x 4
-//     mma tiles of 8x8, so 32 f64 accumulators (64 registers) a thread.
-//   * fragments, one f64 a lane: A (row-major 8x4) lane 4 g + t holds
-//     A[g][t]; B (column-major 4x8) T[t][g]; C[g][2 t + i], i = 0, 1.  The
-//     window's row pitch is KB + 4 = 36 words (= 4 mod 16), so the 16
-//     lanes of a half warp (g 0-3, t 0-3) read 16 distinct bank pairs;
-//     the B lanes of a half warp read 7 consecutive words (g - t), equal
-//     words broadcast.
+//   * register blocking: 128 threads; a warp owns 32x32 of the tile, 2 x 4
+//     mma tiles of 16x8, so 32 f64 accumulators (64 registers) a thread.
+//   * fragments (PTX's m16n8k8 .f64 layout, the one conv2d_mma.cuh uses
+//     for TF32 with one f64 a register; tune_port.py probe 10 checks it on
+//     the card), lane 4 g + t: A (row-major 16x8) a0 = A[g][t], a1 =
+//     A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4]; B (column-major
+//     8x8) b0 = T[t][g], b1 = T[t + 4][g]; C c0, c1 = C[g][2 t + i], c2, c3
+//     = C[g + 8][2 t + i].  The window's row pitch is KB + 4 = 36 words (=
+//     4 mod 16), so the 16 lanes of a half warp (g 0-3, t 0-3) read 16
+//     distinct bank pairs; the B lanes of a half warp read 7 consecutive
+//     words (g - t), equal words broadcast.
 //   * staging: per (G = 16 rows of j0, KB = 32 columns of a) the window
 //     (79 rows) and the b block (16 rows of KB + 63 words) come from global
 //     memory (L2: the operands are a few MB) by 8-byte cp.async, zero where
 //     a ends or the unit's j1 range does, into one of two stages, the next
-//     in flight while this one is multiplied.  70 KB: three blocks an SM.
+//     in flight while this one is multiplied (4 k-slices of 8 a stage).
+//     70 KB: three blocks an SM.
 //   * one accumulator: f64 sums over a unit's j0 and columns (at most a few
 //     hundred thousand terms at order 1024) stay far inside the f64 gate
 //     without the f32 kernels' chains and flushes.
@@ -67,8 +78,8 @@ namespace {
 struct F64Geo {
   static constexpr int G = 16;       // j0 rows a stage
   static constexpr int KB = 32;      // a columns a stage
-  static constexpr int S = KB / 4;   // k-slices a stage
-  static constexpr int MT = 4;       // 8-row mma tiles down a warp tile
+  static constexpr int S = KB / 8;   // k-slices a stage
+  static constexpr int MT = 2;       // 16-row mma tiles down a warp tile
   static constexpr int NTL = 4;      // 8-column mma tiles across it
   static constexpr int A_ROWS = BM + G - 1;
   static constexpr int A_PITCH = KB + 4;
@@ -80,12 +91,13 @@ struct F64Geo {
   static_assert(KB == 32, "a lane stages one word of a window row");
 };
 
-// d += A (8x4, fragment a) * B (4x8, fragment b)
-__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
+// d += A (16x8, fragment a) * B (8x8, fragment b)
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
 // One unit: the tile at (K0, K1) summed over j0 in [j0_lo, j0_hi) and j1
@@ -150,14 +162,13 @@ __device__ __forceinline__ void f64_unit(
     commit_group();
   };
 
-  double acc[L::MT][L::NTL][2];
+  double acc[L::MT][L::NTL][4];
 #pragma unroll
   for (int M = 0; M < L::MT; ++M)
 #pragma unroll
-    for (int N = 0; N < L::NTL; ++N) {
-      acc[M][N][0] = 0.0;
-      acc[M][N][1] = 0.0;
-    }
+    for (int N = 0; N < L::NTL; ++N)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[M][N][i] = 0.0;
 
   // stages: j0 groups outer, a's column blocks inner
   int next_g0 = j0_lo;
@@ -184,19 +195,29 @@ __device__ __forceinline__ void f64_unit(
     const double* sA = smem + buf * L::STAGE_WORDS;
     const double* sB = sA + L::A_WORDS;
     for (int dj = 0; dj < n_dj; ++dj) {
-      // A[mb + 8 M + g][kk + t]: window row mb + 8 M + g - dj + G - 1;
-      // T[kk + t][nb + 8 N + g]: b row dj, word nb + 8 N + g - kk - t +
-      // KB - 1
+      // A[mb + 16 M + g (+ 8)][kk + t (+ 4)]: window row mb + 16 M + g
+      // (+ 8) - dj + G - 1, word kk + t (+ 4);
+      // T[kk + t (+ 4)][nb + 8 N + g]: b row dj, word nb + 8 N + g - kk -
+      // t (- 4) + KB - 1
       const double* wa = sA + (mb + g - dj + G - 1) * A_PITCH + t;
       const double* wb = sB + dj * B_PITCH + nb + g - t + KB - 1;
 #pragma unroll
       for (int ks = 0; ks < L::S; ++ks) {
-        double af[L::MT];
-        double bf[L::NTL];
+        double af[L::MT][4];
+        double bf[L::NTL][2];
 #pragma unroll
-        for (int M = 0; M < L::MT; ++M) af[M] = wa[8 * M * A_PITCH + 4 * ks];
+        for (int M = 0; M < L::MT; ++M) {
+          const double* p = wa + 16 * M * A_PITCH + 8 * ks;
+          af[M][0] = p[0];
+          af[M][1] = p[8 * A_PITCH];
+          af[M][2] = p[4];
+          af[M][3] = p[8 * A_PITCH + 4];
+        }
 #pragma unroll
-        for (int N = 0; N < L::NTL; ++N) bf[N] = wb[8 * N - 4 * ks];
+        for (int N = 0; N < L::NTL; ++N) {
+          bf[N][0] = wb[8 * N - 8 * ks];
+          bf[N][1] = wb[8 * N - 8 * ks - 4];
+        }
 #pragma unroll
         for (int M = 0; M < L::MT; ++M)
 #pragma unroll
@@ -209,22 +230,25 @@ __device__ __forceinline__ void f64_unit(
     }
   }
 
-  // accumulator i of mma tile (M, N): row g, column 2 t + i
+  // accumulator 2 h + i of mma tile (M, N): row 8 h + g, column 2 t + i
 #pragma unroll
   for (int M = 0; M < L::MT; ++M)
 #pragma unroll
-    for (int N = 0; N < L::NTL; ++N) {
-      const int m = mb + 8 * M + g;
-      const int n = nb + 8 * N + 2 * t;
-      if (to_slot) {
-        *reinterpret_cast<double2*>(out + m * BN + n) =
-            make_double2(acc[M][N][0], acc[M][N][1]);
-      } else if (K0 + m < c0) {
-        double* row = out + static_cast<size_t>(K0 + m) * c1 + K1 + n;
-        if (K1 + n < c1) row[0] = acc[M][N][0];
-        if (K1 + n + 1 < c1) row[1] = acc[M][N][1];
+    for (int N = 0; N < L::NTL; ++N)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mb + 16 * M + 8 * h + g;
+        const int n = nb + 8 * N + 2 * t;
+        const double x0 = acc[M][N][2 * h];
+        const double x1 = acc[M][N][2 * h + 1];
+        if (to_slot) {
+          *reinterpret_cast<double2*>(out + m * BN + n) = make_double2(x0, x1);
+        } else if (K0 + m < c0) {
+          double* row = out + static_cast<size_t>(K0 + m) * c1 + K1 + n;
+          if (K1 + n < c1) row[0] = x0;
+          if (K1 + n + 1 < c1) row[1] = x1;
+        }
       }
-    }
 }
 
 __global__ void __launch_bounds__(NT, 3)

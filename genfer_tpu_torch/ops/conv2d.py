@@ -203,15 +203,18 @@ def tile_body(a_shape, b_shape) -> str:
     return "ffma" if kb[1] < MMA_MIN_COLS else "mma"
 
 
-def issued_macs(plan: UnitPlan, a_shape, b_shape) -> int:
+def issued_macs(plan: UnitPlan, a_shape, b_shape, block: int = 1) -> int:
     """Multiply-adds the tensor-core kernels issue for ``plan`` (one
     pass): every unit a full TILE x TILE tile for each of its j0 and each
     column of a it contracts over (those whose band meets the unit's j1
-    range), before a warp skips what lies wholly outside a or b."""
+    range, rounded up to whole blocks of ``block`` columns where the
+    kernel's loop runs over such blocks, as K1's does), before a warp
+    skips what lies wholly outside a or b."""
     a1 = (b_shape if plan.swap else a_shape)[1]
     u = plan.units.astype(np.int64)
     cols = (np.minimum(a1, u[:, 1] + TILE - u[:, 4])
             - np.maximum(0, u[:, 1] - u[:, 5] + 1))
+    cols = -(-cols // block) * block
     return int(((u[:, 3] - u[:, 2]) * cols).sum()) * TILE * TILE
 
 

@@ -15,20 +15,33 @@ _conv_dense_batched`` sends every 2-axis f64 product here, so
 reach K1 on the card, the >= 3-axis products with one launch over all
 their pairs.
 
-On a CUDA tensor a wrapper launches ``csrc/conv2d_trunc_f64.cu`` (built by
+On a CUDA tensor a wrapper launches one of K1's bodies (built by
 ``_build``) or raises; on a CPU tensor it runs the plain version
 (``conv2d_trunc_f64_batched_reference``: the Toeplitz einsum and
 anti-diagonal sum the port's backend ran before K1).  There is no other
-fallback.  Both wrappers count the kernel's launches in
-``conv2d_trunc_f64.launches`` (CPU calls add nothing).
+fallback, and none from one body to another.  ``k1_route`` picks the body
+from the shapes alone:
 
-The kernel runs the work units of ``ops.conv2d.unit_plan(...,
-cut_j1=False)`` on the FP64 tensor cores (``mma.sync.m8n8k4 ... f64``), a
-tile's units added in slot order: the result depends on the shapes alone,
-and every batch entry equals the single-pair call bit for bit.
+* ``"small"`` (``csrc/conv2d_small_f64.cu``): the smaller operand holds at
+  most ``SMALL_MAX_COEFFS`` coefficients; one fma chain an output, j0
+  ascending then j1, one launch a product and nothing on the host;
+* ``"dense"`` (``csrc/conv2d_trunc_f64.cu``): the work units of
+  ``ops.conv2d.unit_plan(..., cut_j1=False)`` on the FP64 tensor cores
+  (``mma.sync.m16n8k8 ... f64``), a tile's units added in slot order;
+* ``"dense_t"``: the dense body on the transposed operands, ``c^T =
+  K1(a^T, b^T)``, where that plan issues fewer multiply-adds: a thin, tall
+  smaller operand ((308,1)x(308,274): 85.8 x the useful multiply-adds as
+  given, 2.5 x transposed) is then contracted along its long axis.
+
+Every body's result depends on the shapes alone, and every batch entry
+equals the single-pair call bit for bit.  Both wrappers count the kernel's
+launches in ``conv2d_trunc_f64.launches`` and, by body, in
+``conv2d_trunc_f64.launches_by_body`` (CPU calls add nothing).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,8 +53,73 @@ from .conv2d import (
     _on_card,
     _on_device,
     _plan_on_card,
+    _swap,
     batched_blocks,
+    issued_macs,
+    unit_plan,
 )
+
+# The constants of ``k1_route``, beside those of ``ops.conv2d.unit_plan``;
+# they depend on the shapes alone, never on the card.
+#: smaller operands of at most this many coefficients take the small body:
+#: ``tune_port.py`` probe 11 found it faster on one H100 80GB HBM3 (700 W)
+#: than the dense body at (255,268)x(s,s) for every s up to 8 (2.66 against
+#: 8.84 us of device time at 2x2) and than the dense body transposed at
+#: (268,274)x(n,1) up to n = 64 (9.81 against 11.89 us), so up to its own
+#: limit (SMALL_LIMIT in its .cu)
+SMALL_MAX_COEFFS = 64
+#: the dense body's stage width in a's columns (F64Geo::KB in the .cu)
+KB = 32
+BODIES = ("small", "dense", "dense_t")
+
+
+def _smaller(a_shape, b_shape):
+    """The operand the kernels loop over: b, unless a has fewer
+    coefficients (``ops.conv2d._swap``)."""
+    return a_shape if _swap(a_shape, b_shape) else b_shape
+
+
+def k1_route(a_shape, b_shape, out_shape) -> tuple[str, bool]:
+    """``(body, transposed)`` of K1 for one pair's shapes (every batch
+    entry has the same): ``("small", False)`` where the smaller operand
+    holds at most ``SMALL_MAX_COEFFS`` coefficients, else ``("dense",
+    dense_transposed(...))``."""
+    s0, s1 = _smaller(a_shape, b_shape)
+    if s0 * s1 <= SMALL_MAX_COEFFS:
+        return "small", False
+    return "dense", dense_transposed(tuple(a_shape), tuple(b_shape),
+                                     tuple(out_shape))
+
+
+def k1_body(a_shape, b_shape, out_shape) -> str:
+    """The name of the body ``k1_route`` picks: one of ``BODIES``
+    (``dense_t``: the dense body transposed)."""
+    body, transposed = k1_route(a_shape, b_shape, out_shape)
+    return body + "_t" if transposed else body
+
+
+@functools.lru_cache(maxsize=1024)
+def dense_transposed(a_shape, b_shape, out_shape) -> bool:
+    """The orientation rule of the dense body: transposed where its plan
+    on the transposed shapes issues fewer multiply-adds
+    (``dense_issued_macs``) than on the shapes as given; a tie keeps them
+    as given.  A unit contracts over its b columns plus the 63 of the
+    band, in ``KB``-wide blocks, so a tall, thin b wastes nearly all of
+    them: (n, 1) fills 1 column of 64.  Both plans are ``unit_plan``'s
+    cached ones, and the transposed call reuses its own."""
+    return (dense_issued_macs(a_shape, b_shape, out_shape, True)
+            < dense_issued_macs(a_shape, b_shape, out_shape))
+
+
+def dense_issued_macs(a_shape, b_shape, out_shape,
+                      transposed: bool = False) -> int:
+    """Multiply-adds the dense body issues for one pair
+    (``ops.conv2d.issued_macs`` of its plan, a's columns in the ``KB``-wide
+    blocks of its loop), on the transposed shapes where ``transposed``."""
+    shapes = (tuple(a_shape), tuple(b_shape), tuple(out_shape))
+    if transposed:
+        shapes = tuple(s[::-1] for s in shapes)
+    return issued_macs(unit_plan(*shapes, False), *shapes[:2], KB)
 
 
 def conv2d_trunc_f64_batched_reference(a, b, out_shape, rows=None):
@@ -70,16 +148,26 @@ def conv2d_trunc_f64_reference(a, b, out_shape, rows=None):
                                               rows)[0]
 
 
-def conv2d_trunc_f64_batched(a, b, out_shape):
-    """Truncated 2-D Cauchy products of every pair ``a[z]``, ``b[z]`` of
-    the batches ``a`` (B, a0, a1) and ``b`` (B, b0, b1), f64, to (B, c0,
-    c1); any sizes >= 1."""
-    c0, c1 = _check(a, b, out_shape, 3, 3, torch.float64)
-    if a.shape[0] != b.shape[0]:
-        raise ValueError(f"batches of {a.shape[0]} and {b.shape[0]} pairs")
-    if not _on_card(a):
-        return conv2d_trunc_f64_batched_reference(a, b, (c0, c1))
-    lib = _build.load()
+def _small(lib, a, b, c0, c1):
+    """The small body: one launch over (entry, output tile)."""
+    batch = a.shape[0]
+    ka, ks = (b, a) if _swap(tuple(a.shape[1:]), tuple(b.shape[1:])) else (
+        a, b)
+    # the launch refuses more than SMALL_LIMIT coefficients and a grid of
+    # more than 2^31 - 1 blocks (an error that raises below)
+    vec = ka.data_ptr() % 16 == 0 and ka.shape[2] % 2 == 0
+    out = torch.empty((batch, c0, c1), dtype=torch.float64, device=a.device)
+    err = lib.conv2d_small_f64(
+        ka.data_ptr(), ks.data_ptr(), out.data_ptr(), batch, ka.shape[1],
+        ka.shape[2], ks.shape[1], ks.shape[2], c0, c1, int(vec),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "conv2d_small_f64", err)
+    return out
+
+
+def _dense(lib, a, b, c0, c1):
+    """The dense body on ``unit_plan(..., cut_j1=False)`` of the pair's
+    shapes (its tables kept on the card per shape)."""
     batch = a.shape[0]
     plan, units, sums = _plan_on_card(tuple(a.shape[1:]), tuple(b.shape[1:]),
                                       (c0, c1), a.device, False)
@@ -90,17 +178,44 @@ def conv2d_trunc_f64_batched(a, b, out_shape):
     out = alloc((batch, c0, c1), dtype=torch.float64, device=a.device)
     work = (torch.empty((batch, plan.slots, TILE, TILE), dtype=torch.float64,
                         device=a.device) if plan.slots else None)
-    with _on_device(a.device):
-        err = lib.conv2d_trunc_f64_batched(
-            ka.data_ptr(), kb.data_ptr(), out.data_ptr(),
-            0 if work is None else work.data_ptr(),
-            units.data_ptr(), len(plan.units), sums.data_ptr(),
-            len(plan.sums), plan.slots, ka[0].numel(), kb[0].numel(), batch,
-            ka.shape[1], ka.shape[2], kb.shape[2], c0, c1,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    err = lib.conv2d_trunc_f64_batched(
+        ka.data_ptr(), kb.data_ptr(), out.data_ptr(),
+        0 if work is None else work.data_ptr(),
+        units.data_ptr(), len(plan.units), sums.data_ptr(),
+        len(plan.sums), plan.slots, ka[0].numel(), kb[0].numel(), batch,
+        ka.shape[1], ka.shape[2], kb.shape[2], c0, c1,
+        torch.cuda.current_stream().cuda_stream,
+    )
     _build.check(lib, "conv2d_trunc_f64_batched", err)
+    return out
+
+
+def _launch(body, a, b, c0, c1):
+    """Run ``body`` of K1 on the card (``dense_t``: the dense body on the
+    transposed operands, its result transposed back)."""
+    lib = _build.load()
+    if body == "small":
+        return _small(lib, a, b, c0, c1)
+    if body == "dense":
+        return _dense(lib, a, b, c0, c1)
+    out = _dense(lib, a.mT.contiguous(), b.mT.contiguous(), c1, c0)
+    return out.mT.contiguous()
+
+
+def conv2d_trunc_f64_batched(a, b, out_shape):
+    """Truncated 2-D Cauchy products of every pair ``a[z]``, ``b[z]`` of
+    the batches ``a`` (B, a0, a1) and ``b`` (B, b0, b1), f64, to (B, c0,
+    c1); any sizes >= 1."""
+    c0, c1 = _check(a, b, out_shape, 3, 3, torch.float64)
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"batches of {a.shape[0]} and {b.shape[0]} pairs")
+    if not _on_card(a):
+        return conv2d_trunc_f64_batched_reference(a, b, (c0, c1))
+    body = k1_body(tuple(a.shape[1:]), tuple(b.shape[1:]), (c0, c1))
+    with _on_device(a.device):
+        out = _launch(body, a, b, c0, c1)
     conv2d_trunc_f64.launches += 1
+    conv2d_trunc_f64.launches_by_body[body] += 1
     return out
 
 
@@ -111,4 +226,12 @@ def conv2d_trunc_f64(a, b, out_shape):
     return conv2d_trunc_f64_batched(a[None], b[None], out_shape)[0]
 
 
-conv2d_trunc_f64.launches = 0
+def reset_launches() -> None:
+    """Set K1's launch counts, total and by body, to 0 (the by-body dict
+    in place, so that a reference to it stays live)."""
+    conv2d_trunc_f64.launches = 0
+    conv2d_trunc_f64.launches_by_body.update(dict.fromkeys(BODIES, 0))
+
+
+conv2d_trunc_f64.launches_by_body = {}
+reset_launches()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of one ``--backend pallas`` or ``--backend jax`` inference
-goes on a CUDA card.
+"""Where the time of one ``--backend pallas`` or ``--backend jax``
+inference goes on a CUDA card.
 
     python3 profile_port.py [--backend pallas|jax] [--out table.txt]
 
@@ -9,16 +9,17 @@ Builds the port's kernels, writes the end-to-end model of
 its ``SIZE`` at its ``OFFLOAD_FLOPS``, phase 4's f32 route through K2;
 for ``jax`` its ``E2E_SIZE``, phase 8's f64 device path through K1) to a
 temporary file and runs it through ``python -m genfer_tpu_torch
---backend ...`` in-process: ``WARM`` times untraced (their wall times are
-printed), then once under ``torch.profiler`` with CPU and CUDA
-activities.  The host f64 ``--backend
-numpy`` run of the same CLI is timed twice beside it.  Printed: the card's
-name and power limit, the untraced walls, the traced wall, the device's
-busy time and share of it, each device kernel and copy with its calls and
-mean microseconds, and the CUDA runtime calls of the host.  ``--out``
-receives the profiler's full ``key_averages`` table.  Nothing here
-imports jax.
-"""
+--backend ...`` in-process: ``WARM`` times untraced (their wall times
+are printed), then once under ``torch.profiler`` with CPU and CUDA
+activities. The host f64 ``--backend numpy`` run of the same CLI is
+timed twice beside it. Printed: the card's name and power limit, the
+untraced walls, the traced wall, the device's busy time and share of it,
+each device kernel and copy with its calls and mean microseconds, and
+the CUDA runtime calls of the host; for ``jax`` also K1's launches and
+device time by body (small, dense, dense_t: ``ops.conv2d_f64._launch``
+is wrapped here to record the body of each launch in order, and
+``_k1_by_body`` matches the card's events to them). ``--out`` receives
+the profiler's full ``key_averages`` table. Nothing here imports jax."""
 
 import argparse
 import contextlib
@@ -43,6 +44,31 @@ def _wall(main, argv) -> float:
     return time.perf_counter() - t0
 
 
+def _k1_by_body(dev, bodies) -> dict:
+    """K1's launches and device microseconds by body, from the card's
+    events in stream order: the small body's kernel by its name; the
+    dense body's kernel and its f64 slot sum, which ``dense`` and
+    ``dense_t`` share, matched in order to ``bodies``, the bodies of the
+    traced run's K1 calls in launch order (the transposes of ``dense_t``
+    are PyTorch copy kernels, not counted here)."""
+    dense = [b for b in bodies if b != "small"]
+    us: dict[str, float] = defaultdict(float)
+    seen = -1
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        if "conv2d_small_f64_kernel" in e.name:
+            us["small"] += e.time_range.elapsed_us()
+        elif "conv2d_trunc_f64_kernel" in e.name:
+            seen += 1
+            us[dense[seen]] += e.time_range.elapsed_us()
+        elif "sum_units_kernel<double>" in e.name:
+            us[dense[seen]] += e.time_range.elapsed_us()
+    if seen + 1 != len(dense):
+        sys.exit(f"profile_port: {seen + 1} dense kernels on the card for "
+                 f"{len(dense)} dense launches")
+    return {body: (bodies.count(body), us[body])
+            for body in ("small", "dense", "dense_t")}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="profile_port")
     ap.add_argument("--backend", choices=["pallas", "jax"],
@@ -58,6 +84,7 @@ def main(argv=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from genfer_tpu_torch import _build, cli, ops
+    from genfer_tpu_torch.ops import conv2d_f64
     from genfer_tpu_torch.tools.generators import generate_two_populations
 
     if not torch.cuda.is_available():
@@ -82,11 +109,22 @@ def main(argv=None) -> None:
                  for _ in range(WARM)]
         host = [_wall(cli.main, flags + ["numpy"]) for _ in range(2)]
         kernel.launches = 0
+        conv2d_f64.reset_launches()
+        launch, bodies = conv2d_f64._launch, []
+
+        def named_launch(body, *rest):
+            bodies.append(body)
+            return launch(body, *rest)
+
+        conv2d_f64._launch = named_launch
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            traced = _wall(cli.main, flags + [args.backend])
-            torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                traced = _wall(cli.main, flags + [args.backend])
+                torch.cuda.synchronize()
+        finally:
+            conv2d_f64._launch = launch
     print(f"two_populations({size}) --backend {args.backend}{setting}: "
           f"untraced wall {', '.join(f'{w:.4f}' for w in walls)} s (first "
           f"run of the process first); host --backend numpy "
@@ -97,6 +135,11 @@ def main(argv=None) -> None:
     print(f"traced wall {traced:.4f} s, {kernel.__name__} launches "
           f"{kernel.launches}; device busy {busy_us / 1e3:.4f} ms = "
           f"{100 * busy_us / 1e6 / traced:.4f}% of the traced wall")
+    if args.backend == "jax":
+        print("K1 by body: " + ", ".join(
+            f"{body} {n} launches, device {us / 1e3:.4f} ms"
+            f" ({us / max(n, 1):.3f} us each)"
+            for body, (n, us) in _k1_by_body(dev, bodies).items()))
     by_name: dict[str, list[float]] = defaultdict(list)
     for e in dev:
         by_name[e.name].append(e.time_range.elapsed_us())

@@ -7,8 +7,8 @@
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Nine measurements (all, or the numbered ones), each printed with the
-card's name and power limit; none of them is on any path of the port.
+Eleven probes (all, or the numbered ones), each printed with the card's
+name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
 two trees run in turns compares their K6.
@@ -53,7 +53,21 @@ two trees run in turns compares their K6.
    independent accumulators a warp of ``m8n8k4`` (K1's shape) and of
    ``m16n8k8`` (Hopper's larger f64 shape), 1 to 4 blocks of four warps
    an SM, no memory traffic: what K1 could reach at most of the
-   data-sheet FP64 tensor rate behind ``bench.F64_MMA_PER_S``.
+   data-sheet FP64 tensor rate behind ``bench.F64_MMA_PER_S``;
+10. the fragment layout of ``mma.sync.m16n8k8 .f64`` on the card, the one
+   K1's dense body assumes (``csrc/conv2d_trunc_f64.cu``): one warp loads
+   A (16x8) and B (8x8) at the assumed positions, runs one ``mma`` from
+   zero and writes its four D registers raw; every one of the 128 must
+   hold the product at its assumed position, for integer-coded A against
+   the identity, a stacked identity against integer-coded B, and integer
+   matrices (all sums exact).  It fails loudly otherwise;
+11. K1's small body against its dense body at (255,268)x(s,s), s = 1 to
+   8 (the main path's 2x2 stencils and their neighbours): device time
+   (``torch.profiler``) and CUDA-event time of each, and the largest
+   s * s up to which the small body is no slower on the card, which sets
+   ``ops/conv2d_f64.py::SMALL_MAX_COEFFS``; then the same at the main
+   path's thin class (268,274)x(n,1), n = 16 to 64, the small body
+   against the dense body transposed.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -207,6 +221,34 @@ extern "C" int f64_mma_peak(double* out, int shape, int blocks, int iters,
     f64_mma_peak_kernel<0><<<blocks, 128, 0, st>>>(out, iters);
   else
     f64_mma_peak_kernel<1><<<blocks, 128, 0, st>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+F64_MMA_LAYOUT_CU = r"""
+#include <cuda_runtime.h>
+// One warp: lane 4 g + t loads the fragments of mma.m16n8k8 .f64 from
+// row-major A (16x8) and B (8x8, B[k][n]) at the positions K1's dense body
+// assumes (a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g +
+// 8][t + 4]; b0 = B[t][g], b1 = B[t + 4][g]), runs one mma from zero and
+// writes its four D registers raw, d[4 lane + i].
+__global__ void f64_mma_layout_kernel(const double* A, const double* B,
+                                      double* d) {
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  double c[4] = {0.0, 0.0, 0.0, 0.0};
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(A[g * 8 + t]), "d"(A[(g + 8) * 8 + t]), "d"(A[g * 8 + t + 4]),
+        "d"(A[(g + 8) * 8 + t + 4]), "d"(B[t * 8 + g]),
+        "d"(B[(t + 4) * 8 + g]));
+  for (int i = 0; i < 4; ++i) d[4 * lane + i] = c[i];
+}
+extern "C" int f64_mma_layout(const double* A, const double* B, double* d,
+                              void* stream) {
+  f64_mma_layout_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      A, B, d);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -452,6 +494,96 @@ def f64_mma_ceiling() -> float:
     return best
 
 
+def f64_mma_layout() -> None:
+    """Probe 10."""
+    import numpy as np
+    import torch
+
+    lib = _compile("f64_mma_layout", F64_MMA_LAYOUT_CU)
+    lib.f64_mma_layout.argtypes = [ctypes.c_void_p] * 4
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    rng = np.random.default_rng(10)
+    codings = {
+        "A coded (8 r + c + 1), B the identity": (
+            np.arange(1.0, 129.0).reshape(16, 8), np.eye(8)),
+        "A two stacked identities, B coded (8 k + n + 1)": (
+            np.vstack([np.eye(8)] * 2), np.arange(1.0, 65.0).reshape(8, 8)),
+        "A and B integers in [-64, 64]": (
+            rng.integers(-64, 65, (16, 8)).astype(np.float64),
+            rng.integers(-64, 65, (8, 8)).astype(np.float64)),
+    }
+    for what, (A, B) in codings.items():
+        a = torch.from_numpy(A).cuda()
+        b = torch.from_numpy(B).cuda()
+        d = torch.full((32, 4), float("nan"), dtype=torch.float64,
+                       device="cuda")
+        err = lib.f64_mma_layout(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"f64_mma_layout launch failed ({err})")
+        got = d.cpu().numpy()
+        D = A @ B  # exact: integers far below 2^53
+        # register 2 h + i of lane 4 g + t: D[8 h + g][2 t + i]
+        want = np.stack([D[8 * h + g, 2 * t + i] for h in (0, 1)
+                         for i in (0, 1)], axis=1)
+        wrong = np.argwhere(got != want)
+        if len(wrong):
+            raise RuntimeError(
+                f"probe 10 {what}: {len(wrong)} of 128 D registers off the "
+                "assumed layout, first (lane, register, got, want): "
+                + ", ".join(f"({ln}, {r}, {got[ln, r]:g}, {want[ln, r]:g})"
+                            for ln, r in wrong[:4]))
+        print(f"probe 10 mma.sync m16n8k8 f64 layout, {what}: 128 of 128 "
+              "D registers at the assumed positions")
+
+
+def _small_or_dense(sa, sb, bodies) -> dict:
+    """Device time (us) of each body of K1 at one pair's shapes; prints
+    them with their CUDA-event times."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import time_ms
+    from genfer_tpu_torch.ops import conv2d_f64 as K
+
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.random((1, *sa))).cuda()
+    b = torch.from_numpy(rng.random((1, *sb))).cuda()
+    parts, device = [], {}
+    for body in bodies:
+        def call(body=body):
+            return K._launch(body, a, b, *sa)
+
+        first = call()
+        if not torch.equal(call(), first):
+            raise RuntimeError(f"probe 11 {body} {sb}: two calls differ")
+        kernels = device_us_by_kernel(call, 50)
+        device[body] = sum(kernels.values())
+        parts.append(f"{body} device {device[body]:.2f} us ("
+                     + ", ".join(f"{k} {v:.2f}" for k, v in kernels.items())
+                     + f"), events {1e3 * time_ms(call, 200):.2f} us")
+    print(f"probe 11 {sa}x{sb}: " + "; ".join(parts))
+    return device
+
+
+def small_against_dense() -> None:
+    """Probe 11; also the main path's (n, 1) class, small against the
+    dense body transposed."""
+    from genfer_tpu_torch.ops import conv2d_f64 as K
+
+    best = 0
+    for s in range(1, 9):
+        device = _small_or_dense((255, 268), (s, s), ("small", "dense"))
+        if device["small"] <= device["dense"] and best == s - 1:
+            best = s
+    print(f"probe 11: the small body is no slower on the card from 1x1 up "
+          f"to {best}x{best}: SMALL_MAX_COEFFS = {best * best} (shipped "
+          f"{K.SMALL_MAX_COEFFS})")
+    for n in (16, 24, 32, 41, 48, 64):
+        _small_or_dense((268, 274), (n, 1), ("small", "dense_t"))
+
+
 def steady_state(ceiling: float) -> None:
     """Probe 5: identical interior units through the shipped kernels."""
     import numpy as np
@@ -631,7 +763,7 @@ def main(argv) -> None:
         1: fma_ceiling, 2: persistent_against_grid, 3: plan_sweep,
         4: mma_ceiling, 5: lambda: steady_state(mma_ceiling()),
         6: mma_plan_sweep, 7: fold_plan_sweep, 8: k6_lengths,
-        9: f64_mma_ceiling,
+        9: f64_mma_ceiling, 10: f64_mma_layout, 11: small_against_dense,
     }
     print(card())
     _build.load()
