@@ -83,11 +83,38 @@ result):
 10. the bench twin's f64 headline at order 512 (K1's chain in GF/s, the
    host C++ kernel's, K1's bound); K1 must have been launched.
 
-Each of phases 4-6 and 8-10 sets the launch counts to 0 just before it
-and reads them just after. Before the table, the shares of their bounds
-of K2, K3, K4a, K4b, K6 (the tensor-core kernels against the TF32 rate,
-three passes) with K2's time beside K4a's and K4b's, and of K1 (against
-the FP64 tensor rate). The second-to-last line is the kernel table as
+11. compiled serving (``genfer_tpu_torch.compile``): the bench's scam
+   model (``bench.SERVING_SRC``) over a grid of ``bench.SERVING_BATCH``
+   = 4096 values of $p: one eager walk on the card, then the CUDA graph
+   captured from the next walk, which must launch K1's small body once a
+   product
+   (``SERVING_PRODUCTS`` = 26, no other body); every replay must equal the
+   eager walk bit for bit, and ``SERVING_CHECK`` = 16 grid points must
+   agree with the host f64 ``api.infer`` at is_close; translate, capture
+   and replay seconds, inferences a second, and from torch.profiler the
+   kernels a replay launches and the card's busy share of it.  K1's small
+   body alone at the walk's largest product, (27,27)x(2,2)->(27,28) over
+   the 4096-entry batch, against its plain version and one grouped f64
+   ``conv2d`` (the library yardstick), beside its bound.  Then the 784-pixel digit model
+   (``tools.generators.digit_serving_source``) at batch ``DIGIT_BATCH`` =
+   1024, a seeded theta and images drawn from it, through its graph,
+   against the port's eager CPU walk on ``DIGIT_CHECK`` = 4 rows (rel
+   1e-9);
+12. the scan models (``genfer_tpu_torch.models``) at the bench's sizes
+   through their graphs: ``CompiledPopulation`` at limit 256, 20 steps
+   (the bench's data) single, against the port's host interpreter on the
+   generated SGCL (rel 1e-10), and at batch 64 against the same class on
+   the CPU; ``CompiledTwoPopulations`` at limit 256, 20 steps against the
+   host interpreter; ``CompiledHMM`` (256 rates, 30 seeded counts) and
+   ``CompiledMixture`` (320 rates, the 109 coal-mining counts) against the
+   same classes on the CPU (rel 1e-9); capture and replay times.
+
+Each of phases 4-6 and 8-12 sets the launch counts to 0 just before it
+and reads them just after (phase 11's K1 launches are those of the
+captured walk: a replay runs the graph, not the wrappers). Before the
+table, the shares of their bounds of K2, K3, K4a, K4b, K6 (the tensor-core
+kernels against the TF32 rate, three passes) with K2's time beside K4a's
+and K4b's, and of K1 (against the FP64 tensor rate). The second-to-last line is the kernel table as
 JSON, with one entry for each of K1's bodies; the last line is ``{"ok":
 true, "device": {...}}``. Everything is reached through
 ``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
@@ -261,6 +288,16 @@ K1_SMALL_MIN = 1400  # of two_populations(2000)'s K1 launches (of ~1530)
 BOUNDS_EXAMPLE = "scam_calls.sgcl"
 IS_CLOSE = (1e-9, 1e-8)  # rel, abs
 HEADLINE_ITERS, HEADLINE_HOST_ITERS = 4, 1  # the bench's are 8 and 3
+
+# phase 11: compiled serving (at bench.SERVING_BATCH = 4096)
+SERVING_PRODUCTS = 26  # K1 products a walk of the scam model at limit 26
+SERVING_CHECK = 16  # grid points held against the host api.infer
+SERVING_LARGEST = ((27, 27), (2, 2), (27, 28))  # its largest K1 product
+DIGIT_PIXELS, DIGIT_BATCH, DIGIT_CHECK = 784, 1024, 4
+DIGIT_SEED = 0
+MODEL_REL = 1e-9  # phase 12 against the CPU classes, and phase 11's digits
+POP_REL = 1e-10  # phase 12 against the host interpreter
+SCAN_LIMIT, SCAN_STEPS, SCAN_BATCH = 256, 20, 64  # the bench's sizes
 
 #: the kernels whose operations bound is the tensor cores' TF32 rate (K6
 #: where it runs its tensor-core body: ``_passes``)
@@ -497,6 +534,13 @@ def phase3_conv1d(rng) -> dict:
     return rows
 
 
+def _kernel_name(name: str) -> str:
+    """A device event's kernel name without namespaces, template
+    arguments and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+
+
 def device_us_by_kernel(call, calls: int) -> dict:
     """The card's time of one ``call()`` in microseconds by kernel name:
     the device events ``torch.profiler`` records over ``calls`` calls."""
@@ -513,8 +557,7 @@ def device_us_by_kernel(call, calls: int) -> dict:
     kernels: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+            name = _kernel_name(e.name)
             kernels[name] = (kernels.get(name, 0.0)
                              + e.time_range.elapsed_us() / calls)
     return kernels
@@ -1006,6 +1049,392 @@ def phase10_headline(launches: dict) -> dict:
     return results
 
 
+def _replay_profile(call, reps: int = 3) -> tuple[float, float, dict]:
+    """``reps`` calls of ``call()`` (a graph replay) under torch.profiler:
+    the wall milliseconds of one, the card's busy milliseconds of one (the
+    sum of its kernels), and by kernel name the launches and busy
+    milliseconds of one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    launches: dict = {}
+    us: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "Memcpy" not in e.name \
+                and "Memset" not in e.name:
+            name = _kernel_name(e.name)
+            launches[name] = launches.get(name, 0) + 1
+            us[name] = us.get(name, 0.0) + e.time_range.elapsed_us()
+    kernels = {k: (n / reps, us[k] / reps / 1e3)
+               for k, n in launches.items()}
+    busy = sum(ms for _, ms in kernels.values())
+    return wall, busy, kernels
+
+
+def _profile_line(wall: float, busy: float, kernels: dict) -> str:
+    """A replay's profile: wall, busy share, kernels, the four costliest
+    kernel names with their launches and busy milliseconds."""
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:4]
+    return (f"a replay under torch.profiler: {wall:.3f} ms wall, card busy "
+            f"{busy:.3f} ms ({100 * busy / wall:.1f}%), "
+            f"{sum(n for n, _ in kernels.values()):.0f} kernels ("
+            + ", ".join(f"{k} {n:.0f} launches {ms:.3f} ms"
+                        for k, (n, ms) in top)
+            + ")")
+
+
+def _grouped_library(a, b, out):
+    """One ``conv2d`` call computing the truncated products of every pair
+    ``a[z]`` (a0, a1), ``b[z]`` (b0, b1): a grouped correlation of the
+    padded ``a`` (one channel an entry) with the flipped ``b`` (one filter
+    a group)."""
+    batch, (b0, b1), (c0, c1) = a.shape[0], b.shape[1:], out
+    x = torch.zeros((1, batch, c0 + b0 - 1, c1 + b1 - 1), dtype=a.dtype,
+                    device=a.device)
+    r0, r1 = min(a.shape[1], c0), min(a.shape[2], c1)
+    x[0, :, b0 - 1:b0 - 1 + r0, b1 - 1:b1 - 1 + r1] = a[:, :r0, :r1]
+    w = torch.flip(b, dims=(1, 2))[:, None].contiguous()
+    return lambda: F.conv2d(x, w, groups=batch)
+
+
+def phase11_k1_batched(rng) -> dict:
+    """K1's small body at the serving walk's largest product over the
+    4096-entry batch: against its plain version (elementwise rtol K1_TOL)
+    and one grouped f64 ``conv2d``; times, device time and bound."""
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import F64_MMA, SERVING_BATCH, bound_ms
+    from genfer_tpu_torch.ops.conv2d_f64 import k1_body
+    from genfer_tpu_torch.taylor.host import _conv_pair_flops
+
+    sa, sb, out = SERVING_LARGEST
+    batch = SERVING_BATCH
+    a = torch.from_numpy(rng.random((batch, *sa))).cuda()
+    b = torch.from_numpy(rng.random((batch, *sb))).cuda()
+    body = k1_body(sa, sb, out)
+    got = ops.conv2d_trunc_f64_batched(a, b, out)
+    want = ops.conv2d_trunc_f64_batched_reference(a, b, out)
+    err = _k1_gate(f"conv2d_trunc_f64_batched B={batch} {sa}x{sb}", got,
+                   want, "elementwise")
+    library = _grouped_library(a, b, out)
+    lib_err = float(((library()[0] - want).abs()
+                     / want.abs().clamp_min(1e-300)).max())
+    macs = batch * _conv_pair_flops(sa, sb, out)
+    nbytes = 8.0 * batch * (np.prod(sa) + np.prod(sb) + np.prod(out))
+    bound, by = bound_ms(macs, nbytes, rate=F64_MMA)
+    row = {"body": body, "max_abs_err": err,
+           "ms": _time(lambda: ops.conv2d_trunc_f64_batched(a, b, out)),
+           "plain_ms": _time(lambda: ops.conv2d_trunc_f64_batched_reference(
+               a, b, out)),
+           "library_ms": _time(library), "bound_ms": bound, "bound_by": by}
+    dev = _graph_ms(lambda: ops.conv2d_trunc_f64_batched(a, b, out))
+    lib_dev = _graph_ms(library)
+    print(f"phase 11 K1 batched B={batch} {sa}x{sb}->{out} ({body} body): "
+          f"max abs err {err:.3e} (elementwise gate {K1_TOL}); kernel "
+          f"{row['ms']:.4f} ms ({dev:.4f} ms a call in a graph of "
+          f"{GRAPH_CALLS}), plain {row['plain_ms']:.4f} ms, the grouped f64 "
+          f"conv2d {row['library_ms']:.4f} ms ({lib_dev:.4f} ms in a graph; "
+          f"max rel err {lib_err:.3e}), bound {bound:.4g} ms ({by}), share "
+          f"{100 * bound / row['ms']:.1f}% of the kernel's time, "
+          f"{100 * bound / dev:.1f}% of its time in a graph")
+    return row
+
+
+GRAPH_CALLS = 20  # calls captured in _graph_ms's graph
+
+
+def _graph_ms(call) -> float:
+    """Milliseconds a call of ``call()`` on the card without the host's
+    share: ``GRAPH_CALLS`` calls captured in one CUDA graph, its replays
+    timed with CUDA events (the gaps between the graph's nodes included;
+    torch.profiler's device time of this call varied threefold between
+    runs of this script)."""
+    from genfer_tpu_torch.bench import time_ms
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            call()
+    return time_ms(graph.replay, 5) / GRAPH_CALLS
+
+
+def _points_agree(got, want, what: str) -> float:
+    """Hold each ``got`` to ``want`` at the reference's is_close; return
+    the max relative deviation."""
+    rel, abs_ = IS_CLOSE
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not abs(g - w) <= abs_ + rel * abs(w):
+            fail(f"{what}: {g} against host f64 {w}")
+        worst = max(worst, abs(g - w) / max(abs(w), 1e-300))
+    return worst
+
+
+def _rel_agree(got, want, rel: float, what: str) -> float:
+    """Fail unless every entry of ``got`` is within ``rel`` of ``want``'s
+    (elementwise, finite); return the max relative deviation."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        fail(f"{what}: shape {got.shape} against {want.shape}, or "
+             "non-finite")
+    dev = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    if not np.all((dev <= rel) | (got == want)):
+        fail(f"{what}: max rel deviation {dev.max():.3e} over {rel}")
+    return float(dev.max())
+
+
+def _digit_evidence(rng, batch: int):
+    """A seeded theta (10 classes x DIGIT_PIXELS: about a quarter of the
+    pixels inked, theta in [0.05, 0.95] there and [0.001, 0.02] on the
+    background) and ``batch`` images drawn from it, folded into the
+    evidence vectors ``e = x theta + (1 - x)(1 - theta)`` in the model's
+    parameter order (class-major)."""
+    n = DIGIT_PIXELS
+    ink = rng.random(n) < 0.25
+    theta = np.where(ink, rng.uniform(0.05, 0.95, (10, n)),
+                     rng.uniform(0.001, 0.02, (10, n)))
+    images = rng.random((batch, n)) < theta[rng.integers(0, 10, batch)]
+    x = images[:, None, :].astype(np.float64)
+    return (x * theta + (1.0 - x) * (1.0 - theta)).reshape(batch, 10 * n)
+
+
+def phase11_serving(launches: dict) -> dict:
+    """Compiled serving on the card (module docstring)."""
+    from genfer_tpu_torch import api
+    from genfer_tpu_torch.bench import (
+        SERVING_BATCH,
+        SERVING_LIMIT,
+        SERVING_SRC,
+        _best_of,
+    )
+    from genfer_tpu_torch.compile import CompiledProgram
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
+    from genfer_tpu_torch.tools.generators import digit_serving_source
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    c = CompiledProgram(SERVING_SRC, ["p"], SERVING_LIMIT, device="cuda")
+    translate = time.perf_counter() - t0
+    batch = SERVING_BATCH
+    grid = torch.linspace(0.01, 0.99, batch, dtype=torch.float64,
+                          device="cuda").reshape(batch, 1)
+    t0 = time.perf_counter()
+    eager = c._probs_batch.eager(grid)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    by_body = conv2d_trunc_f64.launches_by_body
+    with _counted(launches, ("conv2d_trunc_f64", "conv2d_trunc_f64[small]"),
+                  "phase 11 serving capture"):
+        t0 = time.perf_counter()
+        got = c.probs_batch(grid)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        captured = dict(by_body)
+    if captured != {"small": SERVING_PRODUCTS, "dense": 0, "dense_t": 0}:
+        fail(f"the captured serving walk launched K1 {captured}, not "
+             f"{SERVING_PRODUCTS} small-body launches")
+    if not torch.equal(got, eager):
+        fail("serving: the replay differs from the eager walk")
+    if not torch.equal(c.probs_batch(grid), got):
+        fail("serving: two replays differ")
+    other = grid.flip(0)
+    if not torch.equal(c.probs_batch(other), c._probs_batch.eager(other)):
+        fail("serving: the replay on a second grid differs from its eager "
+             "walk")
+    if tuple(got.shape) != (batch, SERVING_LIMIT) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"serving: shape {tuple(got.shape)} or non-finite")
+    idx = np.linspace(0, batch - 1, SERVING_CHECK).round().astype(int)
+    host = got.cpu().numpy()
+    worst = 0.0
+    for i in idx:
+        p = float(grid[i, 0])
+        r = api.infer(SERVING_SRC.replace("$p", repr(p)))
+        want = [x.to_float() for x in r.probs(SERVING_LIMIT,
+                                              normalized=False)]
+        worst = max(worst, _points_agree(host[i], want, f"serving p={p}"))
+    replay = _best_of(lambda: c.probs_batch(grid).cpu(), 5)
+    wall, busy, kernels = _replay_profile(lambda: c.probs_batch(grid))
+    small = sum(n for k, (n, _) in kernels.items() if "small_f64" in k)
+    if small != SERVING_PRODUCTS:
+        fail(f"serving: a replay launched K1's small body {small} times")
+    out["serving"] = {"translate_s": translate, "eager_s": eager_s,
+                      "capture_s": capture_s, "replay_s": replay,
+                      "inferences_per_s": batch / replay,
+                      "replay_wall_ms": wall, "replay_busy_ms": busy,
+                      "kernels_per_replay": sum(
+                          n for n, _ in kernels.values())}
+    print(f"phase 11 serving scam model B={batch}: replay equals the eager "
+          f"walk bit for bit (two grids); {SERVING_CHECK} points at "
+          f"is_close to host f64 api.infer (max rel dev {worst:.3e}); "
+          f"translate {translate:.3f} s, eager walk {eager_s:.3f} s, "
+          f"capture {capture_s:.3f} s, replay {replay * 1e3:.3f} ms with "
+          f"read-back = {batch / replay:.0f} inferences/s; "
+          + _profile_line(wall, busy, kernels))
+    # K1 alone at the walk's largest product, before the digit model's
+    # profile (~47,000 kernels a replay) fills the profiler's buffers
+    out["k1_batched"] = phase11_k1_batched(np.random.default_rng(DIGIT_SEED))
+    # the 784-pixel digit model
+    rng = np.random.default_rng(DIGIT_SEED)
+    src, params = digit_serving_source(DIGIT_PIXELS)
+    t0 = time.perf_counter()
+    d = CompiledProgram(src, params, 10, device="cuda")
+    translate = time.perf_counter() - t0
+    ev = torch.from_numpy(_digit_evidence(rng, DIGIT_BATCH)).cuda()
+    with _counted(launches, (), "phase 11 digit capture"):
+        t0 = time.perf_counter()
+        dgot = d.probs_batch(ev)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+    replay = _best_of(lambda: d.probs_batch(ev).cpu())
+    wall, busy, kernels = _replay_profile(lambda: d.probs_batch(ev), 1)
+    cpu = CompiledProgram(src, params, 10, device="cpu")
+    want = cpu.probs_batch(ev[:DIGIT_CHECK].cpu()).numpy()
+    worst = _rel_agree(dgot[:DIGIT_CHECK].cpu().numpy(), want, MODEL_REL,
+                       "digit model")
+    post = dgot / dgot.sum(dim=1, keepdim=True)
+    if not bool(torch.isfinite(post).all()):
+        fail("digit model: a posterior is not finite")
+    out["digit"] = {"translate_s": translate, "capture_s": capture_s,
+                    "replay_s": replay,
+                    "inferences_per_s": DIGIT_BATCH / replay,
+                    "replay_wall_ms": wall, "replay_busy_ms": busy,
+                    "kernels_per_replay": sum(
+                        n for n, _ in kernels.values())}
+    print(f"phase 11 digit model {DIGIT_PIXELS} pixels B={DIGIT_BATCH}: "
+          f"{DIGIT_CHECK} rows within rel {MODEL_REL} of the eager CPU walk "
+          f"(max rel dev {worst:.3e}); translate {translate:.3f} s, warm-up "
+          f"and capture {capture_s:.3f} s, replay {replay * 1e3:.3f} ms "
+          f"with read-back = {DIGIT_BATCH / replay:.0f} images/s; "
+          + _profile_line(wall, busy, kernels))
+    _check_no_jax()
+    return out
+
+
+def _host_probs(src: str, limit: int) -> dict[int, float]:
+    """The port's host interpreter (``--backend numpy``) on ``src``: its
+    unnormalized masses."""
+    from genfer_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "model.sgcl"
+        path.write_text(src)
+        text, _ = _capture(cli.main, [str(path), "--no-timing", "--limit",
+                                      str(limit), "--backend", "numpy"])
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"Unnormalized: p\((\d+)\)\s*=\s*([\d.e+-]+)", text)}
+
+
+def _against_host(got, ref: dict, what: str) -> float:
+    if len(ref) < 10:
+        fail(f"{what}: the host run printed {len(ref)} masses")
+    worst = 0.0
+    for k, v in ref.items():
+        if v > 1e-290:
+            dev = abs(got[k] - v) / v
+            if not dev <= POP_REL:
+                fail(f"{what}: p({k}) = {got[k]} against host {v} (rel "
+                     f"{dev:.3e})")
+            worst = max(worst, dev)
+    return worst
+
+
+def _timed_model(call) -> tuple[np.ndarray, float, float]:
+    """The first call's result and seconds (it captures the graph), and
+    the least seconds of three more (each ends in a read-back)."""
+    from genfer_tpu_torch.bench import _best_of
+
+    t0 = time.perf_counter()
+    got = call()
+    first = time.perf_counter() - t0
+    return got, first, _best_of(call)
+
+
+def phase12_scan_models(launches: dict) -> dict:
+    """The scan models on the card (module docstring)."""
+    from genfer_tpu_torch.models import (
+        CompiledHMM,
+        CompiledMixture,
+        CompiledPopulation,
+        CompiledTwoPopulations,
+    )
+    from genfer_tpu_torch.tools.generators import (
+        COAL_MINING_DATA,
+        population_scan_source,
+        two_populations_scan_source,
+    )
+
+    out: dict = {}
+    rows = []
+    with _counted(launches, (), "phase 12"):
+        rng = np.random.RandomState(0)  # the bench's data
+        kw = dict(limit=SCAN_LIMIT, max_steps=SCAN_STEPS,
+                  init_lambda=0.0257 * 4 * SCAN_LIMIT, slack=96)
+        cp = CompiledPopulation(0.2636, 0.2, device="cuda", **kw)
+        lams, cs = rng.uniform(10, 50, SCAN_STEPS), rng.poisson(8, SCAN_STEPS)
+        got, first, best = _timed_model(lambda: cp.probs(lams, cs))
+        dev = _against_host(got, _host_probs(population_scan_source(
+            kw["init_lambda"], lams, cs, 0.2636, 0.2), SCAN_LIMIT),
+            "population")
+        rows.append(("population", first, best, f"host interpreter, max rel "
+                     f"dev {dev:.3e}"))
+        bl = rng.uniform(10, 50, (SCAN_BATCH, SCAN_STEPS))
+        bc = rng.poisson(8, (SCAN_BATCH, SCAN_STEPS))
+        got, first, best = _timed_model(lambda: cp.probs_batch(bl, bc))
+        cpu = CompiledPopulation(0.2636, 0.2, device="cpu", **kw)
+        dev = _rel_agree(got, cpu.probs_batch(bl, bc), MODEL_REL,
+                         "population batch")
+        rows.append((f"population B={SCAN_BATCH}", first, best,
+                     f"CPU class, max rel dev {dev:.3e}"))
+        d1, d2, mig, rho, init = 0.23724, 0.2636, 0.1, 0.2, (2.313, 0.257)
+        tp = CompiledTwoPopulations(d1, d2, mig, rho, rho, limit=SCAN_LIMIT,
+                                    max_steps=SCAN_STEPS, init_lams=init,
+                                    slack=48, device="cuda")
+        args = (rng.uniform(5, 20, SCAN_STEPS), rng.uniform(1, 3, SCAN_STEPS),
+                rng.poisson(3, SCAN_STEPS), rng.poisson(1, SCAN_STEPS))
+        got, first, best = _timed_model(lambda: tp.probs(*args))
+        dev = _against_host(got, _host_probs(two_populations_scan_source(
+            init, *args, d1, d2, mig, rho), SCAN_LIMIT), "two populations")
+        rows.append(("two populations", first, best,
+                     f"host interpreter, max rel dev {dev:.3e}"))
+        counts = rng.poisson(2, 30)
+        h = CompiledHMM(n_rates=256, max_steps=32, device="cuda")
+        got, first, best = _timed_model(lambda: h.probs(counts))
+        dev = _rel_agree(got, CompiledHMM(n_rates=256, max_steps=32,
+                                          device="cpu").probs(counts),
+                         MODEL_REL, "hmm")
+        rows.append(("hmm 256 rates, 30 counts", first, best,
+                     f"CPU class, max rel dev {dev:.3e}"))
+        coal = [c for c in COAL_MINING_DATA if c >= 0]
+        m = CompiledMixture(n_rates=320, max_steps=128, device="cuda")
+        got, first, best = _timed_model(lambda: m.probs(coal))
+        dev = _rel_agree(got, CompiledMixture(n_rates=320, max_steps=128,
+                                              device="cpu").probs(coal),
+                         MODEL_REL, "mixture")
+        rows.append((f"mixture 320 rates, {len(coal)} counts", first, best,
+                     f"CPU class, max rel dev {dev:.3e}"))
+    for name, first, best, held in rows:
+        out[name] = {"capture_s": first, "replay_ms": best * 1e3}
+        print(f"phase 12 {name}: against the {held}; first call (capture) "
+              f"{first:.3f} s, replay {best * 1e3:.3f} ms with read-back")
+    _check_no_jax()
+    return out
+
+
 def print_shares(rows: dict, bench: dict) -> None:
     """The kernels' shares of their bounds (``bound_ms`` over the
     measured time): K2, K4a and K4b from phase 3's dense orders (K4a and
@@ -1141,6 +1570,8 @@ def main() -> None:
     phase8_backend_jax(launches)
     phase9_entry(launches)
     phase10_headline(launches)
+    phase11_serving(launches)
+    phase12_scan_models(launches)
     print_shares(rows, bench)
     print(json.dumps({"kernels": kernel_table(rows, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ headline and of the ``--pallas`` sections of genfer_tpu's ``bench.py``.
 
     python -m genfer_tpu_torch.bench [--seed N]
     python -m genfer_tpu_torch.bench --pallas [--seed N]
+    python -m genfer_tpu_torch.bench --serving --scan [--reference DIR]
 
 The headline (no option) twins ``bench_kernel`` and ``bench_host_kernel``:
 
@@ -38,6 +39,19 @@ take for the same work (``bound_ms``) and the measured time's share of it
 (``bound_share``), in place of the JAX bench's ``issue_util`` / ``mfu``,
 which used the TPU's ceiling.  A failed check raises.  The results are
 printed as one JSON line and written to ``build/bench-results-torch.json``.
+
+``--serving`` twins ``bench_serving``: the scam model compiled once
+(``compile.compile_program``) and served over a grid of ``SERVING_BATCH``
+parameter values as one replayed CUDA graph, against the port's host
+``api.infer`` one inference at a time; ``generic_serving`` (the scan
+compiler) is reported as not ported.  ``--scan`` twins
+``bench_population_scan``: ``models.CompiledPopulation`` at limit 256, 20
+steps, single and at batch 64, and, where ``--reference`` names the
+reference's checkout, ``CompiledHMM`` and ``CompiledMixture`` on its
+committed hmm and mixture benchmarks against their posteriors (skipped
+without it); ``cascade_switchpoint`` is reported as not ported.  Their
+times are host clocks around work that ends in a read-back to the host,
+best of three after the first call (which captures the graphs).
 
 The other sections of genfer_tpu's bench are not ported yet; asking for
 one raises ``NotImplementedError`` naming its ROADMAP item.
@@ -81,8 +95,6 @@ UNPORTED = {
     "suite": "Queue 1 item 3 (bench twin; end-to-end suite)",
     "scaling": "Queue 1 item 3 (bench twin; the scaling table over K1, the "
                "host kernel and K2, which Queue 1 item 1 unblocked)",
-    "serving": "Queue 1 items 8 and 10 (compile.py, scanc.py)",
-    "scan": "Queue 1 items 9 and 10 (models/, scanc.py)",
     "highorder": "Queue 1 item 11 (ops/blocked_conv.py)",
     "ozaki": "Queue 2 K5 (ozaki route)",
     "nested": "Queue 1 item 3 (bench twin)",
@@ -352,11 +364,199 @@ def run_pallas(seed: int = 0, iters: int | None = None) -> dict:
     }
 
 
+#: the ROADMAP item that the sections of genfer_tpu's ``--serving`` /
+#: ``--scan`` on the scan compiler (generic_serving, cascade_switchpoint)
+#: wait for
+SCANC = "ROADMAP Queue 1 item 10 (scanc.py)"
+SERVING_SRC = """
+calls ~ Poisson(10);
+scams ~ Binomial(calls, $p);
+observe(scams = 1);
+return calls;
+"""
+SERVING_LIMIT = 26
+SERVING_BATCH = 4096  # bench.py::bench_serving's batch
+HOST_INFERENCES = 20  # host api.infer calls timed, one at a time
+
+
+def _best_of(fn, reps: int = 3) -> float:
+    """Least host seconds of ``fn()`` (which ends in a read-back) over
+    ``reps`` calls."""
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def bench_serving(batch: int, where: str) -> dict:
+    """``bench.py::bench_serving``: the compiled scam model over a grid of
+    ``batch`` values of $p, one replayed CUDA graph a batch, against the
+    host interpreter (``api.infer``, host f64) one inference at a time."""
+    from . import api
+    from .compile import compile_program
+
+    t0 = time.perf_counter()
+    c = compile_program(SERVING_SRC, params=["p"], limit=SERVING_LIMIT,
+                        device=None)
+    translate = time.perf_counter() - t0
+    grid = torch.linspace(0.01, 0.99, batch, dtype=torch.float64,
+                          device="cuda").reshape(batch, 1)
+    t0 = time.perf_counter()
+    c.probs_batch(grid).cpu()  # warm-up walk and capture
+    capture = time.perf_counter() - t0
+    best = _best_of(lambda: c.probs_batch(grid).cpu())
+    dev_rate = batch / best
+    t0 = time.perf_counter()
+    for i in range(HOST_INFERENCES):
+        api.infer(SERVING_SRC.replace("$p", str(0.1 + 0.001 * i)))
+    host = (time.perf_counter() - t0) / HOST_INFERENCES
+    host_rate = 1.0 / host
+    return {
+        "batch": batch,
+        "translate_seconds": translate,
+        "capture_seconds": capture,
+        "batch_seconds": best,
+        "device_inferences_per_s": dev_rate,
+        "host_inferences_per_s": host_rate,
+        "speedup": dev_rate / host_rate,
+        "card": where,
+    }
+
+
+def _expect(path: Path) -> dict:
+    """The unnormalized masses a reference ``.expect`` file commits."""
+    import re
+
+    return {
+        int(m.group(1)): float(m.group(2))
+        for m in re.finditer(
+            r"Unnormalized: p\((\d+)\)\s*=\s*([\d.e+-]+)",
+            path.read_text())
+    }
+
+
+def _golden_row(model, counts, ref: dict, where: str) -> dict:
+    """Steady seconds of ``model.probs(counts)`` and its max relative
+    deviation from the committed posterior ``ref``."""
+    got = model.probs(np.asarray(counts))  # capture
+    best = _best_of(lambda: model.probs(np.asarray(counts)))
+    dev = max(abs(got[k] - v) / v for k, v in ref.items() if v > 1e-290)
+    return {"steady_ms": best * 1e3, "max_rel_dev_vs_golden": dev,
+            "card": where}
+
+
+def bench_population_scan(limit: int, steps: int, batch: int, where: str,
+                          reference: Path | None = None) -> dict:
+    """``bench.py::bench_population_scan``: ``CompiledPopulation`` single
+    and batched (best of three after the capturing call); the hmm and
+    mixture benchmarks of the reference's checkout ``reference`` against
+    their committed posteriors where it is given."""
+    import re
+
+    from .models import CompiledHMM, CompiledMixture, CompiledPopulation
+
+    rng = np.random.RandomState(0)
+    cp = CompiledPopulation(0.2636, 0.2, limit=limit, max_steps=steps,
+                            init_lambda=0.0257 * 4 * limit, slack=96,
+                            device=None)
+    lams = rng.uniform(10, 50, steps)
+    cs = rng.poisson(8, steps)
+    t0 = time.perf_counter()
+    cp.probs(lams, cs)
+    capture = time.perf_counter() - t0
+    best = _best_of(lambda: cp.probs(lams, cs))
+    bl = rng.uniform(10, 50, (batch, steps))
+    bc = rng.poisson(8, (batch, steps))
+    t0 = time.perf_counter()
+    cp.probs_batch(bl, bc)
+    bcapture = time.perf_counter() - t0
+    bbest = _best_of(lambda: cp.probs_batch(bl, bc))
+    out = {
+        "limit": limit,
+        "steps": steps,
+        "capture_seconds": capture,
+        "single_ms": best * 1e3,
+        "batch": batch,
+        "batch_capture_seconds": bcapture,
+        "batch_seconds": bbest,
+        "datasets_per_s": batch / bbest,
+        "card": where,
+    }
+    approx = None if reference is None else (
+        Path(reference) / "benchmarks" / "neurips2023" / "approx")
+    hmm = None if approx is None else approx / "hmm" / "hmm.expect"
+    if hmm is not None and hmm.exists():
+        counts = [int(x) for x in re.search(
+            r"\[(.*?)\]", hmm.with_suffix(".sgcl").read_text()
+        ).group(1).split(",")]
+        ref = _expect(hmm)
+        out["hmm"] = _golden_row(
+            CompiledHMM(n_rates=256, max_steps=32, limit=max(ref) + 1,
+                        device=None), counts, ref, where)
+    else:
+        out["hmm"] = {"skipped": "no --reference checkout with "
+                                 "benchmarks/neurips2023/approx/hmm"}
+    mix = None if approx is None else approx / "mixture"
+    if mix is not None and (mix / "mixture.expect").exists():
+        counts = [int(m.group(1)) for m in re.finditer(
+            r"observe (\d+) ~ Poisson\(0\.1 \* Rate1\)",
+            (mix / "mixture.sgcl").read_text())]
+        ref = _expect(mix / "mixture.expect")
+        out["mixture"] = _golden_row(
+            CompiledMixture(n_rates=320, max_steps=128, limit=max(ref) + 1,
+                            device=None), counts, ref, where)
+    else:
+        out["mixture"] = {"skipped": "no --reference checkout with "
+                                     "benchmarks/neurips2023/approx/mixture"}
+    return out
+
+
+def run_serving(batch: int = SERVING_BATCH) -> dict:
+    """``--serving``: the compiled serving row (``generic_serving`` waits
+    for the scan compiler)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the bench measures the CUDA card and found none")
+    where = card()
+    return {
+        "serving": bench_serving(batch, where),
+        "generic_serving": {"not_ported": SCANC},
+        "_meta": {"device": torch.cuda.get_device_name(0), "card": where,
+                  "run": time.strftime("%Y-%m-%dT%H:%M:%S")},
+    }
+
+
+def run_scan(reference: Path | None = None, limit: int = 256,
+             steps: int = 20, batch: int = 64) -> dict:
+    """``--scan``: the scan models (``cascade_switchpoint`` waits for the
+    scan compiler)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the bench measures the CUDA card and found none")
+    where = card()
+    return {
+        "population_scan": bench_population_scan(limit, steps, batch, where,
+                                                 reference),
+        "cascade_switchpoint": {"not_ported": SCANC},
+        "_meta": {"device": torch.cuda.get_device_name(0), "card": where,
+                  "run": time.strftime("%Y-%m-%dT%H:%M:%S")},
+    }
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m genfer_tpu_torch.bench")
     ap.add_argument("--pallas", action="store_true",
                     help="the f32 kernel sections (default: the f64 "
                     "headline)")
+    ap.add_argument("--serving", action="store_true",
+                    help="compiled serving: the scam model at batch "
+                    f"{SERVING_BATCH} against the host interpreter")
+    ap.add_argument("--scan", action="store_true",
+                    help="the scan models (population at limit 256)")
+    ap.add_argument("--reference", type=Path, default=None,
+                    help="the reference's checkout: --scan then also runs "
+                    "its committed hmm and mixture benchmarks")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the numpy generator of the operands")
     for name in UNPORTED:
@@ -371,8 +571,15 @@ def main(argv=None) -> dict:
         if getattr(args, name):
             raise NotImplementedError(
                 f"--{name} is not ported yet: ROADMAP {item}")
-    results = (run_pallas(args.seed) if args.pallas
-               else run_headline(args.seed))
+    results: dict = {}
+    if args.pallas:
+        results.update(run_pallas(args.seed))
+    if args.serving:
+        results.update(run_serving())
+    if args.scan:
+        results.update(run_scan(args.reference))
+    if not results:
+        results = run_headline(args.seed)
     RESULTS.parent.mkdir(parents=True, exist_ok=True)
     RESULTS.write_text(json.dumps(results, indent=2) + "\n")
     print(json.dumps(results))

@@ -37,6 +37,15 @@ Every body's result depends on the shapes alone, and every batch entry
 equals the single-pair call bit for bit.  Both wrappers count the kernel's
 launches in ``conv2d_trunc_f64.launches`` and, by body, in
 ``conv2d_trunc_f64.launches_by_body`` (CPU calls add nothing).
+
+``k1_op`` is ``conv2d_trunc_f64_batched`` as a torch custom op, for the
+compiled mode (``genfer_tpu_torch.compile``), whose walk runs under
+``torch.func.vmap``: a vmapped tensor has no ``data_ptr()``, so the op's
+vmap rule moves the vmapped dimension to the front, expands an operand
+that is not batched, folds the vmapped dimension into K1's batch and calls
+the wrapper once (one launch a vmapped product, on the body ``k1_route``
+picks from one pair's shapes).  ``TorchF64Backend`` keeps calling the
+wrapper itself, without the dispatcher.
 """
 
 from __future__ import annotations
@@ -224,6 +233,41 @@ def conv2d_trunc_f64(a, b, out_shape):
     ``b`` (b0, b1) to ``out_shape`` (c0, c1): the batch of one pair."""
     _check(a, b, out_shape, 2, 2, torch.float64)
     return conv2d_trunc_f64_batched(a[None], b[None], out_shape)[0]
+
+
+@torch.library.custom_op("genfer_tpu_torch::k1_batched", mutates_args=())
+def _k1_batched(a: torch.Tensor, b: torch.Tensor, c0: int,
+                c1: int) -> torch.Tensor:
+    return conv2d_trunc_f64_batched(a, b, (c0, c1))
+
+
+@_k1_batched.register_fake
+def _(a, b, c0, c1):
+    return a.new_empty((a.shape[0], c0, c1))
+
+
+def _k1_batched_vmap(info, in_dims, a, b, c0, c1):
+    """One call over the vmapped dimension times K1's batch: ``(V, B,
+    ...)`` operands folded to ``(V * B, ...)``, the result unfolded."""
+    v = info.batch_size
+
+    def front(x, dim):
+        x = x.expand(v, *x.shape) if dim is None else x.movedim(dim, 0)
+        return x.reshape(v * x.shape[1], *x.shape[2:]).contiguous()
+
+    out = _k1_batched(front(a, in_dims[0]), front(b, in_dims[1]), c0, c1)
+    return out.reshape(v, -1, c0, c1), 0
+
+
+_k1_batched.register_vmap(_k1_batched_vmap)
+
+
+def k1_op(a, b, out_shape):
+    """``conv2d_trunc_f64_batched`` through the custom op (see the module
+    docstring): the same result, batched by ``torch.func.vmap`` into one
+    call."""
+    c0, c1 = (int(s) for s in out_shape)
+    return _k1_batched(a, b, c0, c1)
 
 
 def reset_launches() -> None:

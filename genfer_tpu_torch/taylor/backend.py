@@ -78,24 +78,25 @@ def _antidiag_sum(P, out_len: int):
     return torch.flip(s[..., nj - 1 : nj + K - 1], dims=(-1,))
 
 
-def _conv_impl(a, b, out_shape: Shape):
+def _conv_impl(a, b, out_shape: Shape, conv2d=None):
     """Truncated n-D Cauchy product: squeeze length-1 axes of the output,
-    then ``_conv_dense`` on the effective axes."""
+    then ``_conv_dense`` on the effective axes.  ``conv2d`` is the batched
+    2-axis product (``_conv_dense_batched``)."""
     eff = _effective_axes(out_shape)
     if not eff:
         return (a * b).reshape(out_shape)
     a_sq = a.reshape([a.shape[i] for i in eff])
     b_sq = b.reshape([b.shape[i] for i in eff])
     eff_out = tuple(out_shape[i] for i in eff)
-    return _conv_dense(a_sq, b_sq, eff_out).reshape(out_shape)
+    return _conv_dense(a_sq, b_sq, eff_out, conv2d).reshape(out_shape)
 
 
-def _conv_dense(a, b, out_shape: Shape):
+def _conv_dense(a, b, out_shape: Shape, conv2d=None):
     """c[k] = sum_{i+j=k} a[i] * b[j] for k < out_shape, any rank."""
-    return _conv_dense_batched(a[None], b[None], out_shape)[0]
+    return _conv_dense_batched(a[None], b[None], out_shape, conv2d)[0]
 
 
-def _conv_dense_batched(a, b, out_shape: Shape):
+def _conv_dense_batched(a, b, out_shape: Shape, conv2d=None):
     """``_conv_dense`` over a leading batch axis shared by ``a`` and ``b``:
     * 0 axes: elementwise product,
     * 1 axis: Toeplitz matrix times vector,
@@ -105,7 +106,11 @@ def _conv_dense_batched(a, b, out_shape: Shape):
     * >=3 axes: every (i0, j0) pair of leading rows is one batch entry of
       the (n-1)-axis product, so the 2-axis level is one K1 launch over
       all pairs; anti-diagonals of the pair grid then give the leading
-      output axis (the JAX version vmaps over the pairs)."""
+      output axis (the JAX version vmaps over the pairs).
+
+    ``conv2d(a, b, out_shape)`` runs the 2-axis level: by default
+    ``conv2d_trunc_f64_batched``; the compiled mode passes K1's custom op
+    (``ops.conv2d_f64.k1_op``), which ``torch.func.vmap`` can batch."""
     n = len(out_shape)
     if n == 0:
         return a * b
@@ -116,16 +121,17 @@ def _conv_dense_batched(a, b, out_shape: Shape):
     if n == 2:
         # K1 on a card; on the CPU its plain version, the Toeplitz einsum
         # [c0, b0, a1, B] -> [B, c0, a1, b1] and an anti-diagonal sum
-        from ..ops.conv2d_f64 import conv2d_trunc_f64_batched
+        if conv2d is None:
+            from ..ops.conv2d_f64 import conv2d_trunc_f64_batched as conv2d
 
-        return conv2d_trunc_f64_batched(a.contiguous(), b.contiguous(),
-                                        out_shape)
+        return conv2d(a.contiguous(), b.contiguous(), out_shape)
     nb, a0, b0 = a.shape[0], a.shape[1], b.shape[1]
     ra, rb = tuple(a.shape[2:]), tuple(b.shape[2:])
     ap = a[:, :, None].expand((nb, a0, b0) + ra).reshape((-1,) + ra)
     bp = b[:, None].expand((nb, a0, b0) + rb).reshape((-1,) + rb)
     rest = tuple(out_shape[1:])
-    P = _conv_dense_batched(ap, bp, rest).reshape((nb, a0, b0) + rest)
+    P = _conv_dense_batched(ap, bp, rest, conv2d).reshape(
+        (nb, a0, b0) + rest)
     P = P.movedim(1, -1).movedim(1, -1)  # [B, rest..., i0, j0]
     c = _antidiag_sum(P, out_shape[0])  # [B, rest..., k0]
     return c.movedim(-1, 1)
@@ -162,8 +168,9 @@ def _exp1d(xs, out_shape: Shape, axis: int):
     )
     ksafe = torch.where(k == 0, 1, k).to(x.dtype)
     M = torch.eye(n, dtype=x.dtype, device=x.device) - coeff / ksafe
-    rhs = torch.zeros((n, 1), dtype=x.dtype, device=x.device)
-    rhs[0, 0] = torch.exp(x[0])
+    # out of place (torch.func.vmap refuses a batched write into a fresh
+    # tensor): exp(x0) followed by n - 1 zeros
+    rhs = F.pad(torch.exp(x[:1]), (0, n - 1))[:, None]
     f = torch.linalg.solve_triangular(M, rhs, upper=False)
     return f.reshape([n] + [1] * (len(out_shape) - 1)).movedim(0, axis)
 

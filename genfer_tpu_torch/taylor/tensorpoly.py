@@ -1219,15 +1219,30 @@ def _set_first(b: Backend, arr, val0d):
         out = arr.copy()
         out[idx] = val0d[()] if hasattr(val0d, "shape") else val0d
         return out
-    # numpy arrays copy, torch tensors (TorchF64Backend) clone
+    # numpy arrays copy; torch tensors (TorchF64Backend) are rebuilt out
+    # of place, the new first element before the rest of the flat tensor
+    # (torch.func.vmap refuses a batched write into an unbatched tensor)
     if isinstance(b, ArrayIntervalBackend):
-        data = arr.data.copy() if isinstance(arr.data, _np.ndarray) else (
-            arr.data.clone())
-        data[(slice(None),) + idx] = val0d.data
-        return IvArr(data)
-    out = arr.copy() if isinstance(arr, _np.ndarray) else arr.clone()
-    out[idx] = val0d
-    return out
+        if isinstance(arr.data, _np.ndarray):
+            data = arr.data.copy()
+            data[(slice(None),) + idx] = val0d.data
+            return IvArr(data)
+        return IvArr(_cat_first(arr.data.reshape(2, -1),
+                                val0d.data.reshape(2, 1), 1)
+                     .reshape(arr.data.shape))
+    if isinstance(arr, _np.ndarray):
+        out = arr.copy()
+        out[idx] = val0d
+        return out
+    return _cat_first(arr.reshape(-1), val0d.reshape(1), 0).reshape(shape)
+
+
+def _cat_first(flat, first, dim):
+    """``flat`` with its first entry along ``dim`` replaced by ``first``."""
+    import torch
+
+    return torch.cat([first, flat.narrow(dim, 1, flat.shape[dim] - 1)],
+                     dim=dim)
 
 
 def _lin_add(a: TaylorPoly, b: TaylorPoly):

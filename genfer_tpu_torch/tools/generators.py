@@ -237,6 +237,68 @@ def generate_digit_recognition(out_path, params, observations) -> str:
     return _emit(out_path, "\n".join(lines) + "\n")
 
 
+#: the class priors of the reference's digitRecognition benchmark
+DIGIT_PRIORS = [
+    "0.098717", "0.11237", "0.0993", "0.10218", "0.097367",
+    "0.09035", "0.098633", "0.10442", "0.097517", "0.09915",
+]
+
+
+def digit_serving_source(n_pixels: int) -> tuple[str, list[str]]:
+    """The naive-Bayes digit model with one evidence parameter a (class,
+    pixel): ``observe 1 ~ Bernoulli($e<c>_<i>)``, the image folded into
+    the parameters (``e = x theta + (1 - x)(1 - theta)``), and its
+    parameter order (examples/digit_serving.py::model_source)."""
+    lines = ["y ~ Categorical(" + ", ".join(DIGIT_PRIORS) + ");"]
+    params = []
+    for c in range(10):
+        lines.append(f"if y = {c} {{")
+        for i in range(n_pixels):
+            name = f"e{c}_{i}"
+            params.append(name)
+            lines.append(f"    observe 1 ~ Bernoulli(${name});")
+        lines.append("}")
+    lines.append("return y")
+    return "\n".join(lines), params
+
+
+def population_scan_source(init_lam, lams, cs, delta, rho) -> str:
+    """The population block (generate_population_examples.rs) over the
+    rounds ``(lams[k], cs[k])``, as ``models.CompiledPopulation`` runs it."""
+    lines = [f"population ~ Poisson({float(init_lam)!r});"]
+    for lam, c in zip(lams, cs):
+        lines += [
+            f"arrivals ~ Poisson({float(lam)!r});",
+            f"population ~ Binomial(population, {float(delta)!r});",
+            "population += arrivals;",
+            f"observe {int(c)} ~ Binomial(population, {float(rho)!r});",
+        ]
+    lines.append("return population")
+    return "\n".join(lines)
+
+
+def two_populations_scan_source(init_lams, lam1s, lam2s, c1s, c2s, d1, d2,
+                                mig, rho) -> str:
+    """The two-species block (generate_two_populations.rs) over the given
+    rounds, as ``models.CompiledTwoPopulations`` runs it."""
+    lines = [
+        f"population1 ~ Poisson({float(init_lams[0])!r});",
+        f"population2 ~ Poisson({float(init_lams[1])!r});",
+    ]
+    for l1, l2, c1, c2 in zip(lam1s, lam2s, c1s, c2s):
+        lines += [
+            f"population2 +~ Binomial(population1, {float(mig)!r});",
+            f"population1 ~ Binomial(population1, {float(d1)!r});",
+            f"population2 ~ Binomial(population2, {float(d2)!r});",
+            f"population1 +~ Poisson({float(l1)!r});",
+            f"population2 +~ Poisson({float(l2)!r});",
+            f"observe {int(c1)} ~ Binomial(population1, {float(rho)!r});",
+            f"observe {int(c2)} ~ Binomial(population2, {float(rho)!r});",
+        ]
+    lines.append("return population2")
+    return "\n".join(lines)
+
+
 def _emit(out_path, text: str) -> str:
     if out_path is not None:
         Path(out_path).write_text(text, encoding="utf-8")

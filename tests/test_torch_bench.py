@@ -14,14 +14,14 @@ from genfer_tpu_torch import bench
     (["--nested", "--seed", "1"], "Queue 1 item 3"),
     (["--suite"], "Queue 1 item 3"),
     (["--scaling"], "Queue 1 item 1"),
-    (["--serving"], "Queue 1 items 8 and 10"),
-    (["--scan"], "Queue 1 items 9 and 10"),
+    (["--serving", "--highorder"], "Queue 1 item 11"),
+    (["--scan", "--ozaki"], "Queue 2 K5"),
     (["--highorder"], "Queue 1 item 11"),
     (["--ozaki"], "Queue 2 K5"),
     (["--nested"], "Queue 1 item 3"),
     (["--all"], "Queue 1 item 3"),
     # an unported section raises before the ported ones run
-    (["--pallas", "--scan"], "Queue 1 items 9 and 10"),
+    (["--pallas", "--scan", "--suite"], "Queue 1 item 3"),
 ])
 def test_unported_options_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -32,6 +32,23 @@ def test_pallas_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         bench.main(["--pallas", "--seed", "3"])
+
+
+@pytest.mark.parametrize("argv", [["--serving"], ["--scan"],
+                                  ["--serving", "--scan"]])
+def test_serving_and_scan_without_a_card_raise(monkeypatch, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        bench.main(argv)
+
+
+def test_serving_and_scan_are_ported_and_name_scanc():
+    """``--serving`` / ``--scan`` are ported; their scan-compiler sections
+    (generic_serving, cascade_switchpoint) name ROADMAP item 10."""
+    for name in ("serving", "scan"):
+        assert name not in bench.UNPORTED
+    assert "item 10" in bench.SCANC
+    assert bench.SERVING_BATCH == 4096
 
 
 def test_headline_without_a_card_raises(monkeypatch):
@@ -100,3 +117,21 @@ def test_bench_sections_on_card(tmp_path, monkeypatch):
         assert 0 < row["grouped_bound_share"] <= 1
     assert results["_meta"]["card"] == bench.card()
     assert np.isfinite(results["pallas_rowstrip"]["512"]["grouped_ms"])
+
+
+@pytest.mark.cuda
+def test_bench_serving_and_scan_on_card(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(bench, "RESULTS", tmp_path / "results.json")
+    results = bench.main(["--serving", "--scan"])
+    row = results["serving"]
+    assert row["batch"] == bench.SERVING_BATCH
+    assert row["device_inferences_per_s"] > 0
+    assert row["speedup"] == pytest.approx(
+        row["device_inferences_per_s"] / row["host_inferences_per_s"])
+    assert "item 10" in results["generic_serving"]["not_ported"]
+    scan = results["population_scan"]
+    assert scan["limit"] == 256 and scan["steps"] == 20
+    assert scan["datasets_per_s"] > 0 and "skipped" in scan["hmm"]
+    assert "item 10" in results["cascade_switchpoint"]["not_ported"]

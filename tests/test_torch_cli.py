@@ -239,10 +239,11 @@ def test_native_eval_gate_names_the_ports_classes():
 
 def test_port_never_imports_jax(tmp_path):
     """Every module of the port imported (the f64 device path's namespace,
-    K1's wrapper and the ``entry()`` twin among them), then one CLI
-    inference run on the host path and one with ``--backend jax``, in a
-    fresh interpreter: neither jax nor genfer_tpu (nor any module of it)
-    is loaded."""
+    K1's wrapper, the ``entry()`` twin, compiled serving, ``api`` and the
+    models among them), one compiled program and one model run on the
+    CPU, then one CLI inference run on the host path and one with
+    ``--backend jax``, in a fresh interpreter: neither jax nor genfer_tpu
+    (nor any module of it) is loaded."""
     path = tmp_path / "model.sgcl"
     generate_two_populations(path, 20, seed=0)
     code = (
@@ -253,8 +254,15 @@ def test_port_never_imports_jax(tmp_path):
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 28, mods\n"
-        "for m in ('taylor.xp', 'ops.conv2d_f64', 'entry'):\n"
+        "for m in ('taylor.xp', 'ops.conv2d_f64', 'entry', 'compile', "
+        "'api', 'models', 'models.population', 'models.hmm'):\n"
         "    assert 'genfer_tpu_torch.' + m in mods, m\n"
+        "from genfer_tpu_torch.compile import compile_program\n"
+        "from genfer_tpu_torch.models import CompiledPopulation\n"
+        "c = compile_program('x ~ Binomial(4, $p);\\nreturn x', ['p'], 5, "
+        "device='cpu')\n"
+        "assert c.probs_batch([[0.5], [0.25]]).shape == (2, 5)\n"
+        "CompiledPopulation(0.3, 0.2, 8, 2, device='cpu').probs([1.0], [0])\n"
         "from genfer_tpu_torch import cli\n"
         "from genfer_tpu_torch.lang.parser import parse_program\n"
         f"cli.main([{str(path)!r}, '--no-timing'])\n"

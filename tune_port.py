@@ -7,7 +7,7 @@
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Eleven probes (all, or the numbered ones), each printed with the card's
+Twelve probes (all, or the numbered ones), each printed with the card's
 name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
@@ -67,7 +67,16 @@ two trees run in turns compares their K6.
    s * s up to which the small body is no slower on the card, which sets
    ``ops/conv2d_f64.py::SMALL_MAX_COEFFS``; then the same at the main
    path's thin class (268,274)x(n,1), n = 16 to 64, the small body
-   against the dense body transposed.
+   against the dense body transposed;
+12. K1's small body over the compiled-serving batch (``SERVING_SHAPES``,
+   the scam walk's products (n,n)x(2,2) at n = 8, 16 and its largest,
+   (27,27)x(2,2)->(27,28), x ``bench.SERVING_BATCH`` = 4096 entries)
+   against the same products as one grouped ``torch.nn.functional
+   .conv2d`` (``groups`` = 4096; the library yardstick, used nowhere in
+   the port), in turns (K1, library, library, K1, twice): the card's
+   device time a call warm (back to back: the ~49 MB of the largest
+   product stay in the 50 MB L2) and cold (a 256 MB write between calls
+   flushes L2), from ``torch.profiler``, beside the DRAM byte bound.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -584,6 +593,77 @@ def small_against_dense() -> None:
         _small_or_dense((268, 274), (n, 1), ("small", "dense_t"))
 
 
+#: probe 12's products: (a shape, b shape, out shape) of the scam walk
+SERVING_SHAPES = (
+    ((8, 8), (2, 2), (9, 9)),
+    ((16, 16), (2, 2), (17, 17)),
+    ((27, 27), (2, 2), (27, 28)),
+)
+FLUSH_BYTES = 256 << 20  # probe 12's L2 flush: five times the 50 MB L2
+
+
+def _grouped_conv2d(a, b, out):
+    """The truncated products of every pair ``a[z]``, ``b[z]`` as one
+    grouped correlation of the padded ``a`` with the flipped ``b``."""
+    import torch
+    import torch.nn.functional as F
+
+    batch, (b0, b1), (c0, c1) = a.shape[0], b.shape[1:], out
+    x = torch.zeros((1, batch, c0 + b0 - 1, c1 + b1 - 1), dtype=a.dtype,
+                    device=a.device)
+    r0, r1 = min(a.shape[1], c0), min(a.shape[2], c1)
+    x[0, :, b0 - 1:b0 - 1 + r0, b1 - 1:b1 - 1 + r1] = a[:, :r0, :r1]
+    w = torch.flip(b, dims=(1, 2))[:, None].contiguous()
+    return lambda: F.conv2d(x, w, groups=batch)[0]
+
+
+def serving_batch() -> None:
+    """Probe 12: K1's small body against the grouped conv2d over the
+    serving batch, warm and cold, in turns."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import (
+        F64_MMA,
+        SERVING_BATCH,
+        bound_ms,
+    )
+    from genfer_tpu_torch.ops import conv2d_f64 as K
+    from genfer_tpu_torch.taylor.host import _conv_pair_flops
+
+    rng = np.random.default_rng(12)
+    flush = torch.empty(FLUSH_BYTES // 8, dtype=torch.float64, device="cuda")
+    fill = set(device_us_by_kernel(flush.zero_, 5))
+    batch = SERVING_BATCH
+    for sa, sb, out in SERVING_SHAPES:
+        a = torch.from_numpy(rng.random((batch, *sa))).cuda()
+        b = torch.from_numpy(rng.random((batch, *sb))).cuda()
+        calls = {"K1": lambda: K.conv2d_trunc_f64_batched(a, b, out),
+                 "library": _grouped_conv2d(a, b, out)}
+        want = K.conv2d_trunc_f64_batched_reference(a, b, out)
+        for name, call in calls.items():
+            err = float(((call() - want).abs() / want.abs()).max())
+            if not err <= 1e-12:
+                raise RuntimeError(f"probe 12 {name} {sa}: max rel err "
+                                   f"{err:.3e}")
+        times: dict = {(n, w): [] for n in calls for w in ("warm", "cold")}
+        for name in ("K1", "library", "library", "K1") * 2:
+            call = calls[name]
+            times[(name, "warm")].append(
+                sum(device_us_by_kernel(call, 50).values()))
+            cold = device_us_by_kernel(lambda: (flush.zero_(), call()), 20)
+            times[(name, "cold")].append(
+                sum(v for k, v in cold.items() if k not in fill))
+        nbytes = 8.0 * batch * (np.prod(sa) + np.prod(sb) + np.prod(out))
+        bound, by = bound_ms(batch * _conv_pair_flops(sa, sb, out), nbytes,
+                             rate=F64_MMA)
+        print(f"probe 12 {sa}x{sb}->{out} x {batch}: device us a call "
+              + "; ".join(f"{n} {w} " + "/".join(f"{t:.2f}" for t in ts)
+                          for (n, w), ts in times.items())
+              + f"; bound {1e3 * bound:.2f} us ({by}, "
+              f"{nbytes / 1e6:.1f} MB)")
+
+
 def steady_state(ceiling: float) -> None:
     """Probe 5: identical interior units through the shipped kernels."""
     import numpy as np
@@ -764,6 +844,7 @@ def main(argv) -> None:
         4: mma_ceiling, 5: lambda: steady_state(mma_ceiling()),
         6: mma_plan_sweep, 7: fold_plan_sweep, 8: k6_lengths,
         9: f64_mma_ceiling, 10: f64_mma_layout, 11: small_against_dense,
+        12: serving_batch,
     }
     print(card())
     _build.load()
