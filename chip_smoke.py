@@ -71,8 +71,8 @@ result):
    ``examples/*.sgcl``, two_populations (seed 0, size ``E2E_SIZE`` =
    2000, where the f32 route prints NaN) and population (size 1000, 2
    variables), against ``--backend numpy`` at the reference's is_close
-   (rel 1e-9, abs 1e-8) on Z, the moments and every printed p(k) (and
-   the intervals a program with loops prints); one ``--bounds --backend
+   (rel 1e-9, abs 1e-8) on the moments and every printed p(k) (and the
+   intervals a program with loops prints), Z at rel 1e-9 of itself; one ``--bounds --backend
    jax`` run (``TorchIntervalBackend``) whose intervals hold the host
    f64 points; K1 must have been launched, and its launches by body on
    two_populations and population are printed: the small body must have
@@ -108,8 +108,30 @@ result):
    host interpreter; ``CompiledHMM`` (256 rates, 30 seeded counts) and
    ``CompiledMixture`` (320 rates, the 109 coal-mining counts) against the
    same classes on the CPU (rel 1e-9); capture and replay times.
+13. the scan compiler (``genfer_tpu_torch.scanc``) on the card:
+   ``python -m genfer_tpu_torch <file> --compile-scan`` in a child process
+   (the card, the port's default) on ``SCAN_PROGRAMS`` (hmm(30), the
+   mixture, the discrete switchpoint, population(500, 1) and
+   two_populations at 500 and 2000, from ``tools/generators.py``), each
+   against the host interpreter (``--backend numpy``): the moments and
+   each p(k)/Z at is_close, Z and every unnormalized p(k) at rel 1e-9 of
+   Z (they lie far below is_close's absolute 1e-8); in process the same
+   masses held to the interpreter's, the converged order (it must be
+   genfer_tpu's), the compile-and-validate wall, the peak
+   device memory, and from torch.profiler the card's busy time in cuBLAS
+   DGEMM against the other kernels.  ``api.compile_serving`` on the
+   mixture and ``run_batch`` at ``bench.GENERIC_BATCH`` = 256 seeded
+   datasets of 109 counts through one CUDA graph: every row against
+   ``run_with_data`` and the same object on the CPU at rtol 1e-12, replay
+   time, inferences a second and the replay's profile; a ``$param``
+   sweep over ``SWEEP_P`` against the host interpreter, masses and Z at
+   rel 1e-9 of Z; the discrete switchpoint's cascade on fresh seeded
+   counts, served at the order the rewritten source converges at, against
+   compiling that source (rtol 1e-12) and the host interpreter on it (rel
+   1e-9 of Z), with the deviation it shows when served at the committed
+   counts' order (a cascade checks no convergence for fresh counts).
 
-Each of phases 4-6 and 8-12 sets the launch counts to 0 just before it
+Each of phases 4-6 and 8-13 sets the launch counts to 0 just before it
 and reads them just after (phase 11's K1 launches are those of the
 captured walk: a replay runs the graph, not the wrappers). Before the
 table, the shares of their bounds of K2, K3, K4a, K4b, K6 (the tensor-core
@@ -134,7 +156,6 @@ import io
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -144,6 +165,13 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from genfer_tpu_torch.printed import (
+    IS_CLOSE,
+    disagreements,
+    read_masses,
+    read_results,
+)
 
 #: the f32 route's threshold for phase 4, in multiply-adds; set in the
 #: environment before the port's backend module is imported
@@ -286,7 +314,6 @@ E2E_SIZE = 2000  # two_populations; the f32 route prints Z = NaN here
 POP_SIZE, POP_VARS = 1000, 2
 K1_SMALL_MIN = 1400  # of two_populations(2000)'s K1 launches (of ~1530)
 BOUNDS_EXAMPLE = "scam_calls.sgcl"
-IS_CLOSE = (1e-9, 1e-8)  # rel, abs
 HEADLINE_ITERS, HEADLINE_HOST_ITERS = 4, 1  # the bench's are 8 and 3
 
 # phase 11: compiled serving (at bench.SERVING_BATCH = 4096)
@@ -298,6 +325,38 @@ DIGIT_SEED = 0
 MODEL_REL = 1e-9  # phase 12 against the CPU classes, and phase 11's digits
 POP_REL = 1e-10  # phase 12 against the host interpreter
 SCAN_LIMIT, SCAN_STEPS, SCAN_BATCH = 256, 20, 64  # the bench's sizes
+
+# phase 13: the scan compiler (scanc.py).  Each program of the in-repo
+# generators (seed 0) with the order genfer_tpu's compile_scan_program
+# converges at from order 128 on the CPU (tests/test_torch_scanc.py holds
+# the port to genfer_tpu's order at the smaller sizes)
+SCAN_PROGRAMS = (  # label, generator, its arguments, converged order
+    ("hmm(30)", "generate_hmm", (30,), 256),
+    ("mixture", "generate_mixture", (), 128),
+    ("switchpoint", "generate_switchpoint", (), 128),
+    ("population(500, 1)", "generate_population", (500, 1), 256),
+    ("two_populations(500)", "generate_two_populations", (500,), 256),
+    ("two_populations(2000)", "generate_two_populations", (2000,), 1024),
+)
+SCAN_ORDER = 128  # the CLI's --scan-order
+SCAN_REL = 1e-12  # batched serving against run_with_data and the CPU
+# masses below the smallest normal f64 keep fewer than 53 bits: held
+# absolutely there (as tests/test_torch_scanc.py does)
+SCAN_ATOL = float(np.finfo(np.float64).tiny)
+# tests/test_scanc.py::test_param_ratio_serving_sweep's program
+SWEEP_TEMPLATE = """nr ~ Poisson(6);
+observe 2 ~ Binomial(nr, {p});
+nr +~ Poisson(3);
+observe 1 ~ Binomial(nr, {p});
+nr +~ Poisson(3);
+observe 3 ~ Binomial(nr, {p});
+nr +~ Poisson(3);
+observe 2 ~ Binomial(nr, {p});
+nr +~ Poisson(3);
+observe 4 ~ Binomial(nr, {p});
+return nr;"""
+SWEEP_P = (0.2, 0.3, 0.5)
+CASCADE_SEED = 0  # the fresh counts of the cascade's serving run
 
 #: the kernels whose operations bound is the tensor cores' TF32 rate (K6
 #: where it runs its tensor-core body: ``_passes``)
@@ -631,24 +690,6 @@ def phase3_plans_and_host_cost() -> None:
           f"{C1.fold_body(n, n, n)} body; {cost}")
 
 
-_POINT = re.compile(r"^(?:Normalized:\s+)?(.+?)\s+=\s+(\S+)$")
-
-
-def read_results(text: str) -> dict[str, float]:
-    """The point results a run printed: ``Z``, ``E``, ``σ`` and the other
-    moments by their symbol, each ``p(k)`` of a normalized program, and
-    each ``p(k) / Z`` of an unnormalized one (its unnormalized lines and
-    the "p(n) <= ..." tail bounds are left out)."""
-    out: dict[str, float] = {}
-    for line in text.splitlines():
-        if line.startswith("Unnormalized:") or "<=" in line:
-            continue
-        m = _POINT.match(line.strip())
-        if m is not None:
-            out[m.group(1).split(":")[-1].strip()] = float(m.group(2))
-    return out
-
-
 def _capture(main, argv) -> tuple[str, float]:
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -918,18 +959,14 @@ def phase7_k1() -> dict:
     return rows
 
 
-def _agree(got: dict, want: dict, what: str) -> int:
-    """Hold ``got`` to ``want`` at the reference's is_close (equal
-    non-finite values agree); return the number compared."""
-    rel, abs_ = IS_CLOSE
-    if set(got) != set(want):
-        fail(f"{what}: printed results differ: "
-             f"{sorted(set(got) ^ set(want))}")
-    for key, w in want.items():
-        g = got[key]
-        same = g == w or (math.isnan(g) and math.isnan(w))
-        if not (same or abs(g - w) <= abs_ + rel * abs(w)):
-            fail(f"{what}: {key} = {g} against host f64 {w}")
+def _agree(got: dict, want: dict, what: str, scale: float | None = None
+           ) -> int:
+    """Hold ``got`` to ``want`` as ``printed.disagreements`` does (is_close,
+    ``Z`` and, with ``scale``, every value relative to that scale); return
+    the number compared."""
+    bad = disagreements(got, want, scale)
+    if bad:
+        fail(f"{what}: " + "; ".join(bad[:5]) + " (host f64)")
     return len(want)
 
 
@@ -983,7 +1020,8 @@ def phase8_backend_jax(launches: dict) -> None:
                 n += _agree(_endpoints(port_out), _endpoints(host_out),
                             path.name)
                 print(f"phase 8 {path.name} --backend jax: {n} results at "
-                      f"is_close (rel {IS_CLOSE[0]}, abs {IS_CLOSE[1]}) to "
+                      f"is_close (rel {IS_CLOSE[0]}, abs {IS_CLOSE[1]}; Z at "
+                      f"rel {IS_CLOSE[0]} of itself) to "
                       f"--backend numpy; port {port_s:.3f} s, host "
                       f"{host_s:.3f} s wall; K1 launches by body "
                       + ", ".join(f"{k} {v}" for k, v in runs.items()))
@@ -1049,35 +1087,39 @@ def phase10_headline(launches: dict) -> dict:
     return results
 
 
+def _profiled(call):
+    """``call()`` under torch.profiler: its result, the wall seconds, and
+    by kernel name the launches and the card's busy milliseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "Memcpy" not in e.name \
+                and "Memset" not in e.name:
+            n, ms = kernels.get(_kernel_name(e.name), (0, 0.0))
+            kernels[_kernel_name(e.name)] = (
+                n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return out, wall, kernels
+
+
 def _replay_profile(call, reps: int = 3) -> tuple[float, float, dict]:
     """``reps`` calls of ``call()`` (a graph replay) under torch.profiler:
     the wall milliseconds of one, the card's busy milliseconds of one (the
     sum of its kernels), and by kernel name the launches and busy
     milliseconds of one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps * 1e3
-    launches: dict = {}
-    us: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "Memcpy" not in e.name \
-                and "Memset" not in e.name:
-            name = _kernel_name(e.name)
-            launches[name] = launches.get(name, 0) + 1
-            us[name] = us.get(name, 0.0) + e.time_range.elapsed_us()
-    kernels = {k: (n / reps, us[k] / reps / 1e3)
-               for k, n in launches.items()}
+    _, wall, kernels = _profiled(lambda: [call() for _ in range(reps)])
+    kernels = {k: (n / reps, ms / reps) for k, (n, ms) in kernels.items()}
     busy = sum(ms for _, ms in kernels.values())
-    return wall, busy, kernels
+    return wall / reps * 1e3, busy, kernels
 
 
 def _profile_line(wall: float, busy: float, kernels: dict) -> str:
@@ -1184,15 +1226,18 @@ def _points_agree(got, want, what: str) -> float:
     return worst
 
 
-def _rel_agree(got, want, rel: float, what: str) -> float:
+def _rel_agree(got, want, rel: float, what: str, atol: float = 0.0
+               ) -> float:
     """Fail unless every entry of ``got`` is within ``rel`` of ``want``'s
-    (elementwise, finite); return the max relative deviation."""
+    or within ``atol`` of it (elementwise, finite); return the max
+    relative deviation."""
     got, want = np.asarray(got), np.asarray(want)
     if got.shape != want.shape or not np.all(np.isfinite(got)):
         fail(f"{what}: shape {got.shape} against {want.shape}, or "
              "non-finite")
     dev = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
-    if not np.all((dev <= rel) | (got == want)):
+    if not np.all((dev <= rel) | (got == want)
+                  | (np.abs(got - want) <= atol)):
         fail(f"{what}: max rel deviation {dev.max():.3e} over {rel}")
     return float(dev.max())
 
@@ -1325,18 +1370,22 @@ def phase11_serving(launches: dict) -> dict:
     return out
 
 
-def _host_probs(src: str, limit: int) -> dict[int, float]:
-    """The port's host interpreter (``--backend numpy``) on ``src``: its
-    unnormalized masses."""
+def _host_text(src: str, *flags: str) -> str:
+    """The port's host interpreter (``--backend numpy``) on ``src``."""
     from genfer_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "model.sgcl"
         path.write_text(src)
-        text, _ = _capture(cli.main, [str(path), "--no-timing", "--limit",
-                                      str(limit), "--backend", "numpy"])
-    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
-        r"Unnormalized: p\((\d+)\)\s*=\s*([\d.e+-]+)", text)}
+        text, _ = _capture(cli.main, [str(path), "--no-timing", *flags,
+                                      "--backend", "numpy"])
+    return text
+
+
+def _host_probs(src: str, limit: int) -> dict[int, float]:
+    """The host interpreter's unnormalized masses on ``src``."""
+    return {int(k[2:-1]): v for k, v in read_masses(
+        _host_text(src, "--limit", str(limit))).items()}
 
 
 def _against_host(got, ref: dict, what: str) -> float:
@@ -1431,6 +1480,226 @@ def phase12_scan_models(launches: dict) -> dict:
         out[name] = {"capture_s": first, "replay_ms": best * 1e3}
         print(f"phase 12 {name}: against the {held}; first call (capture) "
               f"{first:.3f} s, replay {best * 1e3:.3f} ms with read-back")
+    _check_no_jax()
+    return out
+
+
+def _gemm_line(wall: float, kernels: dict) -> str:
+    """The card's busy time split into cuBLAS DGEMM and the rest."""
+    gemm = [v for k, v in kernels.items() if "gemm" in k.lower()]
+    rest = [v for k, v in kernels.items() if "gemm" not in k.lower()]
+    g_ms, r_ms = sum(ms for _, ms in gemm), sum(ms for _, ms in rest)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:3]
+    return (f"card busy {g_ms + r_ms:.3f} ms of {wall * 1e3:.1f} ms traced "
+            f"wall ({100 * (g_ms + r_ms) / (wall * 1e3):.2f}%): DGEMM "
+            f"{g_ms:.3f} ms in {sum(n for n, _ in gemm)} launches, other "
+            f"kernels {r_ms:.3f} ms in {sum(n for n, _ in rest)} ("
+            + ", ".join(f"{k} {n} launches {ms:.3f} ms"
+                        for k, (n, ms) in top) + ")")
+
+
+def _scan_cli(path: Path) -> tuple[str, float]:
+    """``python -m genfer_tpu_torch <path> --compile-scan`` in a child
+    process (the port's default device: the card): stdout and wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "genfer_tpu_torch", str(path), "--no-timing",
+         "--compile-scan"], capture_output=True, text=True, timeout=900,
+        cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"--compile-scan {path.name}: rc {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    if "falling back" in proc.stderr:
+        fail(f"--compile-scan {path.name} fell back: {proc.stderr.strip()}")
+    return proc.stdout, wall
+
+
+def _masses_agree(got, text: str, what: str) -> int:
+    """Hold masses ``got`` (host numpy) and their sum to the unnormalized
+    masses and Z an interpreter run printed, each at rel 1e-9 of that Z."""
+    host = read_masses(text)
+    if len(host) < 3:
+        fail(f"{what}: the interpreter printed {len(host)} masses")
+    mine = {k: float(got[int(k[2:-1])]) for k in host}
+    mine["Z"] = float(np.sum(got))
+    host["Z"] = read_results(text)["Z"]
+    return _agree(mine, host, what, scale=host["Z"])
+
+
+def phase13_scan_compiler(launches: dict) -> dict:
+    """The scan compiler on the card (module docstring)."""
+    from genfer_tpu_torch import api, cli
+    from genfer_tpu_torch.bench import (
+        GENERIC_BATCH,
+        GENERIC_MAX_STEPS,
+        GENERIC_ORDER,
+        GENERIC_STEPS,
+        _best_of,
+        card,
+    )
+    from genfer_tpu_torch.lang.parser import parse_program
+    from genfer_tpu_torch.scanc import (
+        CascadeCompiled,
+        ScanCompiled,
+        compile_scan_program,
+    )
+    from genfer_tpu_torch.tools import generators
+
+    out: dict = {}
+    tag = f"phase 13 [{card()}]"
+    with _counted(launches, (), "phase 13"), \
+            tempfile.TemporaryDirectory() as tmp:
+        for label, gen, gen_args, order in SCAN_PROGRAMS:
+            path = Path(tmp) / f"{gen}.sgcl"
+            text = getattr(generators, gen)(path, *gen_args)
+            host_out, host_s = _capture(cli.main, [
+                str(path), "--no-timing", "--backend", "numpy"])
+            port_out, port_s = _scan_cli(path)
+            host_z = read_results(host_out)["Z"]
+            n = _agree(read_results(port_out), read_results(host_out), label)
+            got, want = read_masses(port_out), read_masses(host_out)
+            n += _agree(got, want, label, scale=host_z)
+            dev = max(abs(got[k] - w) for k, w in want.items()) / host_z
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            obj, (masses, _) = compile_scan_program(parse_program(text),
+                                                    order=SCAN_ORDER)
+            torch.cuda.synchronize()
+            in_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            n += _masses_agree(masses, host_out, f"{label} in process")
+            if obj.order != order:
+                fail(f"{label}: converged at order {obj.order}, not {order}")
+            kind = type(obj).__name__
+            if isinstance(obj, ScanCompiled) and obj.device.type != "cuda":
+                fail(f"{label}: compiled for {obj.device}")
+            _, wall, kernels = _profiled(lambda: compile_scan_program(
+                parse_program(text), order=SCAN_ORDER))
+            out[label] = {"order": obj.order, "cli_s": port_s,
+                          "host_s": host_s, "compile_validate_s": in_s,
+                          "peak_mib": peak}
+            print(f"{tag} {label} --compile-scan: {kind} converged at "
+                  f"order {obj.order}; {n} results agree with --backend "
+                  f"numpy (moments and p(k)/Z at is_close, rel {IS_CLOSE[0]}"
+                  f" / abs {IS_CLOSE[1]}; Z and the unnormalized masses of "
+                  "the CLI run and of the in-process object at rel "
+                  f"{IS_CLOSE[0]} of Z, the CLI's masses within {dev:.2e} Z, "
+                  f"Z = {host_z:.6e}); "
+                  f"CLI {port_s:.3f} s wall in a child process (host "
+                  f"interpreter {host_s:.3f} s in process); in process "
+                  f"compile and validate {in_s:.3f} s, peak device memory "
+                  f"{peak:.1f} MiB; under torch.profiler "
+                  + (_gemm_line(wall, kernels) if kernels else
+                     f"no kernel ({wall * 1e3:.1f} ms, host numpy)"))
+
+        # serving: the mixture batch through one CUDA graph
+        gen_src = generators.generate_mixture(None)
+        t0 = time.perf_counter()
+        obj = api.compile_serving(gen_src, order=GENERIC_ORDER,
+                                  max_steps=GENERIC_MAX_STEPS)
+        compile_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)  # the bench's counts
+        bc = rng.integers(0, 8, size=(GENERIC_BATCH, GENERIC_STEPS)
+                          ).astype(np.float64)
+        cols = [bc] * len(obj.rep.data)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got, totals = obj.run_batch(cols)
+        capture_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        again, _ = obj.run_batch(cols)
+        if not np.array_equal(again, got):
+            fail("generic serving: two replays differ")
+        if got.shape != (GENERIC_BATCH, obj.sizes[obj.program.result]) or \
+                not (np.isfinite(got).all() and (totals > 0).all()):
+            fail(f"generic serving: shape {got.shape} or a bad total")
+        worst = 0.0
+        for i in range(GENERIC_BATCH):
+            one, _ = obj.run_with_data([c[i] for c in cols])
+            worst = max(worst, _rel_agree(got[i], one, SCAN_REL,
+                                          f"generic serving row {i}",
+                                          SCAN_ATOL))
+        cpu = api.compile_serving(gen_src, order=GENERIC_ORDER,
+                                  max_steps=GENERIC_MAX_STEPS, device="cpu")
+        cpu_dev = _rel_agree(got, cpu.run_batch(cols)[0], SCAN_REL,
+                             "generic serving on the CPU", SCAN_ATOL)
+        replay = _best_of(lambda: obj.run_batch(cols))
+        wall, busy, kernels = _replay_profile(lambda: obj.run_batch(cols))
+        out["generic_serving"] = {
+            "order": obj.order, "compile_validate_s": compile_s,
+            "capture_s": capture_s, "replay_s": replay,
+            "inferences_per_s": GENERIC_BATCH / replay,
+            "replay_wall_ms": wall, "replay_busy_ms": busy,
+            "kernels_per_replay": sum(n for n, _ in kernels.values()),
+            "peak_mib": peak}
+        print(f"{tag} generic serving mixture B={GENERIC_BATCH} x "
+              f"{GENERIC_STEPS} counts (order {obj.order}, "
+              f"{GENERIC_MAX_STEPS} steps): every row within rel {SCAN_REL} "
+              f"of run_with_data (max rel dev {worst:.3e}) and of the CPU "
+              f"object (max rel dev {cpu_dev:.3e}); compile and validate "
+              f"{compile_s:.3f} s, first run_batch (host prep, warm-up and "
+              f"capture) {capture_s:.3f} s, peak device memory {peak:.1f} "
+              f"MiB; replay {replay * 1e3:.3f} ms with host prep and "
+              f"read-back = {GENERIC_BATCH / replay:.0f} inferences/s; "
+              + _profile_line(wall, busy, kernels))
+
+        # a $param sweep through one vmapped graph
+        sweep = api.compile_serving(SWEEP_TEMPLATE.format(p="$p"), order=64,
+                                    params={"p": SWEEP_P[1]})
+        masses, _ = sweep.run_param_sweep([{"p": p} for p in SWEEP_P])
+        n = 0
+        for row, p in zip(masses, SWEEP_P):
+            n += _masses_agree(row, _host_text(SWEEP_TEMPLATE.format(
+                p=repr(p)), "--limit", str(len(row))), f"sweep p={p}")
+        print(f"{tag} $param sweep over p = {SWEEP_P} (order "
+              f"{sweep.order}): {n} masses and totals at rel 1e-9 of Z to the "
+              "host interpreter with each value inlined")
+
+        # cascade serving: fresh counts of the discrete switchpoint.  A
+        # cascade serves fresh counts at the order it was compiled at and
+        # checks no convergence for them (as genfer_tpu's does: ROADMAP
+        # Queue 3), so it is held to the interpreter at the order the
+        # rewritten source converges at; at the committed data's order
+        # its deviation is printed
+        src = generators.generate_switchpoint(None)
+        casc = api.compile_serving(src, order=SCAN_ORDER)
+        if not isinstance(casc, CascadeCompiled):
+            fail(f"switchpoint compiled as {type(casc).__name__}")
+        data = list(generators.COAL_MINING_DATA)
+        committed = [d for d in data if d >= 0]
+        fresh = np.random.default_rng(CASCADE_SEED).poisson(
+            np.mean(committed), casc.rep.n_iters)
+        it = iter(fresh.tolist())
+        fresh_src = generators.generate_switchpoint(
+            None, data=[next(it) if d >= 0 else d for d in data])
+        _rel_agree(casc.run_with_counts(committed)[0], casc.run()[0],
+                   SCAN_REL, "cascade serving of the committed counts")
+        fobj, (fmasses, _) = compile_scan_program(parse_program(fresh_src),
+                                                  order=SCAN_ORDER)
+        host = _host_text(fresh_src, "--limit", str(len(fmasses)))
+        host_z, want = read_results(host)["Z"], read_masses(host)
+        low, _ = casc.run_with_counts(fresh)
+        low_dev = max(abs(low[int(k[2:-1])] - w) for k, w in want.items())
+        served = api.compile_serving(src, order=fobj.order)
+        if served.order != fobj.order:
+            fail(f"cascade serving compiled at order {fobj.order} "
+                 f"converged at {served.order}")
+        t0 = time.perf_counter()
+        masses, _ = served.run_with_counts(fresh)
+        casc_s = time.perf_counter() - t0
+        dev = _rel_agree(masses, fmasses, SCAN_REL,
+                         "cascade serving against compiling its counts")
+        n = _masses_agree(masses, host, "cascade serving")
+        print(f"{tag} cascade serving: discrete switchpoint on "
+              f"{casc.rep.n_iters} fresh seeded counts (host numpy, "
+              f"{casc_s * 1e3:.3f} ms) at order {served.order}, where the "
+              f"rewritten source converges: within rel {SCAN_REL} of "
+              f"compiling it (max rel dev {dev:.3e}), {n} masses and Z at "
+              "rel 1e-9 of Z to the host interpreter on it; served at the "
+              f"committed counts' order {casc.order} instead, the masses "
+              f"deviate by up to {low_dev / host_z:.3e} Z (truncation; "
+              "ROADMAP Queue 3)")
     _check_no_jax()
     return out
 
@@ -1572,6 +1841,7 @@ def main() -> None:
     phase10_headline(launches)
     phase11_serving(launches)
     phase12_scan_models(launches)
+    phase13_scan_compiler(launches)
     print_shares(rows, bench)
     print(json.dumps({"kernels": kernel_table(rows, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """genfer_tpu_torch: the PyTorch / CUDA port of genfer_tpu for NVIDIA Hopper.
 
 The port sits beside the JAX package, which stays the reference.  It
-imports genfer_tpu's framework-free layers (``lang``, ``semantics``,
-``gf``, ``numbers``, ``taylor.tensorpoly``, ``tools``, the native C++
-extensions and the CLI's parser and printer) and re-implements only the
-code that calls jax, under the same module names:
+owns copies of genfer_tpu's framework-free layers (``lang``,
+``semantics``, ``gf``, ``numbers``, ``taylor.tensorpoly``, ``tools``, the
+native C++ extensions and the CLI's parser and printer) and re-implements
+the code that calls jax, under the same module names, among them:
 
 * ``genfer_tpu_torch.taylor.backend`` - torch device helpers and the
   host-offload ``HybridBackend`` / ``PallasBackend``
@@ -14,6 +14,8 @@ code that calls jax, under the same module names:
 * ``genfer_tpu_torch._build``         - compiles ``csrc/*.cu`` with nvcc on
   first use and loads the library with ctypes
 * ``genfer_tpu_torch.cli``            - ``python -m genfer_tpu_torch``
+* ``genfer_tpu_torch.scanc``          - the generic scan compiler
+  (``--compile-scan``, ``api.compile_serving``) on one torch device
 * ``genfer_tpu_torch.tools.generators`` - genfer_tpu's model-family
   generators, under the port's name
 

@@ -6,7 +6,8 @@
     result.total, result.mean, result.probs(10)
 
 ``infer`` and ``infer_file`` use only the framework-free layers and the
-CLI's ``select_mode``; ``compile_serving`` waits for the scan compiler.
+CLI's ``select_mode``; ``compile_serving`` is the scan compiler
+(``scanc.py``) as a library call, on the card by default.
 """
 
 from __future__ import annotations
@@ -124,10 +125,30 @@ def infer_file(path, **kwargs) -> InferenceResult:
         return infer(f.read(), **kwargs)
 
 
-def compile_serving(source: str, **kwargs):
-    """The scan-compiled serving form of genfer_tpu's ``api`` is not
-    ported yet: it is built on ``scanc.py`` (ROADMAP Queue 1 item 10)."""
-    raise NotImplementedError(
-        "compile_serving is not ported yet: it needs scanc.py, ROADMAP "
-        "Queue 1 item 10"
+def compile_serving(source: str, *, order: int = 128,
+                    params: Optional[dict] = None,
+                    max_steps: Optional[int] = None,
+                    device=None):
+    """Compile an SGCL program to its scan form for repeated serving (the
+    CLI's ``--compile-scan`` as a library call).
+
+    Returns the compiled object, truncation-validated by grid doubling:
+    ``run()`` reproduces the committed dataset, ``run_with_data`` /
+    ``run_batch`` serve fresh observation datasets (one vmapped call, a
+    replayed CUDA graph on the card, for a whole batch),
+    ``run_param_sweep`` sweeps ``$param`` bindings without recompiling,
+    and telescoping cascades expose ``run_with_counts`` (host numpy, as
+    in genfer_tpu).  Raises ``scanc.UnsupportedForScan`` when the program
+    is outside the compiler's fragment (use :func:`infer`).
+
+    ``device``: ``None`` (default) is the CUDA card, which must exist;
+    ``"cpu"`` runs on the host.  genfer_tpu defaults to the CPU here; the
+    port's entry points run on the card unless asked otherwise."""
+    from .scanc import compile_scan_program
+
+    program = parse_program(source)
+    obj, _ = compile_scan_program(
+        program, order=order, params=params, max_steps=max_steps,
+        device=device,
     )
+    return obj

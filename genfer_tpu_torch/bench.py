@@ -4,6 +4,7 @@ headline and of the ``--pallas`` sections of genfer_tpu's ``bench.py``.
     python -m genfer_tpu_torch.bench [--seed N]
     python -m genfer_tpu_torch.bench --pallas [--seed N]
     python -m genfer_tpu_torch.bench --serving --scan [--reference DIR]
+    python -m genfer_tpu_torch.bench --nested
 
 The headline (no option) twins ``bench_kernel`` and ``bench_host_kernel``:
 
@@ -43,15 +44,27 @@ printed as one JSON line and written to ``build/bench-results-torch.json``.
 ``--serving`` twins ``bench_serving``: the scam model compiled once
 (``compile.compile_program``) and served over a grid of ``SERVING_BATCH``
 parameter values as one replayed CUDA graph, against the port's host
-``api.infer`` one inference at a time; ``generic_serving`` (the scan
-compiler) is reported as not ported.  ``--scan`` twins
-``bench_population_scan``: ``models.CompiledPopulation`` at limit 256, 20
-steps, single and at batch 64, and, where ``--reference`` names the
-reference's checkout, ``CompiledHMM`` and ``CompiledMixture`` on its
-committed hmm and mixture benchmarks against their posteriors (skipped
-without it); ``cascade_switchpoint`` is reported as not ported.  Their
-times are host clocks around work that ends in a read-back to the host,
-best of three after the first call (which captures the graphs).
+``api.infer`` one inference at a time, and ``bench_generic_serving``:
+the scan compiler (``scanc.py``) on the mixture model, compiled once and
+served a batch of ``GENERIC_BATCH`` seeded datasets of 109 counts as one
+replayed CUDA graph.  ``--scan`` twins ``bench_population_scan``:
+``models.CompiledPopulation`` at limit 256, 20 steps, single and at
+batch 64, and, where ``--reference`` names the reference's checkout,
+``CompiledHMM`` and ``CompiledMixture`` on its committed hmm and mixture
+benchmarks against their posteriors (skipped without it); and
+``bench_cascade_switchpoint``: the telescoping-cascade compiler on the
+discrete and the continuous switchpoint model (host numpy, as in
+genfer_tpu), compile-and-validate seconds and steady re-run
+milliseconds, the continuous one against its exact Gamma-Poisson value.
+``--nested`` twins ``bench_nested``: the nested-inference program
+``_NESTED_WIDE`` at k = 63 through the CLI, the host interpreter against
+``--compile-scan`` on the card (first and steady run), their outputs held
+to each other at the reference's is_close.  The JAX sections read the
+reference's mixture and switchpoint files, which the repo does not hold:
+the twins run the same model families from ``tools/generators.py``
+instead, and each row's ``_meta`` names that substitution.  Their times
+are host clocks around work that ends in a read-back to the host, best
+of three after the first call (which captures the graphs).
 
 The other sections of genfer_tpu's bench are not ported yet; asking for
 one raises ``NotImplementedError`` naming its ROADMAP item.
@@ -97,7 +110,6 @@ UNPORTED = {
                "host kernel and K2, which Queue 1 item 1 unblocked)",
     "highorder": "Queue 1 item 11 (ops/blocked_conv.py)",
     "ozaki": "Queue 2 K5 (ozaki route)",
-    "nested": "Queue 1 item 3 (bench twin)",
     "all": "Queue 1 item 3 (bench twin; every section)",
 }
 
@@ -364,10 +376,6 @@ def run_pallas(seed: int = 0, iters: int | None = None) -> dict:
     }
 
 
-#: the ROADMAP item that the sections of genfer_tpu's ``--serving`` /
-#: ``--scan`` on the scan compiler (generic_serving, cascade_switchpoint)
-#: wait for
-SCANC = "ROADMAP Queue 1 item 10 (scanc.py)"
 SERVING_SRC = """
 calls ~ Poisson(10);
 scams ~ Binomial(calls, $p);
@@ -514,34 +522,225 @@ def bench_population_scan(limit: int, steps: int, batch: int, where: str,
     return out
 
 
-def run_serving(batch: int = SERVING_BATCH) -> dict:
-    """``--serving``: the compiled serving row (``generic_serving`` waits
-    for the scan compiler)."""
+GENERIC_BATCH, GENERIC_STEPS = 256, 109  # bench.py::bench_generic_serving
+GENERIC_ORDER, GENERIC_MAX_STEPS = 128, 128
+#: what the scan compiler's rows run in place of the reference's files
+GENERIC_SOURCE = ("tools/generators.py::generate_mixture (the reference's "
+                  "benchmarks/neurips2023/approx/mixture/mixture.sgcl is "
+                  "not in the repo)")
+CASCADE_SOURCE = ("tools/generators.py::generate_switchpoint(continuous="
+                  "False / True) (the reference's test/expect/real_world/"
+                  "switchpoint.sgcl and benchmarks/neurips2023/approx/"
+                  "switchpoint/switchpoint.sgcl are not in the repo)")
+CASCADE_RERUNS = 10  # steady re-runs timed (bench.py's count)
+
+
+def _generated(generate, **kw):
+    """The parsed program a generator of ``tools/generators.py`` writes."""
+    from .lang.parser import parse_program
+
+    return parse_program(generate(None, **kw))
+
+
+def bench_generic_serving(where: str, batch: int = GENERIC_BATCH,
+                          steps: int = GENERIC_STEPS, device=None) -> dict:
+    """``bench.py::bench_generic_serving``: the mixture model compiled once
+    by the scan compiler (``compile_scan_program``, order 128, 128 steps),
+    then a batch of seeded datasets of ``steps`` counts served through
+    ``run_batch`` (one replayed CUDA graph on the card): the first call
+    (host prep and the capture), the best of three after it, and the
+    batch's rows against ``run_with_data`` on two of them (rel 1e-12)."""
+    from .scanc import compile_scan_program
+    from .tools.generators import generate_mixture
+
+    t0 = time.perf_counter()
+    obj, _ = compile_scan_program(_generated(generate_mixture),
+                                  order=GENERIC_ORDER,
+                                  max_steps=GENERIC_MAX_STEPS, device=device)
+    compile_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    bc = rng.integers(0, 8, size=(batch, steps)).astype(np.float64)
+    cols = [bc] * len(obj.rep.data)
+    t0 = time.perf_counter()
+    masses, _ = obj.run_batch(cols)
+    warm = time.perf_counter() - t0
+    best = _best_of(lambda: obj.run_batch(cols))
+    for i in (0, batch - 1):
+        one, _ = obj.run_with_data([c[i] for c in cols])
+        if not np.allclose(masses[i], one, rtol=1e-12, atol=0.0):
+            raise RuntimeError(f"generic serving: batch row {i} differs "
+                               "from run_with_data")
+    return {
+        "model": "mixture (parsed, scanc)",
+        "batch": batch,
+        "steps": steps,
+        "grid_order": obj.order,
+        "compile_validate_s": compile_s,
+        "warm_seconds": warm,
+        "steady_seconds": best,
+        "inferences_per_s": batch / best,
+        "card": where,
+        "_meta": {"source": GENERIC_SOURCE},
+    }
+
+
+def _switchpoint_exact_z(form) -> float:
+    """The continuous switchpoint's Z from the Gamma-Poisson conjugacy
+    (an Exponential(1) rate, unit factors 1): prefix likelihood
+    Gamma(A+1) / (P+1)^(A+1) / prod c_i!, A the prefix's count sum."""
+    import math
+
+    from .scanc import _cascade_units_poisson
+
+    units = _cascade_units_poisson(form.units)
+    cs = [c for c, _, _ in units]
+    n = len(cs)
+
+    def loglik(cseg, nseg):
+        a = sum(cseg)
+        return (math.lgamma(a + 1) - (a + 1) * math.log(nseg + 1)
+                - sum(math.lgamma(c + 1) for c in cseg))
+
+    logws = np.asarray([
+        math.log(float(q)) + loglik(cs[:p], p) + loglik(cs[p:], n - p)
+        for q, p in zip(form.qs, form.prefix_lens)
+    ])
+    m = logws.max()
+    return float(np.exp(logws - m).sum() * math.exp(m))
+
+
+def bench_cascade_switchpoint(where: str) -> dict:
+    """``bench.py::bench_cascade_switchpoint``: the cascade compiler on the
+    discrete and the continuous switchpoint model (``CascadeCompiled``
+    runs in numpy on the host, as genfer_tpu's does): compile-and-validate
+    seconds, the mean of ``CASCADE_RERUNS`` steady re-runs, Z, and for the
+    continuous model its relative error against the exact value."""
+    from .scanc import CascadeCompiled, compile_scan_program
+    from .tools.generators import generate_switchpoint
+
+    out: dict = {}
+    for label, continuous in (("discrete", False), ("continuous", True)):
+        prog = _generated(generate_switchpoint, continuous=continuous)
+        t0 = time.perf_counter()
+        obj, (_, z) = compile_scan_program(prog, order=128)
+        compile_s = time.perf_counter() - t0
+        if not isinstance(obj, CascadeCompiled):
+            raise RuntimeError(f"{label} switchpoint did not compile as a "
+                               "cascade")
+        t0 = time.perf_counter()
+        for _ in range(CASCADE_RERUNS):
+            obj.run()
+        steady = (time.perf_counter() - t0) / CASCADE_RERUNS
+        row = {"compile_validate_s": compile_s, "steady_ms": steady * 1e3,
+               "Z": z, "units": obj.rep.n_iters, "grid_order": obj.order}
+        if continuous:
+            row["rel_err_vs_exact"] = abs(z - _switchpoint_exact_z(obj.form)
+                                          ) / _switchpoint_exact_z(obj.form)
+        out[label] = row
+    out["card"] = where
+    out["_meta"] = {"source": CASCADE_SOURCE, "runs_on": "host numpy"}
+    return out
+
+
+#: genfer_tpu's bench.py::_NESTED_WIDE: the nested-inference program whose
+#: given variable takes k + 1 values
+NESTED_WIDE = """
+Class ~ Binomial({k}, 0.5);
+normalize Class {{
+    Rate ~ Geometric(0.1);
+    observe 5 ~ Poisson(0.2 * Rate);
+    if Class <= {half} {{
+        observe 3 ~ Poisson(0.2 * Rate);
+    }} else {{
+        observe 8 ~ Poisson(0.2 * Rate);
+    }}
+}}
+observe 4 ~ Poisson(0.1 * Rate);
+return Class
+"""
+NESTED_K = 63  # bench.py::bench_nested's default
+
+
+def bench_nested(where: str, k: int = NESTED_K, device=None) -> dict:
+    """``bench.py::bench_nested``: the CLI on ``NESTED_WIDE`` with the host
+    interpreter (``--backend numpy``), then ``--compile-scan`` on
+    ``device`` twice (first and steady), wall seconds each; the scan
+    runs' printed values must agree with the interpreter's as
+    ``printed.disagreements`` holds them."""
+    import contextlib
+    import io
+
+    from . import cli
+    from .lang.parser import parse_program
+    from .printed import disagreements, read_masses, read_results
+
+    program = parse_program(NESTED_WIDE.format(k=k, half=k // 2))
+    out: dict = {}
+    printed = {}
+    for name, flags in (("interpreter", ["--backend", "numpy"]),
+                        ("mass_compiled", ["--compile-scan"]),
+                        ("mass_compiled_steady", ["--compile-scan"])):
+        args = cli.build_arg_parser().parse_args(
+            ["nested.sgcl", "--no-timing", "--limit", str(k + 1), *flags])
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.run(program, args, device=device)
+        out[name] = time.perf_counter() - t0
+        printed[name] = (read_results(buf.getvalue()),
+                         read_masses(buf.getvalue()))
+    points, masses = printed["interpreter"]
+    for name in ("mass_compiled", "mass_compiled_steady"):
+        bad = (disagreements(printed[name][0], points)
+               + disagreements(printed[name][1], masses, points["Z"]))
+        if bad:
+            raise RuntimeError(f"nested {name}: " + "; ".join(bad[:5])
+                               + " (against the interpreter)")
+    out["given_range"] = k + 1
+    out["speedup_steady"] = out["interpreter"] / out["mass_compiled_steady"]
+    out["card"] = where
+    return out
+
+
+def _meta(where: str) -> dict:
+    return {"device": torch.cuda.get_device_name(0), "card": where,
+            "run": time.strftime("%Y-%m-%dT%H:%M:%S")}
+
+
+def _card() -> str:
+    """The card's nvidia-smi line; raises where there is none."""
     if not torch.cuda.is_available():
         raise RuntimeError("the bench measures the CUDA card and found none")
-    where = card()
+    return card()
+
+
+def run_serving(batch: int = SERVING_BATCH) -> dict:
+    """``--serving``: compiled serving and the scan compiler's serving."""
+    where = _card()
     return {
         "serving": bench_serving(batch, where),
-        "generic_serving": {"not_ported": SCANC},
-        "_meta": {"device": torch.cuda.get_device_name(0), "card": where,
-                  "run": time.strftime("%Y-%m-%dT%H:%M:%S")},
+        "generic_serving": bench_generic_serving(where),
+        "_meta": _meta(where),
     }
 
 
 def run_scan(reference: Path | None = None, limit: int = 256,
              steps: int = 20, batch: int = 64) -> dict:
-    """``--scan``: the scan models (``cascade_switchpoint`` waits for the
-    scan compiler)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the bench measures the CUDA card and found none")
-    where = card()
+    """``--scan``: the scan models and the cascade compiler."""
+    where = _card()
     return {
         "population_scan": bench_population_scan(limit, steps, batch, where,
                                                  reference),
-        "cascade_switchpoint": {"not_ported": SCANC},
-        "_meta": {"device": torch.cuda.get_device_name(0), "card": where,
-                  "run": time.strftime("%Y-%m-%dT%H:%M:%S")},
+        "cascade_switchpoint": bench_cascade_switchpoint(where),
+        "_meta": _meta(where),
     }
+
+
+def run_nested(k: int = NESTED_K) -> dict:
+    """``--nested``: the interpreter against ``--compile-scan`` on the
+    card."""
+    where = _card()
+    return {"nested": bench_nested(where, k), "_meta": _meta(where)}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -554,6 +753,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     f"{SERVING_BATCH} against the host interpreter")
     ap.add_argument("--scan", action="store_true",
                     help="the scan models (population at limit 256)")
+    ap.add_argument("--nested", action="store_true",
+                    help="nested inference at k = 63: the interpreter "
+                    "against --compile-scan on the card")
     ap.add_argument("--reference", type=Path, default=None,
                     help="the reference's checkout: --scan then also runs "
                     "its committed hmm and mixture benchmarks")
@@ -578,6 +780,8 @@ def main(argv=None) -> dict:
         results.update(run_serving())
     if args.scan:
         results.update(run_scan(args.reference))
+    if args.nested:
+        results.update(run_nested())
     if not results:
         results = run_headline(args.seed)
     RESULTS.parent.mkdir(parents=True, exist_ok=True)

@@ -7,9 +7,11 @@ main.rs:301-473) -> optional JSON export.  The argument parser, the GF
 translation and the printing pipeline are the port's copies of
 genfer_tpu's; the backend selection builds the port's backends
 (``--backend jax`` keeps its name and builds ``TorchF64Backend``, or
-``TorchIntervalBackend`` with ``--bounds``, on the card).  ``--backend
-sharded``, ``--compile-scan``, ``--profile`` and ``--debug-nans`` reach
-code not yet ported and raise.
+``TorchIntervalBackend`` with ``--bounds``, on the card).
+``--compile-scan`` runs the scan compiler (``scanc.py``) on the card and
+falls back to the interpreter only where the program or the mode is
+outside its fragment.  ``--backend sharded``, ``--profile`` and
+``--debug-nans`` reach code not yet ported and raise.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="enable jax NaN debugging (jax_debug_nans)")
     p.add_argument("--compile-scan", action="store_true",
                    help="detect repeated observation blocks in the AST and "
-                   "compile the whole inference into one jax.lax.scan over "
+                   "compile the whole inference into one loop on the card over "
                    "the per-iteration constants (mass semantics on a "
                    "self-validating truncated grid); falls back to the "
                    "interpreter when the program is outside the fragment")
@@ -234,9 +236,8 @@ def _main_impl(argv=None):
 
 def run(program, args, device=None):
     """Inference and printing for one parsed program; ``device`` as in
-    ``select_mode``."""
+    ``select_mode`` (and of the scan compiler under ``--compile-scan``)."""
     for on, flag in (
-        (args.compile_scan, "--compile-scan"),
         (args.profile is not None, "--profile"),
         (args.debug_nans, "--debug-nans"),
     ):
@@ -248,6 +249,10 @@ def run(program, args, device=None):
 
 
 def _run_impl(program, args, device=None):
+    if args.compile_scan:
+        scan_obj = _try_scan_path(program, args, device)
+        if scan_obj is not None:
+            return scan_obj
     T, backend, elem = select_mode(args, program, device)
     IV = Interval.over(elem) if not args.bounds else T
     inference_start = time.perf_counter()
@@ -307,6 +312,90 @@ def _run_impl(program, args, device=None):
         gf_translation_time,
     )
     return backend
+
+
+def _try_scan_path(program, args, device=None):
+    """Run the whole inference through the generic scan compiler
+    (``scanc``) on ``device`` (``None``: the CUDA card) and return its
+    compiled object; ``None`` (fall back to the interpreter) when the
+    program or the requested mode is outside its fragment.  Only
+    ``UnsupportedForScan`` falls back: any other error propagates."""
+    if (args.bounds or args.rational or args.precision is not None
+            or args.big_float or args.symbolic):
+        print("(scan compilation supports the f64 mode only; "
+              "falling back to the interpreter)", file=sys.stderr)
+        return None
+    import numpy as np
+
+    from .scanc import UnsupportedForScan, compile_scan
+    from .semantics.support_transform import SupportTransformer
+    from .semantics.supportset import VarSupport
+
+    inference_start = time.perf_counter()
+    try:
+        masses, Z, scan_obj = compile_scan(program, order=args.scan_order,
+                                           unroll=args.unroll,
+                                           device=device)
+    except UnsupportedForScan as e:
+        print(f"(scan compilation unavailable: {e}; "
+              "falling back to the interpreter)", file=sys.stderr)
+        return None
+    print_elapsed(inference_start,
+                  "Time to construct the generating function: ", args)
+    gf_translation_time = time.perf_counter() - inference_start
+
+    rest_val = float(getattr(scan_obj, "last_rest", 0.0) or 0.0)
+    if program.has_while():
+        # While programs print interval results: mirror the
+        # interpreter's rest support exactly by building the GF
+        # translation (DAG only, never evaluated — construction also
+        # prints the reference's approximation warnings)
+        translation = GfTransformer(F64, unroll=args.unroll).semantics(
+            program
+        )
+        var_info = translation.var_info
+        rest_info = translation.rest_info
+    else:
+        var_info = SupportTransformer(unroll=args.unroll).semantics(program)
+        rest_info = VarSupport.empty(var_info.num_vars())
+    IV = Interval.over(F64)
+    # continuous results carry their quadrature node values; integer
+    # grids use the implicit arange (the printer skips probabilities
+    # for continuous supports, mirroring the reference)
+    vals = getattr(scan_obj, "result_vals", None)
+    ns = (np.asarray(vals, dtype=np.float64) if vals is not None
+          else np.arange(len(masses), dtype=np.float64))
+
+    def moments_fn(limit):
+        moms = [
+            F64(float((masses * ns ** k).sum() / Z)) if Z > 0.0
+            else F64(0.0)
+            for k in range(1, limit)
+        ]
+        return F64(Z), moms
+
+    def probs_fn(limit):
+        return [
+            F64(float(masses[i]) if i < len(masses) else 0.0)
+            for i in range(limit)
+        ]
+
+    wrap = IV.precisely
+    print_moments_and_probs_interval(
+        IV,
+        lambda: wrap(F64(rest_val)),
+        lambda limit: (lambda tm: (wrap(tm[0]), [wrap(m) for m in tm[1]]))(
+            moments_fn(limit)
+        ),
+        lambda limit: [wrap(x) for x in probs_fn(limit)],
+        var_info[program.result],
+        rest_info[program.result],
+        program.uses_observe(),
+        args,
+        inference_start,
+        gf_translation_time,
+    )
+    return scan_obj
 
 
 def translate_program_to_gf(T, backend, program, args):

@@ -4,9 +4,12 @@
 the bodies of genfer_tpu's JAX backends over an array namespace
 ``self.jnp``, and the shared layers call that namespace as numpy
 (``tensorpoly.py``'s ``b.jnp.pad(arr, [(lo, hi), ...])``, ``gf/ir.py``'s
-``backend.jnp.maximum``).  ``TorchNamespace(device)`` is that namespace
-over torch: exactly the names those callers use, each with numpy's
-signature, and every tensor it makes lands on ``device``.
+``backend.jnp.maximum``), and so does the scan compiler's
+``_MassCompiler`` (``scanc.py``: ``moveaxis`` with tuples of axes,
+``tensordot``, ``max``, ``maximum`` of a tensor and a Python float).
+``TorchNamespace(device)`` is that namespace over torch: exactly the
+names those callers use, each with numpy's signature, and every tensor it
+makes lands on ``device``.
 """
 
 from __future__ import annotations
@@ -26,13 +29,17 @@ class TorchNamespace:
     nan = math.nan
 
     exp = staticmethod(torch.exp)
+    exp2 = staticmethod(torch.exp2)
     log = staticmethod(torch.log)
+    log2 = staticmethod(torch.log2)
+    floor = staticmethod(torch.floor)
     isfinite = staticmethod(torch.isfinite)
     isnan = staticmethod(torch.isnan)
-    maximum = staticmethod(torch.maximum)
     minimum = staticmethod(torch.minimum)
     where = staticmethod(torch.where)
     broadcast_to = staticmethod(torch.broadcast_to)
+    zeros_like = staticmethod(torch.zeros_like)
+    einsum = staticmethod(torch.einsum)
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -75,6 +82,32 @@ class TorchNamespace:
     @staticmethod
     def sum(a, axis=None, keepdims=False):
         return a.sum() if axis is None else a.sum(dim=axis, keepdim=keepdims)
+
+    @staticmethod
+    def max(a, axis=None, keepdims=False):
+        return a.amax() if axis is None else a.amax(dim=axis,
+                                                     keepdim=keepdims)
+
+    @staticmethod
+    def maximum(a, b):
+        """Either side may be a Python number (the scan compiler's rest
+        starts as the literal 0.0): no tensor is made for it."""
+        if not torch.is_tensor(a):
+            a, b = b, a
+        if not torch.is_tensor(a):
+            return max(a, b)
+        if not torch.is_tensor(b):
+            return a.clamp_min(b)
+        return torch.maximum(a, b)
+
+    @staticmethod
+    def moveaxis(a, source, destination):
+        """An int or a tuple of axes on each side."""
+        return torch.movedim(a, source, destination)
+
+    @staticmethod
+    def tensordot(a, b, axes):
+        return torch.tensordot(a, b, dims=axes)
 
     @staticmethod
     def nextafter(x, toward):

@@ -74,10 +74,11 @@ def generate_mixture(out_path) -> str:
     return _emit(out_path, "\n".join(lines) + "\n")
 
 
-def generate_switchpoint(out_path, continuous: bool = False) -> str:
+def generate_switchpoint(out_path, continuous: bool = False,
+                         data=COAL_MINING_DATA) -> str:
     """Switchpoint model, discrete or continuous rate
-    (reference: generate_switchpoint.rs)."""
-    data = COAL_MINING_DATA
+    (reference: generate_switchpoint.rs), on ``data`` (negative entries
+    are missing counts)."""
     lines = []
     rate_stmt = (
         "rate ~ Exponential(1);" if continuous else "rate ~ Geometric(0.1);"

@@ -1,6 +1,7 @@
 """The bench twin ``python -m genfer_tpu_torch.bench``: its options on the
 CPU (what is not ported raises, the f64 headline and ``--pallas`` need a
-card), the bound arithmetic it reports, and, on the card, its sections."""
+card), the bound arithmetic it reports, the scan compiler's sections on
+the CPU at small sizes, and, on the card, its sections."""
 
 import numpy as np
 import pytest
@@ -11,14 +12,15 @@ from genfer_tpu_torch import bench
 
 @pytest.mark.parametrize("argv,item", [
     # an unported section raises before the headline runs
-    (["--nested", "--seed", "1"], "Queue 1 item 3"),
+    (["--suite", "--seed", "1"], "Queue 1 item 3"),
     (["--suite"], "Queue 1 item 3"),
     (["--scaling"], "Queue 1 item 1"),
     (["--serving", "--highorder"], "Queue 1 item 11"),
     (["--scan", "--ozaki"], "Queue 2 K5"),
     (["--highorder"], "Queue 1 item 11"),
     (["--ozaki"], "Queue 2 K5"),
-    (["--nested"], "Queue 1 item 3"),
+    # an unported section raises before the ported nested one runs
+    (["--nested", "--suite"], "Queue 1 item 3"),
     (["--all"], "Queue 1 item 3"),
     # an unported section raises before the ported ones run
     (["--pallas", "--scan", "--suite"], "Queue 1 item 3"),
@@ -35,20 +37,47 @@ def test_pallas_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--serving"], ["--scan"],
-                                  ["--serving", "--scan"]])
+                                  ["--serving", "--scan"], ["--nested"]])
 def test_serving_and_scan_without_a_card_raise(monkeypatch, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         bench.main(argv)
 
 
-def test_serving_and_scan_are_ported_and_name_scanc():
-    """``--serving`` / ``--scan`` are ported; their scan-compiler sections
-    (generic_serving, cascade_switchpoint) name ROADMAP item 10."""
-    for name in ("serving", "scan"):
+def test_serving_scan_and_nested_are_ported():
+    """``--serving``, ``--scan`` and ``--nested`` are ported, with the JAX
+    bench's sizes."""
+    for name in ("serving", "scan", "nested"):
         assert name not in bench.UNPORTED
-    assert "item 10" in bench.SCANC
     assert bench.SERVING_BATCH == 4096
+    assert (bench.GENERIC_BATCH, bench.GENERIC_STEPS) == (256, 109)
+    assert bench.NESTED_K == 63
+
+
+def test_generic_serving_on_the_cpu():
+    """``generic_serving`` at batch 4 on the CPU: the mixture converges at
+    order 128 and its batch rows equal ``run_with_data``."""
+    row = bench.bench_generic_serving("cpu", batch=4, device="cpu")
+    assert row["grid_order"] == 128 and row["steps"] == 109
+    assert row["inferences_per_s"] > 0
+    assert "generate_mixture" in row["_meta"]["source"]
+
+
+def test_cascade_switchpoint_rows():
+    """Both switchpoint models compile as cascades of 109 units; the
+    continuous one is within 1e-12 of its exact Gamma-Poisson value."""
+    out = bench.bench_cascade_switchpoint("cpu")
+    assert out["discrete"]["units"] == out["continuous"]["units"] == 109
+    assert out["continuous"]["rel_err_vs_exact"] <= 1e-12
+    assert "generate_switchpoint" in out["_meta"]["source"]
+
+
+def test_nested_on_the_cpu():
+    """``--nested``'s section at k = 7: the scan runs print the
+    interpreter's values at is_close (it raises otherwise)."""
+    row = bench.bench_nested("cpu", k=7, device="cpu")
+    assert row["given_range"] == 8
+    assert row["mass_compiled_steady"] > 0
 
 
 def test_headline_without_a_card_raises(monkeypatch):
@@ -130,8 +159,9 @@ def test_bench_serving_and_scan_on_card(tmp_path, monkeypatch):
     assert row["device_inferences_per_s"] > 0
     assert row["speedup"] == pytest.approx(
         row["device_inferences_per_s"] / row["host_inferences_per_s"])
-    assert "item 10" in results["generic_serving"]["not_ported"]
+    generic = results["generic_serving"]
+    assert generic["grid_order"] == 128 and generic["inferences_per_s"] > 0
     scan = results["population_scan"]
     assert scan["limit"] == 256 and scan["steps"] == 20
     assert scan["datasets_per_s"] > 0 and "skipped" in scan["hmm"]
-    assert "item 10" in results["cascade_switchpoint"]["not_ported"]
+    assert results["cascade_switchpoint"]["discrete"]["units"] == 109

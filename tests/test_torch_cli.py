@@ -120,7 +120,6 @@ def test_main_reads_the_file(tmp_path):
 
 @pytest.mark.parametrize("extra,what", [
     (["--backend", "sharded"], "--backend sharded"),
-    (["--compile-scan"], "--compile-scan"),
     (["--debug-nans"], "--debug-nans"),
     (["--profile", "trace_dir"], "--profile"),
 ])
@@ -128,6 +127,22 @@ def test_unported_options_raise(program, extra, what):
     args = cli.build_arg_parser().parse_args(["model.sgcl", *extra])
     with pytest.raises(NotImplementedError, match=what):
         cli.run(tparse(program), args, device="cpu")
+
+
+def test_compile_scan_runs_the_scan_compiler(program):
+    """``--compile-scan`` runs the scan compiler (on the CPU here) and
+    prints what genfer_tpu's ``--compile-scan`` prints, at is_close."""
+    from genfer_tpu_torch.scanc import ScanCompiled
+
+    args = cli.build_arg_parser().parse_args(
+        ["model.sgcl", "--no-timing", "--compile-scan"])
+    port, obj = _printed(cli.run, tparse(program), args, device="cpu")
+    assert isinstance(obj, ScanCompiled) and obj.device.type == "cpu"
+    ref, _ = _printed(jcli.run, jparse(program), args)
+    got, want = read_results(port), read_results(ref)
+    assert set(got) == set(want) and {"Z", "E", "σ"} <= set(got)
+    for key, w in want.items():
+        assert got[key] == pytest.approx(w, rel=1e-9, abs=1e-8), key
 
 
 def test_read_results_keeps_points_and_drops_bounds():
@@ -239,8 +254,9 @@ def test_native_eval_gate_names_the_ports_classes():
 
 def test_port_never_imports_jax(tmp_path):
     """Every module of the port imported (the f64 device path's namespace,
-    K1's wrapper, the ``entry()`` twin, compiled serving, ``api`` and the
-    models among them), one compiled program and one model run on the
+    K1's wrapper, the ``entry()`` twin, compiled serving, ``api``, the
+    models and the scan compiler among them), one compiled program, one
+    model, one scan compile and one ``api.compile_serving`` run on the
     CPU, then one CLI inference run on the host path and one with
     ``--backend jax``, in a fresh interpreter: neither jax nor genfer_tpu
     (nor any module of it) is loaded."""
@@ -255,7 +271,7 @@ def test_port_never_imports_jax(tmp_path):
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 28, mods\n"
         "for m in ('taylor.xp', 'ops.conv2d_f64', 'entry', 'compile', "
-        "'api', 'models', 'models.population', 'models.hmm'):\n"
+        "'api', 'models', 'models.population', 'models.hmm', 'scanc'):\n"
         "    assert 'genfer_tpu_torch.' + m in mods, m\n"
         "from genfer_tpu_torch.compile import compile_program\n"
         "from genfer_tpu_torch.models import CompiledPopulation\n"
@@ -263,6 +279,18 @@ def test_port_never_imports_jax(tmp_path):
         "device='cpu')\n"
         "assert c.probs_batch([[0.5], [0.25]]).shape == (2, 5)\n"
         "CompiledPopulation(0.3, 0.2, 8, 2, device='cpu').probs([1.0], [0])\n"
+        "from genfer_tpu_torch import api\n"
+        "from genfer_tpu_torch.lang.parser import parse_program\n"
+        "from genfer_tpu_torch.scanc import ScanCompiled, compile_scan\n"
+        "src = 'x ~ Poisson(2);\\nobserve 1 ~ Binomial(x, 0.5);\\n"
+        "observe 2 ~ Binomial(x, 0.5);\\nobserve 0 ~ Binomial(x, 0.5);\\n"
+        "observe 1 ~ Binomial(x, 0.5);\\nreturn x'\n"
+        "m, z, obj = compile_scan(parse_program(src), order=32, "
+        "device='cpu')\n"
+        "assert isinstance(obj, ScanCompiled) and z > 0\n"
+        "served = api.compile_serving(src, order=32, device='cpu')\n"
+        "assert served.run_batch([[[1, 2, 0, 1], [0, 0, 1, 1]]])[0].shape "
+        "== (2, len(m))\n"
         "from genfer_tpu_torch import cli\n"
         "from genfer_tpu_torch.lang.parser import parse_program\n"
         f"cli.main([{str(path)!r}, '--no-timing'])\n"

@@ -225,9 +225,19 @@ def test_compile_program_without_a_card_raises(monkeypatch):
         C.CompiledProgram(SRC, ["p"], limit=5)
 
 
-def test_compile_serving_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tapi.compile_serving(SRC)
+def test_compile_serving_compiles_a_scan_program():
+    """``api.compile_serving`` returns the scan compiler's object (the
+    scam model with $p bound), which serves a $param sweep as genfer_tpu's
+    does (``tests/test_torch_scanc.py`` holds the rest)."""
+    src = "calls ~ Poisson(10);\nscams ~ Binomial(calls, $p);\n" \
+          "observe(scams = 1);\nreturn calls;"
+    obj = tapi.compile_serving(src, order=32, params={"p": 0.2},
+                               device="cpu")
+    jobj = japi.compile_serving(src, order=32, params={"p": 0.2})
+    assert obj.order == jobj.order
+    sweep = [{"p": 0.1}, {"p": 0.2}]
+    np.testing.assert_allclose(obj.run_param_sweep(sweep)[0],
+                               jobj.run_param_sweep(sweep)[0], rtol=RTOL)
 
 
 def test_infer_twin_on_examples():

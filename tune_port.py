@@ -7,7 +7,7 @@
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Twelve probes (all, or the numbered ones), each printed with the card's
+Thirteen probes (all, or the numbered ones), each printed with the card's
 name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
@@ -76,7 +76,17 @@ two trees run in turns compares their K6.
    the port), in turns (K1, library, library, K1, twice): the card's
    device time a call warm (back to back: the ~49 MB of the largest
    product stay in the 50 MB L2) and cold (a 256 MB write between calls
-   flushes L2), from ``torch.profiler``, beside the DRAM byte bound.
+   flushes L2), from ``torch.profiler``, beside the DRAM byte bound;
+13. the scan compiler's one-shot run (``scanc.ScanCompiled.run``) eager
+   against captured as a CUDA graph (``compile.GraphedEntry`` over the
+   same loop), on hmm(30) and two_populations(2000) from
+   ``tools/generators.py``: for every order of the doubling chain that
+   ``compile_scan_program`` walks from 128, a fresh object's first eager
+   run, a fresh object's first graphed call (warm-up walk and capture)
+   and its warm replays, and the kernels a replay holds; then the
+   mixture's batched loop (``run_batch``, 128 steps, at batch 1 and
+   256): its host prep (``batch_xs``), capture and replay apart, and the
+   kernels a replay holds.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -827,6 +837,102 @@ def k6_lengths() -> None:
               f"{float(first.double().sum()):.9g}")
 
 
+SCAN_PROBE = (("hmm(30)", "generate_hmm", (30,)),
+              ("two_populations(2000)", "generate_two_populations", (2000,)))
+
+
+def _first_and_best(call, reps: int = 5) -> tuple[float, float]:
+    """Seconds of the first ``call()`` and the least of ``reps`` more
+    (each ends in a read-back to the host)."""
+    import time
+
+    t0 = time.perf_counter()
+    call()
+    first = time.perf_counter() - t0
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return first, best
+
+
+def _graph_kernels(entry) -> int:
+    """Kernels in the one graph ``entry`` (a ``GraphedEntry``) holds."""
+    (static, graph, out), = entry.graphs.values()
+    from chip_smoke import _profiled
+
+    _, _, kernels = _profiled(graph.replay)
+    return sum(n for n, _ in kernels.values())
+
+
+def scan_capture_against_eager() -> None:
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.compile import GraphedEntry
+    from genfer_tpu_torch.lang.parser import parse_program
+    from genfer_tpu_torch.scanc import ScanCompiled, compile_scan_program
+    from genfer_tpu_torch.tools import generators
+
+    def graphed(obj):
+        n = len(obj._xs)
+        entry = GraphedEntry(lambda g0, *a: obj._run(g0, a[:n], a[n:]),
+                             obj.device)
+
+        def call():
+            marg, logz, _ = entry(obj._g0, *obj._xs, *obj._consts0)
+            return marg.cpu().numpy() * 2.0 ** float(logz)
+        return entry, call
+
+    for label, gen, args in SCAN_PROBE:
+        prog = parse_program(getattr(generators, gen)(None, *args))
+        conv, _ = compile_scan_program(prog, order=128)  # warms the card
+        order = 128
+        while order <= 2 * conv.order:
+            eager_first, eager_best = _first_and_best(
+                ScanCompiled(conv.program, conv.rep, order).run)
+            obj = ScanCompiled(conv.program, conv.rep, order)
+            entry, call = graphed(obj)
+            cap_first, replay = _first_and_best(call)
+            same = np.allclose(call(), obj.run()[0], rtol=1e-12, atol=0)
+            print(f"probe 13 {label} order {order}: eager first run "
+                  f"{eager_first:.4f} s, warm {eager_best * 1e3:.3f} ms; "
+                  f"graphed first call (warm-up walk and capture) "
+                  f"{cap_first:.4f} s, replay {replay * 1e3:.3f} ms with "
+                  f"read-back, {_graph_kernels(entry)} kernels a replay; "
+                  f"replay equals eager at rtol 1e-12: {same}")
+            order *= 2
+        print(f"probe 13 {label}: converged at order {conv.order}")
+    mix, _ = compile_scan_program(parse_program(
+        generators.generate_mixture(None)), order=128, max_steps=128)
+    rng = np.random.default_rng(0)
+    for batch in (1, 256):
+        bc = rng.integers(0, 8, size=(batch, 109)).astype(np.float64)
+        cols = [bc] * len(mix.rep.data)
+        mix._run_batch.graphs.clear()
+        mix._run_batch.warmed.clear()
+
+        def prep():
+            out = mix.batch_xs(cols)
+            torch.cuda.synchronize()
+            return out
+
+        _, prep_s = _first_and_best(prep)
+        xs = prep()
+        first, best = _first_and_best(
+            lambda: mix._many(mix._run_batch, xs, mix._consts0))
+        _, whole = _first_and_best(lambda: mix.run_batch(cols))
+        print(f"probe 13 mixture run_batch B={batch} (128 steps): host prep "
+              f"(feed tables, gather, copy to the card) {prep_s * 1e3:.3f} "
+              f"ms; first graphed call (warm-up walk and capture) "
+              f"{first:.3f} s, replay {best * 1e3:.3f} ms with read-back, "
+              f"{_graph_kernels(mix._run_batch)} kernels a replay; "
+              f"run_batch {whole * 1e3:.3f} ms; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
 def main(argv) -> None:
     if "--tree" in argv:  # before the first import of the package
         i = argv.index("--tree")
@@ -844,7 +950,7 @@ def main(argv) -> None:
         4: mma_ceiling, 5: lambda: steady_state(mma_ceiling()),
         6: mma_plan_sweep, 7: fold_plan_sweep, 8: k6_lengths,
         9: f64_mma_ceiling, 10: f64_mma_layout, 11: small_against_dense,
-        12: serving_batch,
+        12: serving_batch, 13: scan_capture_against_eager,
     }
     print(card())
     _build.load()
