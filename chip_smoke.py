@@ -130,15 +130,48 @@ result):
    compiling that source (rtol 1e-12) and the host interpreter on it (rel
    1e-9 of Z), with the deviation it shows when served at the committed
    counts' order (a cascade checks no convergence for fresh counts).
+14. K5, the ozaki route (``genfer_tpu_torch.ops.ozaki_conv``): the split
+   (``csrc/ozaki_split.cu``) on the card equal to the CPU split bit for
+   bit (chunks, exponents, flag) at ``OZAKI_SHAPES`` for every (pair_bits,
+   impl) of ``OZAKI_PASSES``, and the float split refused there; K5
+   (``csrc/ozaki_conv2d.cu``) against its plain version
+   (``ozaki_conv2d_reference``, in row strips above order 512) at
+   ``OZAKI_TOL`` = 1e-13 of each output column's max, the same bits twice,
+   at ``OZAKI_SHAPES`` (tests/test_ozaki_conv.py's), the square orders
+   256, 512 and 1024, the forced main path's shape classes
+   ``OZAKI_MAIN_PATH`` (2x2 stencils, (n, 1) and (1, n) operands) and the
+   extreme pairs (2^+-300 column scales, columns at 2^950 and 2^-980, the
+   mixed case), each at pair_bits 5, 6, 7 in int8 and 7 in bf16, with the
+   kernel's, the plain version's and K1's times, the bound, host and
+   device microseconds a call, and cuDNN's f64 ``conv2d`` at order 512; a
+   NaN operand, which the guard sends to K1 (its IEEE bits);
+   ``ops.blocked_conv.conv2d_blocked`` with K5 inside at order 1024 (P =
+   512) against a host-exact spot check; then the main path end to end:
+   ``--backend jax`` on two_populations (seed 0) with
+   ``GENFER_OZAKI=force`` and ``GENFER_OZAKI_MIN_FLOPS=0`` on the card,
+   int8 and bf16, each against the same forced run on the CPU at rel
+   ``OZAKI_REL`` = 1e-12 on every printed value: at ``E2E_SIZE`` = 2000,
+   whose forced answer collapses to Z = 0 (the route's componentwise
+   cliff, on the CPU as well), and at ``OZAKI_E2E_SIZE`` = 200, where it
+   must stay finite with Z > 0 and route every product the default run
+   sends to K1.  In each run every 2-axis f64 product is routed (int8),
+   K5 launches once for every routed product the guard does not send to
+   K1 (the guard's count read, not inferred), the split twice, and every
+   ``OZAKI_E2E_STRIDE``-th routed product's operands and output are kept
+   and held to the plain version at ``OZAKI_TOL`` after the counts are
+   read, K5 run again on them for the same bits; the deviation from host
+   f64 printed, not held; and the default env, which launches no K5.
 
 Each of phases 4-6 and 8-13 sets the launch counts to 0 just before it
 and reads them just after (phase 11's K1 launches are those of the
-captured walk: a replay runs the graph, not the wrappers). Before the
+captured walk: a replay runs the graph, not the wrappers); phase 14 does
+the same for K5 and its split around each forced run. Before the
 table, the shares of their bounds of K2, K3, K4a, K4b, K6 (the tensor-core
 kernels against the TF32 rate, three passes) with K2's time beside K4a's
 and K4b's, and of K1 (against the FP64 tensor rate). The second-to-last line is the kernel table as
-JSON, with one entry for each of K1's bodies; the last line is ``{"ok":
-true, "device": {...}}``. Everything is reached through
+JSON, with one entry for each of K1's bodies and each of K5's impls and
+one for the split; the last line is ``{"ok": true, "device": {...}}``.
+Everything is reached through
 ``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
 
 Why size 500 with ``GENFER_PALLAS_OFFLOAD_FLOPS=1e5``: the f32 route
@@ -357,6 +390,47 @@ observe 4 ~ Binomial(nr, {p});
 return nr;"""
 SWEEP_P = (0.2, 0.3, 0.5)
 CASCADE_SEED = 0  # the fresh counts of the cascade's serving run
+
+# phase 14: K5, the ozaki route (ops/ozaki_conv.py).  Its shapes: those of
+# tests/test_ozaki_conv.py::SHAPES (full, truncated square, ragged, outer,
+# thin) and square truncated orders, at each (pair_bits, impl) of
+# OZAKI_PASSES, against its plain version at OZAKI_TOL of each output
+# column's max; the extreme pairs of that file (2^+-300 column scales,
+# columns at 2^950 and 2^-980 and their mixed case) and a non-finite one
+OZAKI_TOL = 1e-13
+OZAKI_SHAPES = [
+    ((64, 64), (64, 64), (127, 127)),
+    ((64, 64), (64, 64), (64, 64)),
+    ((33, 17), (21, 45), (40, 40)),
+    ((128, 1), (1, 128), (128, 128)),
+    ((5, 128), (128, 5), (132, 132)),
+]
+OZAKI_ORDERS = (256, 512, 1024)
+#: the shape classes of the forced main path: K1's on two_populations(2000)
+#: (2x2 stencils, the (n, 1) operands) and the forced run's (1, n) ones
+OZAKI_MAIN_PATH = [
+    *K1_CLASSES,
+    ((200, 213), (2, 2), (200, 213)),
+    ((1, 259), (2, 2), (2, 259)),
+    ((1, 259), (259, 1), (259, 259)),
+]
+OZAKI_PASSES = ((5, "int8"), (6, "int8"), (7, "int8"), (7, "bf16"))
+OZAKI_TABLE_ORDER = 512  # the kernel table's K5 shape (the bench's order)
+OZAKI_BLOCKED = (1024, 512)  # conv2d_blocked with K5 inside: order, P
+OZAKI_REL = 1e-12  # the forced --backend jax run, card against CPU
+#: two_populations size of the second forced run: under force, E2E_SIZE's
+#: answer collapses to Z = 0 (the route's componentwise cliff, on the CPU
+#: too); at this size it stays finite, Z > 0, within ~5e-4 of host
+OZAKI_E2E_SIZE = 200
+OZAKI_E2E_STRIDE = 10  # every 10th routed product is held (_hold_kept)
+OZAKI_REPLACES = {
+    "ozaki_split": "genfer_tpu/ops/ozaki_conv.py:121",
+    "ozaki_conv2d": "genfer_tpu/ops/ozaki_conv.py:192",
+}
+OZAKI_SOURCES = {
+    "ozaki_split": "genfer_tpu_torch/csrc/ozaki_split.cu",
+    "ozaki_conv2d": "genfer_tpu_torch/csrc/ozaki_conv2d.cu",
+}
 
 #: the kernels whose operations bound is the tensor cores' TF32 rate (K6
 #: where it runs its tensor-core body: ``_passes``)
@@ -1704,6 +1778,411 @@ def phase13_scan_compiler(launches: dict) -> dict:
     return out
 
 
+def _col_err(got, want) -> float:
+    """Max abs error of each output column over that column's max."""
+    col = want.abs().amax(dim=0, keepdim=True).clamp_min(1e-300)
+    return float(((got - want).abs() / col).max())
+
+
+def _ozaki_gate(name, got, want) -> float:
+    """Fail unless ``got`` is finite, of ``want``'s shape and within
+    ``OZAKI_TOL`` of each output column's max; return that error."""
+    if tuple(got.shape) != tuple(want.shape) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"{name}: bad shape {tuple(got.shape)} or non-finite")
+    err = _col_err(got, want)
+    if not err <= OZAKI_TOL:
+        fail(f"{name}: {err:.3e} of the column max, over {OZAKI_TOL}")
+    return err
+
+
+def _host_us(call, calls: int = 3) -> float:
+    """What ``call()`` costs the host, not waiting for the card."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _ozaki_split_rows(rng) -> dict:
+    """The split on the card against the CPU's, bit for bit, at the shapes
+    and at the table's order; its time there."""
+    from genfer_tpu_torch.bench import bound_ms
+    from genfer_tpu_torch.ops import ozaki_conv as Z
+
+    def same(x, pb, impl):
+        chunks, e, flag = Z.ozaki_split(x, pb, impl)
+        want_c, want_e, finite = Z.ozaki_split_reference(x.cpu(), pb, impl)
+        view = torch.int8 if impl == "int8" else torch.int16
+        return (torch.equal(chunks.cpu().view(view), want_c.view(view))
+                and torch.equal(e.cpu(), want_e)
+                and bool(flag.item()) != finite)
+
+    checked = 0
+    for sa, sb, _ in OZAKI_SHAPES:
+        for shape in (sa, sb):
+            x = torch.from_numpy(rng.standard_normal(shape) * 10.0 ** rng
+                                 .integers(-200, 200, shape[1])).cuda()
+            for pb, impl in OZAKI_PASSES:
+                if not same(x, pb, impl):
+                    fail(f"ozaki_split {shape} {impl} P={pb}: differs from "
+                         "the CPU split")
+                checked += 1
+    # the float split runs in the plain version only: refused on the card
+    os.environ["GENFER_OZAKI_CHUNK"] = "float"
+    before = Z.ozaki_split.launches
+    try:
+        Z.ozaki_split(x, 7, "int8")
+        fail("ozaki_split under GENFER_OZAKI_CHUNK=float: not refused")
+    except NotImplementedError:
+        pass
+    finally:
+        os.environ.pop("GENFER_OZAKI_CHUNK")
+    if Z.ozaki_split.launches != before:
+        fail("ozaki_split under GENFER_OZAKI_CHUNK=float launched")
+    n = OZAKI_TABLE_ORDER
+    x = torch.from_numpy(rng.random((n, n))).cuda()
+    if not same(x, 7, "int8"):
+        fail(f"ozaki_split ({n}, {n}): differs from the CPU split")
+    row = {"max_abs_err": 0.0,
+           "ms": _time(lambda: Z.ozaki_split(x, 7, "int8")),
+           "plain_ms": _time(lambda: Z.ozaki_split_reference(x, 7, "int8")),
+           "library_ms": None}
+    # x read once; 8 int8 chunks and the int32 exponents written once
+    row["bound_ms"], row["bound_by"] = bound_ms(0.0, n * n * (8 + 8)
+                                                + 4 * n)
+    print(f"phase 14 ozaki_split: {checked} operands x (pair_bits, impl) "
+          "equal to the CPU split bit for bit (chunks, exponents, flag), "
+          f"the float split refused; ({n}, {n}) int8 P=7: {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4g} ms (bytes)")
+    return row
+
+
+def _ozaki_cases(rng):
+    """(label, a, b, out) of phase 14's products on the card."""
+    cases = []
+    for sa, sb, out in OZAKI_SHAPES:
+        cases.append((f"{sa}x{sb}->{out}", rng.random(sa), rng.random(sb),
+                      out))
+    for n in OZAKI_ORDERS:
+        cases.append((f"order {n}", rng.random((n, n)), rng.random((n, n)),
+                      (n, n)))
+    for sa, sb, out in OZAKI_MAIN_PATH:
+        cases.append((f"main path {sa}x{sb}->{out}", rng.random(sa),
+                      rng.random(sb), out))
+    a, b = rng.standard_normal((96, 48)), rng.standard_normal((96, 48))
+    a *= np.exp2(rng.integers(-300, 300, 48))[None, :]
+    b *= np.exp2(rng.integers(-300, 300, 48))[None, :]
+    cases.append(("signed, columns 2^+-300", a, b, (96, 95)))
+    for mag in (2.0 ** 950, 2.0 ** -980):
+        cases.append((f"columns at 2^{int(np.log2(mag))}",
+                      np.full((16, 2), mag), np.ones((16, 2)), (16, 3)))
+    cases.append(("2^-980 against 2^300", np.full((16, 2), 2.0 ** -980),
+                  np.full((16, 2), 2.0 ** 300), (16, 3)))
+    return cases
+
+
+class _RouteTap:
+    """Counts what the forced route sees while installed: the 2-axis f64
+    products ``_conv_impl`` asks ``ozaki_applicable`` about (``asked``),
+    the products it routes (``routed``: calls of ``ozaki_conv2d_guarded``),
+    and keeps every ``OZAKI_E2E_STRIDE``-th routed product's operands and
+    output (``kept``: a, b, out_shape, result) for the hold against the
+    plain version.  It counts no launch: those are the wrappers' own."""
+
+    def __init__(self, Z):
+        self.Z = Z
+        self.asked = self.routed = 0
+        self.kept = []
+
+    def __enter__(self):
+        Z = self.Z
+        self.real = Z.ozaki_applicable, Z.ozaki_conv2d_guarded
+
+        def applicable(*args):
+            self.asked += 1
+            return self.real[0](*args)
+
+        def guarded(a, b, out_shape, *args):
+            got = self.real[1](a, b, out_shape, *args)
+            if self.routed % OZAKI_E2E_STRIDE == 0:
+                self.kept.append((a.clone(), b.clone(), tuple(out_shape),
+                                  got.clone()))
+            self.routed += 1
+            return got
+
+        Z.ozaki_applicable, Z.ozaki_conv2d_guarded = applicable, guarded
+        return self
+
+    def __exit__(self, *exc):
+        self.Z.ozaki_applicable, self.Z.ozaki_conv2d_guarded = self.real
+
+
+def _hold_kept(kept, impl: str) -> tuple[int, float, set]:
+    """Hold each kept product of a forced run against the plain version
+    at ``OZAKI_TOL`` of each output column's max (K1's bits where the
+    guard took it), and K5 again on its operands for the same bits;
+    return (products held, worst error, their shapes).  These launches
+    come after the run's counts were read."""
+    from genfer_tpu_torch.ops import ozaki_conv as Z
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
+
+    pb, worst, shapes = Z.default_pair_bits(), 0.0, set()
+    for a, b, out, got in kept:
+        label = (f"forced run's {tuple(a.shape)}x{tuple(b.shape)}->{out} "
+                 f"{impl} P={pb}")
+        if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
+            want = conv2d_trunc_f64(a, b, out)
+            nan = torch.isnan(want)
+            if not (torch.equal(torch.isnan(got), nan)
+                    and torch.equal(got[~nan], want[~nan])):
+                fail(f"{label}: the guard's result is not K1's")
+            continue
+        want = Z.ozaki_conv2d_reference(a, b, out, pb, impl)
+        worst = max(worst, _ozaki_gate(label, got, want))
+        if not torch.equal(got, Z.ozaki_conv2d(a, b, out, pb, impl)):
+            fail(f"{label}: K5 again on its operands gives other bits")
+        shapes.add((tuple(a.shape), tuple(b.shape), out))
+    return len(kept), worst, shapes
+
+
+def _ozaki_e2e(launches: dict, path: Path, degenerate: bool) -> None:
+    """The slice end to end: ``--backend jax`` under ``GENFER_OZAKI=force``
+    (and ``GENFER_OZAKI_MIN_FLOPS=0``) on the card, int8 then bf16, each
+    against the same forced run on the CPU (K5's plain version) at rel
+    ``OZAKI_REL``.  Every 2-axis f64 product is routed (int8; bf16
+    refuses contractions above its cap), K5 launches once for every
+    routed product the guard does not send to K1, the split twice, and
+    a sample of the routed products is held to the plain version
+    (``_hold_kept``).  Unless ``degenerate`` (the route's componentwise
+    cliff collapses the answer: printed, not held), the forced run must
+    print finite values with Z > 0 and route every product the default
+    run sends to K1.  The deviation from host f64 is printed, not held;
+    the default env launches no K5."""
+    from genfer_tpu_torch import cli
+    from genfer_tpu_torch.lang.parser import parse_program
+    from genfer_tpu_torch.ops import ozaki_conv as Z
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
+
+    text = path.read_text()
+    args = cli.build_arg_parser().parse_args(
+        ["model.sgcl", "--no-timing", "--backend", "jax"])
+
+    def printed(device=None) -> tuple[dict, float]:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.run(parse_program(text), args, device=device)
+        return read_results(buf.getvalue()), time.perf_counter() - t0
+
+    host_out, host_s = _capture(
+        cli.main, [str(path), "--no-timing", "--backend", "numpy"])
+    host = read_results(host_out)
+    conv2d_trunc_f64.launches = 0
+    Z.reset_launches()
+    with _RouteTap(Z) as tap:
+        default, _ = printed()
+    if Z.ozaki_conv2d.launches or Z.ozaki_split.launches or tap.routed:
+        fail(f"{path.name}: the default env routed or launched K5")
+    k1_default, products = conv2d_trunc_f64.launches, tap.asked
+    force = {"GENFER_OZAKI": "force", "GENFER_OZAKI_MIN_FLOPS": "0"}
+    os.environ.update(force)
+    try:
+        cpu, cpu_s = printed("cpu")
+        for impl in Z.IMPLS:
+            os.environ["GENFER_OZAKI_IMPL"] = impl
+            conv2d_trunc_f64.launches = 0
+            Z.reset_launches()
+            with _RouteTap(Z) as tap:
+                card, card_s = printed()
+                torch.cuda.synchronize()
+            k5, guarded = Z.ozaki_conv2d.launches_by_impl[impl], \
+                Z.ozaki_conv2d.guarded
+            split, routed = Z.ozaki_split.launches, tap.routed
+            name = f"ozaki_conv2d[{impl}]"
+            launches[name] = launches.get(name, 0) + k5
+            launches["ozaki_split"] = launches.get("ozaki_split", 0) + split
+            what = f"{path.name} forced {impl} run"
+            if k5 < 1 or k5 + guarded != routed or split != 2 * routed:
+                fail(f"{what}: {k5} K5 launches and {guarded} guarded for "
+                     f"{routed} routed products, {split} split launches")
+            if impl == "int8" and routed != tap.asked:
+                fail(f"{what}: routed {routed} of {tap.asked} 2-axis f64 "
+                     "products")
+            if not degenerate and routed != products:
+                fail(f"{what}: routed {routed} products, the default run "
+                     f"sends {products} to K1")
+            if set(card) != set(cpu):
+                fail(f"{what}: printed keys differ from the CPU")
+            if not degenerate and not (
+                    all(math.isfinite(v) for v in card.values())
+                    and card.get("Z", 0.0) > 0.0):
+                fail(f"{what}: a degenerate answer {card}")
+            worst = 0.0
+            for key, w in cpu.items():
+                g = card[key]
+                if g == w or (math.isnan(g) and math.isnan(w)):
+                    continue
+                dev = abs(g - w) / max(abs(w), 1e-300)
+                if not dev <= OZAKI_REL:
+                    fail(f"{what}: {key} = {g} against the CPU's {w} (rel "
+                         f"{dev:.3e})")
+                worst = max(worst, dev)
+            held, held_err, shapes = _hold_kept(tap.kept, impl)
+            dev_host = max((abs(card[k] - w) / abs(w) for k, w in
+                            host.items() if k in card and w), default=0.0)
+            print(f"phase 14 {what}: {tap.asked} 2-axis f64 products "
+                  f"({products} in the default run), {routed} routed, K5 "
+                  f"launched {k5} times, the guard sent {guarded} to K1 "
+                  f"(counted), split {split}, K1 {conv2d_trunc_f64.launches}"
+                  f" (>= 3-axis, refused and guarded); {len(cpu)} results "
+                  f"within rel {OZAKI_REL} of the forced CPU run (max rel "
+                  f"dev {worst:.3e}); {held} of its products ({len(shapes)}"
+                  f" shapes) held to the plain version, max err "
+                  f"{held_err:.3e} of the column max, K5 again the same "
+                  f"bits; card {card_s:.3f} s, CPU {cpu_s:.3f} s wall; "
+                  "against host f64 (printed, not held: the route's "
+                  f"componentwise cliff): max rel dev {dev_host:.3e}, Z "
+                  f"{card.get('Z')!r} vs {host.get('Z')!r}, E "
+                  f"{card.get('E')!r} vs {host.get('E')!r}")
+    finally:
+        for key in (*force, "GENFER_OZAKI_IMPL"):
+            os.environ.pop(key, None)
+    print(f"phase 14 {path.name} --backend jax, default env: 0 K5 "
+          f"launches, K1 {k1_default}; Z {default.get('Z')!r} (host "
+          f"{host.get('Z')!r}, {host_s:.3f} s)")
+
+
+def phase14_ozaki(launches: dict) -> dict:
+    """K5 and its split on the card against their plain versions, the
+    forced main path end to end, and ``conv2d_blocked`` with K5 inside
+    (module docstring)."""
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import (
+        BF16_MMA,
+        F64_MMA,
+        INT8_MMA,
+        product_bound,
+    )
+    from genfer_tpu_torch.ops import ozaki_conv as Z
+    from genfer_tpu_torch.ops.blocked_conv import conv2d_blocked, spot_check
+    from genfer_tpu_torch.tools.generators import generate_two_populations
+
+    rng = np.random.default_rng(14)
+    rows: dict = {"ozaki_split": _ozaki_split_rows(rng)}
+    for impl in Z.IMPLS:
+        rows[f"ozaki_conv2d[{impl}]"] = {}
+    k1_ms = {}
+    for label, a, b, out in _ozaki_cases(rng):
+        a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        plain_rows = 128 if max(out) > 512 else None
+        big = max(out) >= OZAKI_ORDERS[0]
+        if big:
+            k1_ms[out] = _time(lambda: ops.conv2d_trunc_f64(a, b, out))
+        for pb, impl in OZAKI_PASSES:
+            name = f"ozaki_conv2d[{impl}]"
+            if b.shape[0] > Z._max_k(impl):
+                print(f"phase 14 {name} {label} P={pb}: above the impl's "
+                      f"contraction cap {Z._max_k(impl)} (refused)")
+                continue
+            before = Z.ozaki_conv2d.launches
+            got = Z.ozaki_conv2d(a, b, out, pb, impl)
+            if Z.ozaki_conv2d.launches != before + 1:
+                fail(f"{name} {label}: K5 did not launch")
+            if not torch.equal(got, Z.ozaki_conv2d(a, b, out, pb, impl)):
+                fail(f"{name} {label} P={pb}: two calls differ")
+            want = Z.ozaki_conv2d_reference(a, b, out, pb, impl, plain_rows)
+            err = _ozaki_gate(f"{name} {label} P={pb}", got, want)
+            line = (f"phase 14 {name} {label} P={pb}: same bits twice, max "
+                    f"err {err:.3e} of each output column's max")
+            if big or label.startswith("("):
+                ms = _time(lambda: Z.ozaki_conv2d(a, b, out, pb, impl))
+                plain_ms = _time(lambda: Z.ozaki_conv2d_reference(
+                    a, b, out, pb, impl, plain_rows))
+                bound, by = product_bound(
+                    a.shape, b.shape, out, passes=Z.pair_passes(pb),
+                    rate=INT8_MMA if impl == "int8" else BF16_MMA)
+                # the host's time includes the guard's one synchronize;
+                # from order 256 the card is busy for the whole call, and
+                # its CUDA-event time is the device time
+                def call():
+                    return Z.ozaki_conv2d(a, b, out, pb, impl)
+
+                cost = (_host_and_device_us(call, name, 50) if not big
+                        else f"host {_host_us(call):.2f} us a call (not "
+                        f"waiting), device {1e3 * ms:.2f} us a call (CUDA "
+                        "events)")
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"bound {bound:.4g} ms ({by}, "
+                         f"{Z.pair_passes(pb)} passes), share "
+                         f"{100 * bound / ms:.1f}%; {cost}")
+                if big:
+                    line += f"; K1 {k1_ms[out]:.4f} ms"
+                if pb == 7 and out == (OZAKI_TABLE_ORDER,) * 2:
+                    lib, lib_err = _library(
+                        _conv2d_library(a[None], b, out), want, ATOL)
+                    line += (f"; cuDNN f64 {lib:.4f} ms (max rel err "
+                             f"{lib_err:.3e})")
+                    rows[name][(out, pb)] = {
+                        "max_abs_err": float((got - want).abs().max()),
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+                        "bound_ms": bound, "bound_by": by.split()[-1],
+                        "bound_rate": INT8_MMA if impl == "int8"
+                        else BF16_MMA}
+            print(line)
+            del got, want
+    # a non-finite operand: the guard sends the product to K1 (IEEE)
+    a = torch.from_numpy(rng.random((16, 16))).cuda()
+    b = torch.from_numpy(rng.random((16, 16))).cuda()
+    a[3, 5] = float("nan")
+    before = Z.ozaki_conv2d.launches
+    got = Z.ozaki_conv2d(a, b, (31, 31))
+    want = ops.conv2d_trunc_f64(a, b, (31, 31))
+    nan = torch.isnan(want)
+    if (Z.ozaki_conv2d.launches != before or not torch.equal(
+            torch.isnan(got), nan) or not torch.equal(got[~nan], want[~nan])):
+        fail("ozaki_conv2d with a NaN operand: not K1's IEEE result")
+    print(f"phase 14 ozaki_conv2d (16,16)x(16,16) with a NaN: the guard ran "
+          f"K1, {int(nan.sum())} NaN outputs, the rest K1's bits")
+    for n in OZAKI_ORDERS:
+        shape = (n, n)
+        bound = product_bound(shape, shape, shape, rate=F64_MMA)[0]
+        print(f"phase 14 K1 order {n}: {k1_ms[(n, n)]:.4f} ms (bound "
+              f"{bound:.4g} ms, FP64 tensor rate), beside K5's rows above")
+    # conv2d_blocked with K5 inside, at order 1024 (2048 runs in the bench)
+    order, P = OZAKI_BLOCKED
+    a = torch.from_numpy(rng.random((order, order))).cuda()
+    b = torch.from_numpy(rng.random((order, order))).cuda()
+    full = (2 * P - 1, 2 * P - 1)
+
+    def inner(x, y):
+        return torch.stack([Z.ozaki_conv2d(x[z].contiguous(),
+                                           y[z].contiguous(), full)
+                            for z in range(x.shape[0])])
+
+    t0 = time.perf_counter()
+    out = conv2d_blocked(a, b, (order, order), P, inner, group=4)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    err = spot_check(a.cpu().numpy(), b.cpu().numpy(), out.cpu().numpy(), 64)
+    if not err < 1e-12:
+        fail(f"conv2d_blocked with K5, order {order}: spot err {err:.3e}")
+    print(f"phase 14 conv2d_blocked order {order}, P = {P}, K5 inside: "
+          f"{dt:.3f} s (first call), spot check of 64 coefficients against "
+          f"host-exact f64 {err:.3e}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for size in (E2E_SIZE, OZAKI_E2E_SIZE):
+            tp = Path(tmp) / f"two_populations_{size}.sgcl"
+            generate_two_populations(tp, size, seed=0)
+            _ozaki_e2e(launches, tp, degenerate=size == E2E_SIZE)
+    _check_no_jax()
+    return rows
+
+
 def print_shares(rows: dict, bench: dict) -> None:
     """The kernels' shares of their bounds (``bound_ms`` over the
     measured time): K2, K4a and K4b from phase 3's dense orders (K4a and
@@ -1810,6 +2289,20 @@ def kernel_table(rows: dict, launches: dict) -> list:
         table.append(_entry(name, source, replaces, launches.get(name, 0),
                             row, rows[name], bound, by,
                             "f32 fma" if passes is None else "tf32 mma x 3"))
+    split = rows["ozaki_split"]
+    table.append({
+        "name": "ozaki_split", "route": "cuda",
+        "source": OZAKI_SOURCES["ozaki_split"],
+        "replaces": OZAKI_REPLACES["ozaki_split"],
+        "launches": launches.get("ozaki_split", 0), **split})
+    for impl in ("int8", "bf16"):
+        name = f"ozaki_conv2d[{impl}]"
+        (row,) = rows[name].values()
+        table.append({
+            "name": name, "route": "cuda",
+            "source": OZAKI_SOURCES["ozaki_conv2d"],
+            "replaces": OZAKI_REPLACES["ozaki_conv2d"],
+            "launches": launches.get(name, 0), **row})
     k1 = rows["conv2d_trunc_f64"]
     for body, (source, shape) in K1_BODIES.items():
         kind = "normal" if shape == K1_DENSE_512 else "uniform"
@@ -1842,6 +2335,7 @@ def main() -> None:
     phase11_serving(launches)
     phase12_scan_models(launches)
     phase13_scan_compiler(launches)
+    rows.update(phase14_ozaki(launches))
     print_shares(rows, bench)
     print(json.dumps({"kernels": kernel_table(rows, launches)}))
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                        "conv2d_trunc_f64_batched")),
         ("conv1d_trunc_f32", [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]),
         ("conv2d_small_f64", [ptr] * 3 + [i32] * 8 + [ptr]),
+        ("ozaki_split", [ptr] + [i32] * 4 + [ptr] * 4),
+        ("ozaki_conv2d", [ptr] * 7 + [i32, ptr] + [i32] * 11 + [ptr]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

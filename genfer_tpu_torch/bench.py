@@ -5,6 +5,7 @@ headline and of the ``--pallas`` sections of genfer_tpu's ``bench.py``.
     python -m genfer_tpu_torch.bench --pallas [--seed N]
     python -m genfer_tpu_torch.bench --serving --scan [--reference DIR]
     python -m genfer_tpu_torch.bench --nested
+    python -m genfer_tpu_torch.bench --ozaki --highorder
 
 The headline (no option) twins ``bench_kernel`` and ``bench_host_kernel``:
 
@@ -66,6 +67,17 @@ instead, and each row's ``_meta`` names that substitution.  Their times
 are host clocks around work that ends in a read-back to the host, best
 of three after the first call (which captures the graphs).
 
+``--ozaki`` twins ``bench_ozaki``: at orders 256, 384 and 512 the f64
+product through ``_conv_impl``, K1 (``GENFER_OZAKI=0``; one row for the
+JAX bench's two XLA f64 rows) against K5, the ozaki route (``force``),
+at int8 pair_bits 7 and 6 and bf16 7; the JAX bench's ``nostair`` row
+has no twin, since K5 has no staircase knob (its ``_meta`` says so).
+``--highorder`` twins ``bench_highorder``: ``ops/blocked_conv.py`` at
+orders 1024 and 2048 with K2 (P = 512), K1 (P = 256) and K5 (P = 512)
+inside.  Both keep the reference's evidence rules: a ``_meta`` stamp, a
+failed row recorded and the others run, and a spot check of 64 output
+coefficients against host-exact f64 dots.
+
 The other sections of genfer_tpu's bench are not ported yet; asking for
 one raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -73,8 +85,11 @@ one raises ``NotImplementedError`` naming its ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -102,14 +117,20 @@ SPLIT_PASSES = 3
 F64_MMA_PER_S = 67e12 / 2
 #: the bound of K1 (``bound_ms``'s third rate)
 F64_MMA = "f64 mma"
+#: its dense int8 (1,979 TOPS) and bf16 (989 TFLOP/s) tensor-core rates, the
+#: same data sheet, in ``mma`` multiply-adds a second: the ceilings of K5's
+#: integer and bf16 passes, whose bound is its pair passes times the useful
+#: multiply-adds over that rate (``bound_ms``'s ``rate`` with ``passes``)
+INT8_MMA_PER_S = 1979e12 / 2
+BF16_MMA_PER_S = 989e12 / 2
+INT8_MMA = "int8 mma"
+BF16_MMA = "bf16 mma"
 
 #: genfer_tpu bench options this twin does not run yet -> ROADMAP item
 UNPORTED = {
     "suite": "Queue 1 item 3 (bench twin; end-to-end suite)",
     "scaling": "Queue 1 item 3 (bench twin; the scaling table over K1, the "
                "host kernel and K2, which Queue 1 item 1 unblocked)",
-    "highorder": "Queue 1 item 11 (ops/blocked_conv.py)",
-    "ozaki": "Queue 2 K5 (ozaki route)",
     "all": "Queue 1 item 3 (bench twin; every section)",
 }
 
@@ -133,9 +154,14 @@ def bound_ms(macs: float, nbytes: float, passes: int | None = None,
     on the tensor cores, whose rate is then the ceiling (a time under the
     FFMA bound is possible there, and a share of it above 1 would read as
     impossible).  ``rate=F64_MMA``: f64 multiply-adds on the FP64 tensor
-    cores (K1)."""
+    cores (K1); ``rate=INT8_MMA`` or ``BF16_MMA``: ``passes`` (1 by
+    default) int8 or bf16 ``mma`` multiply-adds each (K5's pair passes)."""
     if rate == F64_MMA:
         ops_ms, by = macs / F64_MMA_PER_S * 1e3, "tensor operations"
+    elif rate in (INT8_MMA, BF16_MMA):
+        per_s = INT8_MMA_PER_S if rate == INT8_MMA else BF16_MMA_PER_S
+        ops_ms = (passes or 1) * macs / per_s * 1e3
+        by = "tensor operations"
     elif passes is None:
         ops_ms, by = macs / F32_FMA_PER_S * 1e3, "operations"
     else:
@@ -150,12 +176,12 @@ def product_bound(a_shape, b_shape, out_shape, batch: int = 1,
                   rate: str | None = None) -> tuple[float, str]:
     """``bound_ms`` of ``batch`` truncated products of f32 operands (one
     operand of each pair batched, the other shared), or of f64 operands
-    with ``rate=F64_MMA``."""
+    with ``rate`` ``F64_MMA``, ``INT8_MMA`` or ``BF16_MMA``."""
     macs = batch * _conv_pair_flops(tuple(a_shape), tuple(b_shape),
                                     tuple(out_shape))
     n = (np.prod(a_shape) * batch + np.prod(b_shape)
          + np.prod(out_shape) * batch)
-    word = 8.0 if rate == F64_MMA else 4.0
+    word = 8.0 if rate in (F64_MMA, INT8_MMA, BF16_MMA) else 4.0
     return bound_ms(macs, word * n, passes, rate)
 
 
@@ -702,6 +728,193 @@ def bench_nested(where: str, k: int = NESTED_K, device=None) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _env_patch(env: dict):
+    """Set the given environment variables and restore them on exit: the
+    sections toggle the route's variables to A/B kernels, and a leaked
+    value would change every later section of the same run."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _launches() -> dict:
+    """K1's and K5's launch counts, to say which kernel a row ran."""
+    from .ops.conv2d_f64 import conv2d_trunc_f64
+    from .ops.ozaki_conv import ozaki_conv2d
+
+    return {"k1": conv2d_trunc_f64.launches, "k5": ozaki_conv2d.launches}
+
+
+OZAKI_ORDERS = (256, 384, 512)  # bench.py::bench_ozaki's orders
+OZAKI_ITERS = 6
+_FORCE = {"GENFER_OZAKI": "force", "GENFER_OZAKI_MIN_FLOPS": "0"}
+#: bench.py::bench_ozaki's variants; its two XLA f64 rows (the emulation
+#: and the staircase) are one here, K1, the card's native f64 route, and
+#: its ozaki_int8_pb7_nostair row is absent (``_meta``)
+OZAKI_VARIANTS = (
+    ("k1", {"GENFER_OZAKI": "0"}),
+    ("ozaki_int8_pb7", {"GENFER_OZAKI_IMPL": "int8",
+                        "GENFER_OZAKI_PAIR_BITS": "7"}),
+    ("ozaki_int8_pb6", {"GENFER_OZAKI_IMPL": "int8",
+                        "GENFER_OZAKI_PAIR_BITS": "6"}),
+    ("ozaki_bf16_pb7", {"GENFER_OZAKI_IMPL": "bf16",
+                        "GENFER_OZAKI_PAIR_BITS": "7"}),
+)
+
+
+def bench_ozaki(where: str, orders=OZAKI_ORDERS,
+                iters: int = OZAKI_ITERS) -> dict:
+    """``bench.py::bench_ozaki``: the f64-accuracy 2-variable product at
+    square truncated orders through ``_conv_impl``, K1 (``GENFER_OZAKI=0``)
+    against K5 (``force``) across pass types and pair cutoffs.  Each row
+    times a chain of ``iters`` products (each output renormalized by its
+    max and multiplied with the step's first operand next) with CUDA
+    events after a warm chain, and spot-checks one product against
+    host-exact f64 dots (``blocked_conv.spot_check``, 64 coefficients);
+    beside it the bound (K1: the FP64 tensor rate; K5: its pair passes
+    over the int8 or bf16 rate) and the launches that show the route.  A
+    row that fails is recorded as ``FAILED ...`` and the others run."""
+    from .ops.blocked_conv import spot_check
+    from .ops.ozaki_conv import pair_passes
+    from .taylor.backend import _conv_impl
+
+    results = {}
+    for order in orders:
+        shape = (order, order)
+        rng = np.random.RandomState(0)
+        a0 = torch.from_numpy(rng.rand(*shape)).cuda()
+        b0 = torch.from_numpy(rng.rand(*shape)).cuda()
+        macs = _conv_pair_flops(shape, shape, shape)
+        row = {}
+        for name, env in OZAKI_VARIANTS:
+            env = dict(env) if name == "k1" else {**_FORCE, **env}
+            try:
+                with _env_patch(env):
+                    def chain():
+                        a, b = a0, b0
+                        for _ in range(iters):
+                            out = _conv_impl(a, b, shape)
+                            a, b = out / out.abs().max(), a
+                        return a
+
+                    before = _launches()
+                    out = _conv_impl(a0, b0, shape)
+                    torch.cuda.synchronize()
+                    ran = {k: v - before[k] for k, v in _launches().items()}
+                    ms = time_ms(chain, 1, warmup=1) / iters
+                err = spot_check(a0.cpu().numpy(), b0.cpu().numpy(),
+                                 out.cpu().numpy(), 64)
+                if name == "k1":
+                    bound, by = product_bound(shape, shape, shape,
+                                              rate=F64_MMA)
+                else:
+                    impl = env["GENFER_OZAKI_IMPL"]
+                    bound, by = product_bound(
+                        shape, shape, shape,
+                        passes=pair_passes(int(env["GENFER_OZAKI_PAIR_BITS"])),
+                        rate=INT8_MMA if impl == "int8" else BF16_MMA)
+                row[name] = {"ms": ms, "gflops": 2 * macs / ms / 1e6,
+                             "spot_rel_err": err, "bound_ms": bound,
+                             "bound_by": by, "bound_share": bound / ms,
+                             "launches": ran}
+            except Exception as e:  # record, keep going
+                row[name] = f"FAILED {type(e).__name__}: {e}"
+            print(f"ozaki {order} {name}: {row[name]}", file=sys.stderr,
+                  flush=True)
+        results[str(order)] = row
+    results["_meta"] = {
+        **_meta(where),
+        "note": "k1 replaces the JAX bench's two XLA f64 rows (emulation, "
+                "staircase); ozaki_int8_pb7_nostair is absent: K5 has no "
+                "staircase knob (its unit plan clips the band and the "
+                "truncation), so that row would time ozaki_int8_pb7's "
+                "kernel again",
+    }
+    return results
+
+
+HIGHORDER_ORDERS = (1024, 2048)  # bench.py::bench_highorder's orders
+
+
+def _pairwise(kernel, dtype=None):
+    """``inner`` for ``conv2d_blocked`` from a single-pair kernel: one call
+    a pair of the group (in ``dtype`` where given), stacked in f64."""
+    def inner(x, y):
+        full = (2 * x.shape[1] - 1, 2 * x.shape[2] - 1)
+        if dtype is not None:
+            x, y = x.to(dtype), y.to(dtype)
+        return torch.stack([kernel(x[z].contiguous(), y[z].contiguous(), full)
+                            for z in range(x.shape[0])]).double()
+
+    return inner
+
+
+def bench_highorder(where: str, orders=HIGHORDER_ORDERS) -> dict:
+    """``bench.py::bench_highorder``: the P-block decomposition
+    (``ops/blocked_conv.py``) at orders 1024 and 2048, each small product
+    a full (2P-1)^2 one: ``pallas_f32`` K2 at P = 512 (f32, groups of 32
+    pairs), ``xla_f64`` K1 at P = 256 (its batched call, groups of 25),
+    ``ozaki_f64`` K5 at P = 512 (int8, pair_bits 7, groups of 4).
+    Seconds of the second call (host clock to a synchronize), GF/s of the
+    truncated product's useful multiply-adds, and a host-exact spot check
+    of 64 coefficients; failed rows recorded as ``FAILED ...``."""
+    from .ops import conv2d_trunc_f32, conv2d_trunc_f64_batched
+    from .ops.blocked_conv import conv2d_blocked, spot_check
+    from .ops.ozaki_conv import ozaki_conv2d
+
+    def k1(x, y):
+        full = (2 * x.shape[1] - 1, 2 * x.shape[2] - 1)
+        return conv2d_trunc_f64_batched(x.contiguous(), y.contiguous(), full)
+
+    rows = (
+        ("pallas_f32", 512, _pairwise(conv2d_trunc_f32, torch.float32), 32),
+        ("xla_f64", 256, k1, 25),
+        ("ozaki_f64", 512, _pairwise(ozaki_conv2d), 4),
+    )
+    results = {}
+    rng = np.random.default_rng(0)
+    for order in orders:
+        shape = (order, order)
+        a = torch.from_numpy(rng.random(shape)).cuda()
+        b = torch.from_numpy(rng.random(shape)).cuda()
+        macs = _conv_pair_flops(shape, shape, shape)
+        row = {}
+        for name, P, inner, group in rows:
+            try:
+                conv2d_blocked(a, b, shape, P, inner, group=group,
+                               out_dtype=torch.float64)  # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = conv2d_blocked(a, b, shape, P, inner, group=group,
+                                     out_dtype=torch.float64)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                err = spot_check(a.cpu().numpy(), b.cpu().numpy(),
+                                 out.cpu().numpy(), 64)
+                row[name] = {"seconds": dt, "gflops": 2 * macs / dt / 1e9,
+                             "spot_rel_err": err, "P": P, "group": group}
+            except Exception as e:  # record, keep going
+                row[name] = f"FAILED {type(e).__name__}: {e}"
+            print(f"highorder {order} {name}: {row[name]}", file=sys.stderr,
+                  flush=True)
+        results[str(order)] = row
+    results["_meta"] = {
+        **_meta(where),
+        "note": "pallas_f32 runs K2 and xla_f64 K1 (the card's kernels for "
+                "the JAX bench's Pallas f32 and XLA f64 rows); ozaki_f64 "
+                "runs K5 directly (no routing env needed)",
+    }
+    return results
+
+
 def _meta(where: str) -> dict:
     return {"device": torch.cuda.get_device_name(0), "card": where,
             "run": time.strftime("%Y-%m-%dT%H:%M:%S")}
@@ -743,6 +956,16 @@ def run_nested(k: int = NESTED_K) -> dict:
     return {"nested": bench_nested(where, k), "_meta": _meta(where)}
 
 
+def run_ozaki(orders=OZAKI_ORDERS, iters: int = OZAKI_ITERS) -> dict:
+    """``--ozaki``: K1 against K5 at square truncated orders."""
+    return {"ozaki": bench_ozaki(_card(), orders, iters)}
+
+
+def run_highorder(orders=HIGHORDER_ORDERS) -> dict:
+    """``--highorder``: the blocked products at orders 1024 and 2048."""
+    return {"highorder": bench_highorder(_card(), orders)}
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m genfer_tpu_torch.bench")
     ap.add_argument("--pallas", action="store_true",
@@ -756,6 +979,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--nested", action="store_true",
                     help="nested inference at k = 63: the interpreter "
                     "against --compile-scan on the card")
+    ap.add_argument("--ozaki", action="store_true",
+                    help="K1 against K5, the ozaki route, at orders "
+                    f"{', '.join(map(str, OZAKI_ORDERS))}")
+    ap.add_argument("--highorder", action="store_true",
+                    help="blocked products (K2, K1, K5 inside) at orders "
+                    f"{', '.join(map(str, HIGHORDER_ORDERS))}")
     ap.add_argument("--reference", type=Path, default=None,
                     help="the reference's checkout: --scan then also runs "
                     "its committed hmm and mixture benchmarks")
@@ -782,6 +1011,10 @@ def main(argv=None) -> dict:
         results.update(run_scan(args.reference))
     if args.nested:
         results.update(run_nested())
+    if args.ozaki:
+        results.update(run_ozaki())
+    if args.highorder:
+        results.update(run_highorder())
     if not results:
         results = run_headline(args.seed)
     RESULTS.parent.mkdir(parents=True, exist_ok=True)

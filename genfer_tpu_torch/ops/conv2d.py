@@ -133,6 +133,14 @@ def unit_plan(a_shape, b_shape, out_shape, cut_j1: bool = True) -> UnitPlan:
     the plan cuts j0 only, into ranges of at least ``MMA_MIN_ROWS`` rows;
     j1 is cut, at multiples of ``MMA_J1_STEP``, only in a tile whose j0
     range cannot be."""
+    return plan_units(a_shape, b_shape, out_shape, cut_j1, MMA_MIN_ROWS)
+
+
+def plan_units(a_shape, b_shape, out_shape, cut_j1: bool,
+               mma_rows: int) -> UnitPlan:
+    """``unit_plan``'s body, with the least j0 range of the plan that cuts
+    j0 only (``cut_j1=False``) as ``mma_rows``: K5 (``ops.ozaki_conv``),
+    which contracts over j0 in ``mma`` slices of 32 rows, asks for 32."""
     swap = _swap(a_shape, b_shape)
     if swap:
         a_shape, b_shape = b_shape, a_shape
@@ -140,7 +148,7 @@ def unit_plan(a_shape, b_shape, out_shape, cut_j1: bool = True) -> UnitPlan:
     if cut_j1:
         chunk, min_rows = (1 if b_shape[1] == 1 else CHUNK), MIN_ROWS
     else:
-        chunk, min_rows = MMA_J1_STEP, MMA_MIN_ROWS
+        chunk, min_rows = MMA_J1_STEP, mma_rows
     tiles = []
     for K0 in range(0, c0, TILE):
         for K1 in range(0, c1, TILE):

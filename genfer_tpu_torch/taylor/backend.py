@@ -12,14 +12,18 @@
   ops above a size threshold sent to one torch device.  ``PallasBackend``
   sends large 2-axis products to the f32 kernel of ``ops.conv2d``.
 
-Every 2-axis f64 product goes to K1 (``ops.conv2d_f64``) on a card.
+Every 2-axis f64 product goes to K1 (``ops.conv2d_f64``) on a card, or,
+with ``GENFER_OZAKI=force`` and above the route's gates, to K5
+(``ops.ozaki_conv``, the ozaki route of genfer_tpu's ``_conv_impl``).
 
 What the JAX versions do only for the TPU is left out: the gather-free
-skew-reshape Toeplitz build (a gather is cheap on a GPU), the ozaki route
-and the truncation staircase (both engage only on a TPU, so JAX on the CPU
-runs the same plain einsum as these twins; K1's work units clip the
-product where the staircase did), and ``SHAPE_BUCKET`` padding (it bounds
-XLA recompiles; eager torch compiles nothing).
+skew-reshape Toeplitz build (a gather is cheap on a GPU), the truncation
+staircase (it engages only on a TPU, so JAX on the CPU runs the same plain
+einsum as these twins; K1's work units clip the product where the
+staircase did), the ozaki route's default (on a TPU only: in this package
+only ``force`` engages it, as in the JAX package off a TPU), and
+``SHAPE_BUCKET`` padding (it bounds XLA recompiles; eager torch compiles
+nothing).
 """
 
 from __future__ import annotations
@@ -81,13 +85,35 @@ def _antidiag_sum(P, out_len: int):
 def _conv_impl(a, b, out_shape: Shape, conv2d=None):
     """Truncated n-D Cauchy product: squeeze length-1 axes of the output,
     then ``_conv_dense`` on the effective axes.  ``conv2d`` is the batched
-    2-axis product (``_conv_dense_batched``)."""
+    2-axis product (``_conv_dense_batched``).
+
+    An f64 product of exactly 2 effective axes for which
+    ``ops.ozaki_conv.ozaki_applicable`` holds (``GENFER_OZAKI=force``)
+    runs ``ozaki_conv2d_guarded`` (K5 on a card), as genfer_tpu's
+    ``_conv_impl`` does.  The compiled mode (a ``conv2d`` is given) has no
+    vmap rule or graph capture for K5 yet and raises there."""
     eff = _effective_axes(out_shape)
     if not eff:
         return (a * b).reshape(out_shape)
     a_sq = a.reshape([a.shape[i] for i in eff])
     b_sq = b.reshape([b.shape[i] for i in eff])
     eff_out = tuple(out_shape[i] for i in eff)
+    if (len(eff) == 2 and a_sq.dtype == torch.float64
+            and b_sq.dtype == torch.float64):
+        from ..ops.ozaki_conv import ozaki_applicable, ozaki_conv2d_guarded
+
+        if ozaki_applicable(
+            "float64", tuple(a_sq.shape), tuple(b_sq.shape), eff_out,
+            _conv_pair_flops(tuple(a_sq.shape), tuple(b_sq.shape), eff_out),
+        ):
+            if conv2d is not None:
+                raise NotImplementedError(
+                    "GENFER_OZAKI=force in the compiled mode: K5 has no vmap "
+                    "rule or graph capture yet (ROADMAP Queue 2, K5 "
+                    "follow-ups)")
+            res = ozaki_conv2d_guarded(a_sq.contiguous(), b_sq.contiguous(),
+                                       eff_out)
+            return res.reshape(out_shape)
     return _conv_dense(a_sq, b_sq, eff_out, conv2d).reshape(out_shape)
 
 

@@ -15,10 +15,10 @@ from genfer_tpu_torch import bench
     (["--suite", "--seed", "1"], "Queue 1 item 3"),
     (["--suite"], "Queue 1 item 3"),
     (["--scaling"], "Queue 1 item 1"),
-    (["--serving", "--highorder"], "Queue 1 item 11"),
-    (["--scan", "--ozaki"], "Queue 2 K5"),
-    (["--highorder"], "Queue 1 item 11"),
-    (["--ozaki"], "Queue 2 K5"),
+    (["--serving", "--suite"], "Queue 1 item 3"),
+    (["--scan", "--scaling"], "Queue 1 item 1"),
+    (["--ozaki", "--suite"], "Queue 1 item 3"),
+    (["--highorder", "--scaling"], "Queue 1 item 1"),
     # an unported section raises before the ported nested one runs
     (["--nested", "--suite"], "Queue 1 item 3"),
     (["--all"], "Queue 1 item 3"),
@@ -37,7 +37,8 @@ def test_pallas_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--serving"], ["--scan"],
-                                  ["--serving", "--scan"], ["--nested"]])
+                                  ["--serving", "--scan"], ["--nested"],
+                                  ["--ozaki"], ["--highorder"]])
 def test_serving_and_scan_without_a_card_raise(monkeypatch, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
@@ -52,6 +53,36 @@ def test_serving_scan_and_nested_are_ported():
     assert bench.SERVING_BATCH == 4096
     assert (bench.GENERIC_BATCH, bench.GENERIC_STEPS) == (256, 109)
     assert bench.NESTED_K == 63
+
+
+def test_ozaki_and_highorder_are_ported():
+    """``--ozaki`` and ``--highorder`` are ported at the JAX bench's orders;
+    the ozaki section keeps its variants, K1 in place of the two XLA f64
+    rows."""
+    for name in ("ozaki", "highorder"):
+        assert name not in bench.UNPORTED
+    assert bench.OZAKI_ORDERS == (256, 384, 512)
+    assert bench.HIGHORDER_ORDERS == (1024, 2048)
+    assert [name for name, _ in bench.OZAKI_VARIANTS] == [
+        "k1", "ozaki_int8_pb7", "ozaki_int8_pb6", "ozaki_bf16_pb7"]
+
+
+def test_bound_of_the_ozaki_passes():
+    """K5's bound: its pair passes times the useful multiply-adds over the
+    int8 (1,979 TOPS) or bf16 (989 TFLOP/s) rate, or its f64 bytes."""
+    shape = (512, 512)
+    macs = 512 * 513 // 2 * 512 * 513 // 2
+    ms, by = bench.product_bound(shape, shape, shape, passes=36,
+                                 rate=bench.INT8_MMA)
+    assert by == "tensor operations"
+    assert ms == pytest.approx(36 * macs / (1979e12 / 2) * 1e3)
+    ms, _ = bench.product_bound(shape, shape, shape, passes=36,
+                                rate=bench.BF16_MMA)
+    assert ms == pytest.approx(36 * macs / (989e12 / 2) * 1e3)
+    thin, by = bench.product_bound((255, 268), (2, 2), (255, 268),
+                                   passes=36, rate=bench.INT8_MMA)
+    assert by == "bytes"
+    assert thin == pytest.approx(8 * (2 * 255 * 268 + 4) / 3.35e12 * 1e3)
 
 
 def test_generic_serving_on_the_cpu():
@@ -165,3 +196,18 @@ def test_bench_serving_and_scan_on_card(tmp_path, monkeypatch):
     assert scan["limit"] == 256 and scan["steps"] == 20
     assert scan["datasets_per_s"] > 0 and "skipped" in scan["hmm"]
     assert results["cascade_switchpoint"]["discrete"]["units"] == 109
+
+
+@pytest.mark.cuda
+def test_bench_ozaki_and_highorder_on_card(tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(bench, "RESULTS", tmp_path / "results.json")
+    results = bench.main(["--ozaki"])
+    rows = results["ozaki"]
+    assert set(rows) == {"256", "384", "512", "_meta"}
+    for order in ("256", "384", "512"):
+        k1, k5 = rows[order]["k1"], rows[order]["ozaki_int8_pb7"]
+        assert k1["launches"]["k5"] == 0 and k1["launches"]["k1"] >= 1
+        assert k5["launches"]["k5"] >= 1 and k5["spot_rel_err"] < 1e-12
+        assert 0 < k5["bound_share"] <= 1

@@ -255,7 +255,8 @@ def test_native_eval_gate_names_the_ports_classes():
 def test_port_never_imports_jax(tmp_path):
     """Every module of the port imported (the f64 device path's namespace,
     K1's wrapper, the ``entry()`` twin, compiled serving, ``api``, the
-    models and the scan compiler among them), one compiled program, one
+    models, the scan compiler and the ozaki route among them), one K5
+    product's plain version, one compiled program, one
     model, one scan compile and one ``api.compile_serving`` run on the
     CPU, then one CLI inference run on the host path and one with
     ``--backend jax``, in a fresh interpreter: neither jax nor genfer_tpu
@@ -271,8 +272,13 @@ def test_port_never_imports_jax(tmp_path):
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 28, mods\n"
         "for m in ('taylor.xp', 'ops.conv2d_f64', 'entry', 'compile', "
-        "'api', 'models', 'models.population', 'models.hmm', 'scanc'):\n"
+        "'api', 'models', 'models.population', 'models.hmm', 'scanc', "
+        "'ops.ozaki_conv', 'ops.blocked_conv'):\n"
         "    assert 'genfer_tpu_torch.' + m in mods, m\n"
+        "import torch\n"
+        "from genfer_tpu_torch.ops.ozaki_conv import ozaki_conv2d\n"
+        "x = torch.rand(8, 8, dtype=torch.float64)\n"
+        "assert ozaki_conv2d(x, x, (8, 8)).shape == (8, 8)\n"
         "from genfer_tpu_torch.compile import compile_program\n"
         "from genfer_tpu_torch.models import CompiledPopulation\n"
         "c = compile_program('x ~ Binomial(4, $p);\\nreturn x', ['p'], 5, "

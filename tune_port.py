@@ -2,12 +2,13 @@
 """Tuning probes for the work-unit kernels (K2 ``conv2d_trunc_f32``, K3
 ``conv2d_trunc_f32_batched``, the tensor-core kernels K4a
 ``conv2d_trunc_f32_tile`` and K4b ``conv2d_trunc_f32_grouped``, the
-1-D kernel K6 ``conv1d_trunc_f32`` and the f64 kernel K1
-``conv2d_trunc_f64``) on one CUDA card.
+1-D kernel K6 ``conv1d_trunc_f32``, the f64 kernel K1
+``conv2d_trunc_f64`` and K5, the ozaki route's ``ozaki_conv2d``) on one
+CUDA card.
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Thirteen probes (all, or the numbered ones), each printed with the card's
+Fifteen probes (all, or the numbered ones), each printed with the card's
 name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
@@ -87,6 +88,26 @@ two trees run in turns compares their K6.
    mixture's batched loop (``run_batch``, 128 steps, at batch 1 and
    256): its host prep (``batch_xs``), capture and replay apart, and the
    kernels a replay holds.
+
+14. the fragment layouts of ``mma.sync.m16n8k32 .s8`` and ``m16n8k16
+   .bf16`` on the card, the ones K5 assumes (``csrc/ozaki_conv2d.cu``):
+   one warp loads A and B at the assumed positions (4 int8 or 2 bf16 a
+   register, the lowest k in the lowest bits), runs one ``mma`` from zero
+   and writes its four D registers raw; every one of the 128 must hold
+   the exact integer product at its assumed position, for coded A against
+   a selecting B, a selecting A against coded B, and integer matrices in
+   [-64, 64].  It fails loudly otherwise.  Then the card's int8 ``mma.sync``
+   ceiling (8 independent m16n8k32 accumulators a warp, 1 to 4 blocks of
+   four warps an SM): what K5 could reach at most of the data-sheet int8
+   rate behind ``bench.INT8_MMA_PER_S``;
+15. the twin of ``scripts/ozaki_diag.py::main``: K5 against K1 on square
+   truncated products at ``OZAKI_ORDERS`` (128 to 1024), K5 at
+   ``pair_bits`` 5, 6 and 7 in int8 and at 7 in bf16 (the integer split,
+   the only one the card runs):
+   CUDA-event times in turns (K1, K5 .., K1), each K5 row's share of its
+   int8 / bf16 bound and its max error over the max of K1's result; and,
+   for each K5 row, the smallest order from which it is no slower than K1
+   (its crossover), or none.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -268,6 +289,114 @@ extern "C" int f64_mma_layout(const double* A, const double* B, double* d,
                               void* stream) {
   f64_mma_layout_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       A, B, d);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+OZAKI_LAYOUT_CU = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cstdint>
+// One warp: lane 4 g + t builds the fragments of mma.m16n8k32 .s8 from
+// row-major int8 A (16x32) and B (32x8, B[k][n]) at the positions K5
+// assumes (a0 = A[g][4t .. 4t + 3], a1 = A[g + 8][4t ..], a2 = A[g][16 +
+// 4t ..], a3 = A[g + 8][16 + 4t ..]; b0 = B[4t .. 4t + 3][g], b1 = B[16 +
+// 4t ..][g]; the lowest k in the lowest byte), runs one mma from zero and
+// writes its four D registers raw, d[4 lane + i].
+__global__ void s8_layout_kernel(const int8_t* A, const int8_t* B, int* d) {
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  unsigned a[4], b[2];
+  const int rows[4] = {g, g + 8, g, g + 8}, cols[4] = {0, 0, 16, 16};
+  for (int r = 0; r < 4; ++r) {
+    unsigned v = 0;
+    for (int j = 0; j < 4; ++j)
+      v |= (static_cast<unsigned>(static_cast<uint8_t>(
+               A[rows[r] * 32 + cols[r] + 4 * t + j]))) << (8 * j);
+    a[r] = v;
+  }
+  for (int r = 0; r < 2; ++r) {
+    unsigned v = 0;
+    for (int j = 0; j < 4; ++j)
+      v |= (static_cast<unsigned>(static_cast<uint8_t>(
+               B[(16 * r + 4 * t + j) * 8 + g]))) << (8 * j);
+    b[r] = v;
+  }
+  int c[4] = {0, 0, 0, 0};
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  for (int i = 0; i < 4; ++i) d[4 * lane + i] = c[i];
+}
+// The same for mma.m16n8k16 .bf16 (A 16x16, B 16x8): a0 = A[g][2t, 2t +
+// 1], a1 = A[g + 8][2t ..], a2 = A[g][8 + 2t ..], a3 = A[g + 8][8 + 2t ..];
+// b0 = B[2t, 2t + 1][g], b1 = B[8 + 2t ..][g]; f32 sums.
+__global__ void bf16_layout_kernel(const __nv_bfloat16* A,
+                                   const __nv_bfloat16* B, float* d) {
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  unsigned a[4], b[2];
+  const int rows[4] = {g, g + 8, g, g + 8}, cols[4] = {0, 0, 8, 8};
+  for (int r = 0; r < 4; ++r) {
+    unsigned v = 0;
+    for (int j = 0; j < 2; ++j)
+      v |= static_cast<unsigned>(__bfloat16_as_ushort(
+               A[rows[r] * 16 + cols[r] + 2 * t + j])) << (16 * j);
+    a[r] = v;
+  }
+  for (int r = 0; r < 2; ++r) {
+    unsigned v = 0;
+    for (int j = 0; j < 2; ++j)
+      v |= static_cast<unsigned>(__bfloat16_as_ushort(
+               B[(8 * r + 2 * t + j) * 8 + g])) << (16 * j);
+    b[r] = v;
+  }
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  for (int i = 0; i < 4; ++i) d[4 * lane + i] = c[i];
+}
+// 8 independent m16n8k32 s8 accumulators a warp, no memory traffic
+__global__ void __launch_bounds__(128) s8_peak_kernel(int* out, int iters) {
+  int d[8][4];
+  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 4; ++j) d[i][j] = 0;
+  unsigned a[4];
+  for (int j = 0; j < 4; ++j) a[j] = 0x01010101u * ((threadIdx.x + j) & 3);
+  const unsigned b0 = 0x01010101u * (threadIdx.x & 1), b1 = b0 ^ 0x01000100u;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+r"(d[i][0]), "+r"(d[i][1]), "+r"(d[i][2]), "+r"(d[i][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  int s = 0;
+  for (int i = 0; i < 8; ++i) s += d[i][0] + d[i][1] + d[i][2] + d[i][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int s8_layout(const void* A, const void* B, void* d, int bf16,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    bf16_layout_kernel<<<1, 32, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(A),
+        static_cast<const __nv_bfloat16*>(B), static_cast<float*>(d));
+  else
+    s8_layout_kernel<<<1, 32, 0, st>>>(static_cast<const int8_t*>(A),
+                                       static_cast<const int8_t*>(B),
+                                       static_cast<int*>(d));
+  return static_cast<int>(cudaGetLastError());
+}
+// ``blocks`` blocks of four warps, 8 * iters mma (4096 multiply-adds) a warp
+extern "C" int s8_peak(int* out, int blocks, int iters, void* stream) {
+  s8_peak_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, iters);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -555,6 +684,144 @@ def f64_mma_layout() -> None:
                             for ln, r in wrong[:4]))
         print(f"probe 10 mma.sync m16n8k8 f64 layout, {what}: 128 of 128 "
               "D registers at the assumed positions")
+
+
+def ozaki_layout() -> None:
+    """Probe 14."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import INT8_MMA_PER_S, time_ms
+
+    lib = _compile("ozaki_layout", OZAKI_LAYOUT_CU)
+    lib.s8_layout.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                      ctypes.c_void_p]
+    lib.s8_peak.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p]
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    rng = np.random.default_rng(14)
+    for name, k, dtype in (("m16n8k32 s8", 32, torch.int8),
+                           ("m16n8k16 bf16", 16, torch.bfloat16)):
+        codings = {
+            "A coded ((k r + c) mod 127 - 63), B adding rows n + 8 j": (
+                (np.arange(16 * k).reshape(16, k) % 127 - 63),
+                sum(np.eye(k)[:, 8 * j:8 * j + 8] for j in range(k // 8))),
+            "A selecting, B coded ((8 k + n) mod 127 - 63)": (
+                np.hstack([np.eye(16)] * (k // 16)),
+                np.arange(k * 8).reshape(k, 8) % 127 - 63),
+            "A and B integers in [-64, 64]": (
+                rng.integers(-64, 65, (16, k)), rng.integers(-64, 65, (k, 8))),
+        }
+        for what, (A, B) in codings.items():
+            A, B = np.asarray(A, np.int64), np.asarray(B, np.int64)
+            a = torch.from_numpy(A).to(dtype).cuda()
+            b = torch.from_numpy(B).to(dtype).cuda()
+            out_dtype = torch.int32 if dtype == torch.int8 else torch.float32
+            d = torch.full((32, 4), -12345, dtype=out_dtype, device="cuda")
+            err = lib.s8_layout(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                int(dtype == torch.bfloat16),
+                                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"s8_layout launch failed ({err})")
+            got = d.cpu().numpy().astype(np.int64)
+            D = A @ B  # exact: |D| <= 32 * 64 * 64
+            # register 2 h + i of lane 4 g + t: D[8 h + g][2 t + i]
+            want = np.stack([D[8 * h + g, 2 * t + i] for h in (0, 1)
+                             for i in (0, 1)], axis=1)
+            wrong = np.argwhere(got != want)
+            if len(wrong):
+                raise RuntimeError(
+                    f"probe 14 {name} {what}: {len(wrong)} of 128 D "
+                    "registers off the assumed layout, first (lane, "
+                    "register, got, want): " + ", ".join(
+                        f"({ln}, {r}, {got[ln, r]}, {want[ln, r]})"
+                        for ln, r in wrong[:4]))
+            print(f"probe 14 mma.sync {name} layout, {what}: 128 of 128 D "
+                  "registers at the assumed positions")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 20000
+    for per_sm in (1, 2, 3, 4):
+        blocks = per_sm * sms
+        out = torch.empty(blocks * 128, dtype=torch.int32, device="cuda")
+
+        def run():
+            err = lib.s8_peak(out.data_ptr(), blocks, iters,
+                              torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"s8_peak launch failed ({err})")
+
+        ms = time_ms(run, 3, warmup=1)
+        rate = blocks * 4 * iters * 8 * 4096.0 / ms * 1e3
+        print(f"probe 14 mma.sync m16n8k32 s8 ceiling, {per_sm} blocks of "
+              f"four warps an SM: {rate / 1e12:.1f}e12 multiply-adds/s = "
+              f"{2 * rate / 1e12:.0f} TOPS "
+              f"({100 * rate / INT8_MMA_PER_S:.1f}% of the data-sheet int8 "
+              "rate the bounds use)")
+
+
+#: orders of probe 15 (square truncated products, scripts/ozaki_diag.py's
+#: crossover sweep up to the largest order K1's table holds)
+OZAKI_ORDERS = (128, 192, 256, 384, 512, 768, 1024)
+#: K5 variants of probe 15: (label, pair_bits, impl)
+OZAKI_VARIANTS = (
+    ("int8_pb5", 5, "int8"), ("int8_pb6", 6, "int8"),
+    ("int8_pb7", 7, "int8"), ("bf16_pb7", 7, "bf16"),
+)
+
+
+def ozaki_against_k1() -> None:
+    """Probe 15."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import (
+        BF16_MMA,
+        INT8_MMA,
+        product_bound,
+        time_ms,
+    )
+    from genfer_tpu_torch.ops import ozaki_conv as Z
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
+
+    rng = np.random.default_rng(15)
+    times: dict = {}
+    for order in OZAKI_ORDERS:
+        shape = (order, order)
+        a = torch.from_numpy(rng.random(shape)).cuda()
+        b = torch.from_numpy(rng.random(shape)).cuda()
+        want = conv2d_trunc_f64(a, b, shape)
+        top = float(want.abs().max())
+        reps = max(2, min(50, int(2e5 / order ** 2 * 64)))
+        k1 = [time_ms(lambda: conv2d_trunc_f64(a, b, shape), reps)]
+        parts = []
+        for label, pb, impl in OZAKI_VARIANTS:
+            if order > Z._max_k(impl):
+                parts.append(f"{label} above its contraction cap")
+                continue
+            got = Z.ozaki_conv2d(a, b, shape, pb, impl)
+            err = float((got - want).abs().max()) / top
+            ms = time_ms(lambda: Z.ozaki_conv2d(a, b, shape, pb, impl), reps)
+            bound, by = product_bound(
+                shape, shape, shape, passes=Z.pair_passes(pb),
+                rate=INT8_MMA if impl == "int8" else BF16_MMA)
+            times.setdefault(label, {})[order] = ms
+            parts.append(f"{label} {ms:.4f} ms ({100 * bound / ms:.1f}% of "
+                         f"{bound:.4f} ms, {by}; err {err:.2e} of the max)")
+        k1.append(time_ms(lambda: conv2d_trunc_f64(a, b, shape), reps))
+        times.setdefault("k1", {})[order] = min(k1)
+        print(f"probe 15 order {order}: K1 {k1[0]:.4f} / {k1[1]:.4f} ms; "
+              + "; ".join(parts))
+    for label, *_ in OZAKI_VARIANTS:
+        ran = [n for n in OZAKI_ORDERS if n in times[label]]
+        wins = [n for n in ran if times[label][n] <= times["k1"][n]]
+        first = next((n for n in ran
+                      if all(m in wins for m in ran if m >= n)), None)
+        ratio = ", ".join(f"{n}: {times[label][n] / times['k1'][n]:.2f}"
+                          for n in ran)
+        print(f"probe 15 {label} over K1 (time ratio) {ratio}; crossover: "
+              + (f"from order {first}" if first else "none up to "
+                 f"{ran[-1]}"))
 
 
 def _small_or_dense(sa, sb, bodies) -> dict:
@@ -951,6 +1218,7 @@ def main(argv) -> None:
         6: mma_plan_sweep, 7: fold_plan_sweep, 8: k6_lengths,
         9: f64_mma_ceiling, 10: f64_mma_layout, 11: small_against_dense,
         12: serving_batch, 13: scan_capture_against_eager,
+        14: ozaki_layout, 15: ozaki_against_k1,
     }
     print(card())
     _build.load()
