@@ -131,20 +131,25 @@ result):
    1e-9 of Z), with the deviation it shows when served at the committed
    counts' order (a cascade checks no convergence for fresh counts).
 14. K5, the ozaki route (``genfer_tpu_torch.ops.ozaki_conv``): the split
-   (``csrc/ozaki_split.cu``) on the card equal to the CPU split bit for
-   bit (chunks, exponents, flag) at ``OZAKI_SHAPES`` for every (pair_bits,
-   impl) of ``OZAKI_PASSES``, and the float split refused there; K5
-   (``csrc/ozaki_conv2d.cu``) against its plain version
-   (``ozaki_conv2d_reference``, in row strips above order 512) at
-   ``OZAKI_TOL`` = 1e-13 of each output column's max, the same bits twice,
-   at ``OZAKI_SHAPES`` (tests/test_ozaki_conv.py's), the square orders
-   256, 512 and 1024, the forced main path's shape classes
+   (``csrc/ozaki_split.cu``, both operands of every product in one
+   launch) on the card equal to its plain version bit for bit (chunks in
+   the kernel's layout, exponents, flags) at ``OZAKI_SHAPES`` for every
+   (pair_bits, impl) of ``OZAKI_PASSES`` and on a batch with a non-finite
+   entry, and the float split refused there; K5 (``csrc/ozaki_conv2d.cu``:
+   its dense body, ``wgmma`` for int8, and its small body) against its
+   plain version (``ozaki_conv2d_reference``, in row strips above order
+   512) at ``OZAKI_TOL`` = 1e-13 of each output column's max, the same
+   bits twice, at ``OZAKI_SHAPES`` (tests/test_ozaki_conv.py's), the
+   square orders 256, 512 and 1024, the forced main path's shape classes
    ``OZAKI_MAIN_PATH`` (2x2 stencils, (n, 1) and (1, n) operands) and the
    extreme pairs (2^+-300 column scales, columns at 2^950 and 2^-980, the
    mixed case), each at pair_bits 5, 6, 7 in int8 and 7 in bf16, with the
    kernel's, the plain version's and K1's times, the bound, host and
-   device microseconds a call, and cuDNN's f64 ``conv2d`` at order 512; a
-   NaN operand, which the guard sends to K1 (its IEEE bits);
+   device microseconds a call (guarded, and of the split and K5 alone),
+   and cuDNN's f64 ``conv2d`` at order 512 and at the main path's shapes;
+   a NaN operand, which K5 leaves to the guard (K1's IEEE bits, counted
+   on the device); the small body over the serving batch
+   (``OZAKI_SERVING`` x 4096), a sample held to the plain version;
    ``ops.blocked_conv.conv2d_blocked`` with K5 inside at order 1024 (P =
    512) against a host-exact spot check; then the main path end to end:
    ``--backend jax`` on two_populations (seed 0) with
@@ -155,12 +160,20 @@ result):
    cliff, on the CPU as well), and at ``OZAKI_E2E_SIZE`` = 200, where it
    must stay finite with Z > 0 and route every product the default run
    sends to K1.  In each run every 2-axis f64 product is routed (int8),
-   K5 launches once for every routed product the guard does not send to
-   K1 (the guard's count read, not inferred), the split twice, and every
+   K5, the split and K1 predicated on the guard's flags launch once for
+   every routed product, the guard's device count equals the routed
+   products with a non-finite operand, and every
    ``OZAKI_E2E_STRIDE``-th routed product's operands and output are kept
    and held to the plain version at ``OZAKI_TOL`` after the counts are
    read, K5 run again on them for the same bits; the deviation from host
    f64 printed, not held; and the default env, which launches no K5.
+   Last, the compiled mode under force (``_ozaki_compiled``): the scam
+   model's batched walk over 4096 datasets, eager with no synchronize
+   (torch.profiler), captured (K5 once a product of the captured walk)
+   and replayed, equal to the eager walk bit for bit and to the eager
+   forced ``--backend jax`` run at ``OZAKI_REL``, the guard's device count
+   read; and a captured ``ozaki_op`` with a NaN entry, guarded at every
+   replay.
 
 Each of phases 4-6 and 8-13 sets the launch counts to 0 just before it
 and reads them just after (phase 11's K1 launches are those of the
@@ -423,6 +436,23 @@ OZAKI_REL = 1e-12  # the forced --backend jax run, card against CPU
 #: too); at this size it stays finite, Z > 0, within ~5e-4 of host
 OZAKI_E2E_SIZE = 200
 OZAKI_E2E_STRIDE = 10  # every 10th routed product is held (_hold_kept)
+#: the serving walk's largest product (the scam model's, tune_port.py
+#: probe 12) over bench.SERVING_BATCH entries: K5's small body batched, as
+#: the compiled mode's vmap rule runs it; every OZAKI_SERVING_STRIDE-th
+#: entry is held to the plain version
+OZAKI_SERVING = ((27, 27), (2, 2), (27, 28))
+OZAKI_SERVING_STRIDE = 64
+#: the compiled mode under force: the scam model (tests/
+#: test_torch_ozaki_compile.py) at its 26 products a walk, served over
+#: bench.SERVING_BATCH datasets, and the $p values held to the eager run
+OZAKI_COMPILED_SRC = """calls ~ Poisson(10);
+scams ~ Binomial(calls, $p);
+observe(scams = 1);
+return calls;"""
+OZAKI_COMPILED_LIMIT = 26
+OZAKI_COMPILED_HELD = (0.05, 0.5, 0.95)
+#: host CUDA calls that wait for the card: none may run in the route
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 OZAKI_REPLACES = {
     "ozaki_split": "genfer_tpu/ops/ozaki_conv.py:121",
     "ozaki_conv2d": "genfer_tpu/ops/ozaki_conv.py:192",
@@ -696,9 +726,11 @@ def device_us_by_kernel(call, calls: int) -> dict:
     return kernels
 
 
-def _host_and_device_us(call, what: str, calls: int = 200) -> str:
+def _host_us_and_kernels(call, calls: int) -> tuple[float, dict]:
     """What one ``call()`` costs the host (the wrapper and its launches,
-    not waiting for the card) and the card (``device_us_by_kernel``)."""
+    not waiting for the card) and the card by kernel
+    (``device_us_by_kernel``, tried twice: torch.profiler at times records
+    no device event for one of many short sessions)."""
     for _ in range(20):
         call()
     torch.cuda.synchronize()
@@ -707,13 +739,26 @@ def _host_and_device_us(call, what: str, calls: int = 200) -> str:
         call()
     host_us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
-    kernels = device_us_by_kernel(call, calls)
-    device_us = sum(kernels.values())
-    if not device_us > 0:
-        fail(f"torch.profiler recorded no device time for {what}")
+    for _ in range(2):
+        kernels = device_us_by_kernel(call, calls)
+        if sum(kernels.values()) > 0:
+            break
+    return host_us, kernels
+
+
+def _us_line(host_us: float, kernels: dict) -> str:
     return (f"host {host_us:.2f} us a call (wrapper and launch, not "
-            f"waiting), device {device_us:.2f} us a call (torch.profiler: "
-            + ", ".join(f"{k} {v:.2f}" for k, v in kernels.items()) + ")")
+            f"waiting), device {sum(kernels.values()):.2f} us a call "
+            "(torch.profiler: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in kernels.items()) + ")")
+
+
+def _host_and_device_us(call, what: str, calls: int = 200) -> str:
+    """``_host_us_and_kernels`` as a line; fails without device time."""
+    host_us, kernels = _host_us_and_kernels(call, calls)
+    if not sum(kernels.values()) > 0:
+        fail(f"torch.profiler recorded no device time for {what}")
+    return _us_line(host_us, kernels)
 
 
 def phase3_plans_and_host_cost() -> None:
@@ -1809,34 +1854,53 @@ def _host_us(call, calls: int = 3) -> float:
 
 
 def _ozaki_split_rows(rng) -> dict:
-    """The split on the card against the CPU's, bit for bit, at the shapes
-    and at the table's order; its time there."""
+    """The split on the card against its plain version, bit for bit
+    (chunks in the kernel's layout, exponents, flags), at the shapes, on a
+    batch with a non-finite entry and at the table's order; its time
+    there."""
     from genfer_tpu_torch.bench import bound_ms
     from genfer_tpu_torch.ops import ozaki_conv as Z
 
-    def same(x, pb, impl):
-        chunks, e, flag = Z.ozaki_split(x, pb, impl)
-        want_c, want_e, finite = Z.ozaki_split_reference(x.cpu(), pb, impl)
+    def same(a, b, pb, impl):
+        """Flags equal; chunks and exponents equal for every product
+        whose operands are finite (those of a flagged one are never
+        read: the guard takes it)."""
+        got = [x.cpu() for x in Z.ozaki_split(a, b, pb, impl)]
+        want = Z.ozaki_split_batched_reference(a.cpu(), b.cpu(), pb, impl)
+        ok = want[4] == 0
+        if not torch.equal(got[4], want[4]):
+            return False
         view = torch.int8 if impl == "int8" else torch.int16
-        return (torch.equal(chunks.cpu().view(view), want_c.view(view))
-                and torch.equal(e.cpu(), want_e)
-                and bool(flag.item()) != finite)
+        for g, w in zip(got[:4], want[:4]):
+            if g.dtype in (torch.int8, torch.bfloat16):
+                g, w = g.view(view), w.view(view)
+            if not torch.equal(g[ok], w[ok]):
+                return False
+        return True
+
+    def operand(shape, batch=1):
+        x = rng.standard_normal((batch, *shape)) * 10.0 ** rng.integers(
+            -200, 200, (batch, 1, shape[1]))
+        return torch.from_numpy(x).cuda()
 
     checked = 0
     for sa, sb, _ in OZAKI_SHAPES:
-        for shape in (sa, sb):
-            x = torch.from_numpy(rng.standard_normal(shape) * 10.0 ** rng
-                                 .integers(-200, 200, shape[1])).cuda()
-            for pb, impl in OZAKI_PASSES:
-                if not same(x, pb, impl):
-                    fail(f"ozaki_split {shape} {impl} P={pb}: differs from "
-                         "the CPU split")
-                checked += 1
+        a, b = operand(sa), operand(sb)
+        for pb, impl in OZAKI_PASSES:
+            if not same(a, b, pb, impl):
+                fail(f"ozaki_split {sa} and {sb} {impl} P={pb}: differs "
+                     "from the plain split")
+            checked += 1
+    a, b = operand((37, 70), 5), operand((21, 3), 5)
+    b[3, 4, 1] = float("inf")
+    flags = Z.ozaki_split(a, b, 7, "int8")[4]
+    if flags.tolist() != [0, 0, 0, 1, 0] or not same(a, b, 7, "int8"):
+        fail("ozaki_split over a batch of 5: differs from the plain split")
     # the float split runs in the plain version only: refused on the card
     os.environ["GENFER_OZAKI_CHUNK"] = "float"
     before = Z.ozaki_split.launches
     try:
-        Z.ozaki_split(x, 7, "int8")
+        Z.ozaki_split(a, b, 7, "int8")
         fail("ozaki_split under GENFER_OZAKI_CHUNK=float: not refused")
     except NotImplementedError:
         pass
@@ -1845,20 +1909,28 @@ def _ozaki_split_rows(rng) -> dict:
     if Z.ozaki_split.launches != before:
         fail("ozaki_split under GENFER_OZAKI_CHUNK=float launched")
     n = OZAKI_TABLE_ORDER
-    x = torch.from_numpy(rng.random((n, n))).cuda()
-    if not same(x, 7, "int8"):
-        fail(f"ozaki_split ({n}, {n}): differs from the CPU split")
+    x = torch.from_numpy(rng.random((1, n, n))).cuda()
+    y = torch.from_numpy(rng.random((1, n, n))).cuda()
+    if not same(x, y, 7, "int8"):
+        fail(f"ozaki_split ({n}, {n}): differs from the plain split")
     row = {"max_abs_err": 0.0,
-           "ms": _time(lambda: Z.ozaki_split(x, 7, "int8")),
-           "plain_ms": _time(lambda: Z.ozaki_split_reference(x, 7, "int8")),
+           "ms": _time(lambda: Z.ozaki_split(x, y, 7, "int8")),
+           "plain_ms": _time(lambda: Z.ozaki_split_batched_reference(
+               x, y, 7, "int8")),
            "library_ms": None}
-    # x read once; 8 int8 chunks and the int32 exponents written once
-    row["bound_ms"], row["bound_by"] = bound_ms(0.0, n * n * (8 + 8)
-                                                + 4 * n)
-    print(f"phase 14 ozaki_split: {checked} operands x (pair_bits, impl) "
-          "equal to the CPU split bit for bit (chunks, exponents, flag), "
-          f"the float split refused; ({n}, {n}) int8 P=7: {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4g} ms (bytes)")
+    # both operands read once; 8 int8 chunks an entry and the int32
+    # exponents written once
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        0.0, 2 * (n * n * (8 + 8) + 4 * n))
+    cost = _profiled_us(lambda: Z.ozaki_split(x, y, 7, "int8"),
+                        "ozaki_split", 50)
+    print(f"phase 14 ozaki_split: {checked} operand pairs x (pair_bits, "
+          "impl) and a batch of 5 (one non-finite entry, flagged) equal to "
+          "the plain split bit for bit (chunks in the kernel's layout, "
+          "exponents, flags), the float split refused; both operands of "
+          f"({n}, {n}) x ({n}, {n}) int8 P=7 in one launch: "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4g} ms (bytes); {cost}")
     return row
 
 
@@ -1892,12 +1964,20 @@ class _RouteTap:
     the products it routes (``routed``: calls of ``ozaki_conv2d_guarded``),
     and keeps every ``OZAKI_E2E_STRIDE``-th routed product's operands and
     output (``kept``: a, b, out_shape, result) for the hold against the
-    plain version.  It counts no launch: those are the wrappers' own."""
+    plain version, and whether each routed product's operands are finite
+    (``flagged``: those the guard must send to K1, read after the run).
+    It counts no launch: those are the wrappers' own."""
 
     def __init__(self, Z):
         self.Z = Z
         self.asked = self.routed = 0
         self.kept = []
+        self.finite = []
+
+    @property
+    def flagged(self) -> int:
+        """Routed products whose operands hold a non-finite entry."""
+        return sum(not bool(f) for f in self.finite)
 
     def __enter__(self):
         Z = self.Z
@@ -1909,6 +1989,10 @@ class _RouteTap:
 
         def guarded(a, b, out_shape, *args):
             got = self.real[1](a, b, out_shape, *args)
+            # whether the guard must take it, kept on the card and read
+            # after the run (the tap waits for no value during it)
+            self.finite.append(torch.isfinite(a).all()
+                               & torch.isfinite(b).all())
             if self.routed % OZAKI_E2E_STRIDE == 0:
                 self.kept.append((a.clone(), b.clone(), tuple(out_shape),
                                   got.clone()))
@@ -1955,10 +2039,11 @@ def _ozaki_e2e(launches: dict, path: Path, degenerate: bool) -> None:
     (and ``GENFER_OZAKI_MIN_FLOPS=0``) on the card, int8 then bf16, each
     against the same forced run on the CPU (K5's plain version) at rel
     ``OZAKI_REL``.  Every 2-axis f64 product is routed (int8; bf16
-    refuses contractions above its cap), K5 launches once for every
-    routed product the guard does not send to K1, the split twice, and
-    a sample of the routed products is held to the plain version
-    (``_hold_kept``).  Unless ``degenerate`` (the route's componentwise
+    refuses contractions above its cap), K5, the split and K1 predicated
+    on the guard's flags launch once for every routed product, the
+    guard's device count equals the routed products with a non-finite
+    operand, and a sample of the routed products is held to the plain
+    version (``_hold_kept``).  Unless ``degenerate`` (the route's componentwise
     cliff collapses the answer: printed, not held), the forced run must
     print finite values with Z > 0 and route every product the default
     run sends to K1.  The deviation from host f64 is printed, not held;
@@ -1966,6 +2051,7 @@ def _ozaki_e2e(launches: dict, path: Path, degenerate: bool) -> None:
     from genfer_tpu_torch import cli
     from genfer_tpu_torch.lang.parser import parse_program
     from genfer_tpu_torch.ops import ozaki_conv as Z
+    from genfer_tpu_torch.ops import conv2d_f64
     from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
 
     text = path.read_text()
@@ -1982,7 +2068,7 @@ def _ozaki_e2e(launches: dict, path: Path, degenerate: bool) -> None:
     host_out, host_s = _capture(
         cli.main, [str(path), "--no-timing", "--backend", "numpy"])
     host = read_results(host_out)
-    conv2d_trunc_f64.launches = 0
+    conv2d_f64.reset_launches()
     Z.reset_launches()
     with _RouteTap(Z) as tap:
         default, _ = printed()
@@ -1995,21 +2081,26 @@ def _ozaki_e2e(launches: dict, path: Path, degenerate: bool) -> None:
         cpu, cpu_s = printed("cpu")
         for impl in Z.IMPLS:
             os.environ["GENFER_OZAKI_IMPL"] = impl
-            conv2d_trunc_f64.launches = 0
+            conv2d_f64.reset_launches()
             Z.reset_launches()
             with _RouteTap(Z) as tap:
                 card, card_s = printed()
                 torch.cuda.synchronize()
             k5, guarded = Z.ozaki_conv2d.launches_by_impl[impl], \
-                Z.ozaki_conv2d.guarded
+                Z.guarded_count()
             split, routed = Z.ozaki_split.launches, tap.routed
+            k1_guard = conv2d_trunc_f64.predicated
+            bodies = dict(Z.ozaki_conv2d.launches_by_body)
             name = f"ozaki_conv2d[{impl}]"
             launches[name] = launches.get(name, 0) + k5
             launches["ozaki_split"] = launches.get("ozaki_split", 0) + split
             what = f"{path.name} forced {impl} run"
-            if k5 < 1 or k5 + guarded != routed or split != 2 * routed:
-                fail(f"{what}: {k5} K5 launches and {guarded} guarded for "
-                     f"{routed} routed products, {split} split launches")
+            if (k5 < 1 or k5 != routed or split != routed
+                    or k1_guard != routed or guarded != tap.flagged):
+                fail(f"{what}: {k5} K5 launches, {split} split launches, "
+                     f"{k1_guard} predicated K1 launches and {guarded} "
+                     f"guarded ({tap.flagged} flagged) for {routed} routed "
+                     "products")
             if impl == "int8" and routed != tap.asked:
                 fail(f"{what}: routed {routed} of {tap.asked} 2-axis f64 "
                      "products")
@@ -2037,9 +2128,11 @@ def _ozaki_e2e(launches: dict, path: Path, degenerate: bool) -> None:
                             host.items() if k in card and w), default=0.0)
             print(f"phase 14 {what}: {tap.asked} 2-axis f64 products "
                   f"({products} in the default run), {routed} routed, K5 "
-                  f"launched {k5} times, the guard sent {guarded} to K1 "
-                  f"(counted), split {split}, K1 {conv2d_trunc_f64.launches}"
-                  f" (>= 3-axis, refused and guarded); {len(cpu)} results "
+                  f"launched {k5} times ({bodies}), the guard sent "
+                  f"{guarded} to K1 (counted on the device), split {split}, "
+                  f"K1 {conv2d_trunc_f64.launches} ({k1_guard} of them "
+                  "predicated on the guard's flags, the rest >= 3-axis and "
+                  f"refused products); {len(cpu)} results "
                   f"within rel {OZAKI_REL} of the forced CPU run (max rel "
                   f"dev {worst:.3e}); {held} of its products ({len(shapes)}"
                   f" shapes) held to the plain version, max err "
@@ -2055,6 +2148,212 @@ def _ozaki_e2e(launches: dict, path: Path, degenerate: bool) -> None:
     print(f"phase 14 {path.name} --backend jax, default env: 0 K5 "
           f"launches, K1 {k1_default}; Z {default.get('Z')!r} (host "
           f"{host.get('Z')!r}, {host_s:.3f} s)")
+
+
+def _profiled_us(call, what: str, calls: int) -> str:
+    """``_host_and_device_us`` for phase 14's many timing lines: where the
+    profiler records no device event, the device time is reported as not
+    measured (a measurement, not a check of the kernel)."""
+    host_us, kernels = _host_us_and_kernels(call, calls)
+    if sum(kernels.values()) > 0:
+        return _us_line(host_us, kernels)
+    return (f"host {host_us:.2f} us a call (not waiting), device time not "
+            f"measured for {what} (torch.profiler recorded no event)")
+
+
+def _ozaki_serving_batch(rng) -> None:
+    """K5's small body over the serving batch (``OZAKI_SERVING`` x
+    bench.SERVING_BATCH), as the compiled mode's vmap rule launches it:
+    every ``OZAKI_SERVING_STRIDE``-th entry held to the plain version at
+    ``OZAKI_TOL`` and equal to its single-pair call, the same bits twice;
+    its time beside K1's small body, cuDNN's grouped f64 ``conv2d`` and
+    the byte bound."""
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.bench import SERVING_BATCH, bound_ms
+    from genfer_tpu_torch.ops import ozaki_conv as Z
+
+    sa, sb, out = OZAKI_SERVING
+    batch = SERVING_BATCH
+    a = torch.from_numpy(rng.random((batch, *sa))).cuda()
+    b = torch.from_numpy(rng.random((batch, *sb))).cuda()
+    got = Z.ozaki_conv2d_batched(a, b, out)
+    if not torch.equal(got, Z.ozaki_conv2d_batched(a, b, out)):
+        fail("ozaki_conv2d serving batch: two calls differ")
+    worst = 0.0
+    for z in range(0, batch, OZAKI_SERVING_STRIDE):
+        want = Z.ozaki_conv2d_reference(a[z], b[z], out)
+        worst = max(worst, _ozaki_gate(f"ozaki serving batch entry {z}",
+                                       got[z], want))
+        if not torch.equal(got[z], Z.ozaki_conv2d(a[z], b[z], out)):
+            fail(f"ozaki serving batch entry {z}: not its single call")
+    ms = _time(lambda: Z.ozaki_conv2d_batched(a, b, out))
+    k1_ms = _time(lambda: ops.conv2d_trunc_f64_batched(a, b, out))
+    bound = bound_ms(0.0, 8 * batch * (sa[0] * sa[1] + sb[0] * sb[1]
+                                       + out[0] * out[1]))[0]
+    # one grouped correlation over the batch (tune_port.py probe 12's
+    # yardstick)
+    (b0, b1), (c0, c1) = sb, out
+    x = torch.zeros((1, batch, c0 + b0 - 1, c1 + b1 - 1), dtype=a.dtype,
+                    device=a.device)
+    x[0, :, b0 - 1:, b1 - 1:b1 - 1 + sa[1]] = a[:, :c0, :]
+    w = torch.flip(b, dims=(1, 2))[:, None].contiguous()
+    lib_ms = _time(lambda: F.conv2d(x, w, groups=batch))
+    cost = _profiled_us(lambda: Z.ozaki_conv2d_batched(a, b, out),
+                        "ozaki serving batch", 20)
+    print(f"phase 14 ozaki_conv2d[int8] small body {sa}x{sb}->{out} x "
+          f"{batch}: {batch // OZAKI_SERVING_STRIDE} entries within "
+          f"{worst:.3e} of each column's max of the plain version and equal "
+          f"to their single calls, the same bits twice; {ms:.4f} ms a call "
+          f"(guarded), K1 small body {k1_ms:.4f} ms, cuDNN grouped f64 "
+          f"conv2d {lib_ms:.4f} ms, bound {bound:.4g} ms (bytes); {cost}")
+
+
+def _profiled_syncs(call) -> list:
+    """The host CUDA calls among ``SYNC_CALLS`` that ``call()`` made, from
+    ``torch.profiler`` (the CPU's runtime events inside the call's own
+    range, not the profiler's start and stop)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("call under test"):
+            call()
+    torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == "call under test"]
+    start = min(t.start for t in spans)
+    end = max(t.end for t in spans)
+    return sorted({e.name for e in events
+                   if any(c in e.name for c in SYNC_CALLS)
+                   and start <= e.time_range.start <= end})
+
+
+def _ozaki_compiled(launches: dict) -> None:
+    """The compiled mode under ``GENFER_OZAKI=force``: the scam model's
+    batched walk (``OZAKI_COMPILED_SRC``, 26 products) over
+    bench.SERVING_BATCH datasets on the card.  The eager warm-up walk
+    launches the split, K5 and K1 predicated once a vmapped product, with
+    no synchronize (torch.profiler); the captured walk launches them once
+    a product again; replays equal the eager walk bit for bit and the
+    eager ``--backend jax`` run of the bound program (``api.infer``) at
+    ``OZAKI_REL``; the guard's device count stays 0, and a captured
+    ``ozaki_op`` over a batch with a NaN entry counts it at every replay
+    and returns K1's bits there."""
+    from genfer_tpu_torch import api
+    from genfer_tpu_torch.bench import SERVING_BATCH
+    from genfer_tpu_torch.compile import CompiledProgram, GraphedEntry
+    from genfer_tpu_torch.ops import conv2d_f64 as K
+    from genfer_tpu_torch.ops import ozaki_conv as Z
+
+    force = {"GENFER_OZAKI": "force", "GENFER_OZAKI_MIN_FLOPS": "0"}
+    os.environ.update(force)
+    try:
+        n = OZAKI_COMPILED_LIMIT
+        prog = CompiledProgram(OZAKI_COMPILED_SRC, ["p"], limit=n)
+        grid = torch.linspace(0.01, 0.99, SERVING_BATCH,
+                              dtype=torch.float64).reshape(-1, 1)
+        grid[:len(OZAKI_COMPILED_HELD), 0] = torch.tensor(
+            OZAKI_COMPILED_HELD, dtype=torch.float64)
+        a = torch.rand(255, 268, dtype=torch.float64, device="cuda")
+        b = torch.rand(2, 2, dtype=torch.float64, device="cuda")
+        Z.ozaki_conv2d_guarded(a, b, (255, 268))
+        syncs = _profiled_syncs(lambda: Z.ozaki_conv2d_guarded(
+            a, b, (255, 268)))
+        if syncs:
+            fail(f"the eager forced route called {syncs}")
+        grid = grid.cuda()
+        prog._probs_batch.eager(grid)  # the constants' and plans' copies
+        Z.reset_launches()
+        K.reset_launches()
+        syncs = _profiled_syncs(lambda: prog._probs_batch.eager(grid))
+        eager = prog._probs_batch.eager(grid)
+        if syncs:
+            fail(f"compiled mode under force: the eager walk called {syncs}")
+        counts = (Z.ozaki_conv2d.launches, Z.ozaki_split.launches,
+                  K.conv2d_trunc_f64.predicated)
+        if counts != (2 * n,) * 3:
+            fail(f"compiled mode under force: two eager walks launched K5, "
+                 f"the split and K1 predicated {counts} times, not {n} each "
+                 "a walk")
+        Z.reset_launches()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        first = prog.probs_batch(grid)
+        capture_s = time.perf_counter() - t0
+        k5 = Z.ozaki_conv2d.launches
+        by_body = dict(Z.ozaki_conv2d.launches_by_body)
+        launches["ozaki_conv2d[int8]"] = (
+            launches.get("ozaki_conv2d[int8]", 0) + k5)
+        launches["ozaki_split"] = (launches.get("ozaki_split", 0)
+                                   + Z.ozaki_split.launches)
+        if (k5, Z.ozaki_split.launches, K.conv2d_trunc_f64.predicated) != (
+                n, n, n):
+            fail(f"compiled mode under force: the captured walk launched K5 "
+                 f"{k5} times, not once for each of its {n} products")
+        if not torch.equal(first, eager):
+            fail("compiled mode under force: the replay differs from the "
+                 "eager walk")
+        t0 = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            replay = prog.probs_batch(grid)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) / reps * 1e3
+        if not torch.equal(replay, eager) or Z.ozaki_conv2d.launches != k5:
+            fail("compiled mode under force: replays differ or launched")
+        if Z.guarded_count() != 0:
+            fail("compiled mode under force: the guard counted a product")
+        worst = 0.0
+        for i, p in enumerate(OZAKI_COMPILED_HELD):
+            r = api.infer(OZAKI_COMPILED_SRC.replace("$p", repr(p)),
+                          backend="jax")
+            ref = torch.tensor([x.to_float()
+                                for x in r.probs(n, normalized=False)],
+                               dtype=torch.float64)
+            got = replay[i].cpu()
+            dev = float(((got - ref).abs()
+                         / ref.abs().clamp_min(1e-300)).max())
+            if not dev <= OZAKI_REL:
+                fail(f"compiled mode under force, $p = {p}: {dev:.3e} from "
+                     "the eager forced --backend jax run")
+            worst = max(worst, dev)
+        # the guard inside a graph: one NaN entry of a vmapped batch
+        rng = np.random.default_rng(141)
+        a = torch.from_numpy(rng.random((8, 40, 33))).cuda()
+        b = torch.from_numpy(rng.random((8, 2, 2))).cuda()
+        a[5, 7, 9] = float("nan")
+        out = (40, 34)
+        entry = GraphedEntry(torch.func.vmap(
+            lambda x, y: Z.ozaki_op(x[None], y[None], out)[0]),
+            torch.device("cuda"))
+        entry.eager(a, b)
+        Z.reset_launches()
+        for _ in range(3):
+            guarded = entry(a, b)
+        torch.cuda.synchronize()
+        want = K.conv2d_trunc_f64(a[5], b[5], out)
+        nan = torch.isnan(want)
+        if (Z.guarded_count() != 3 or Z.ozaki_conv2d.launches != 1
+                or not torch.equal(torch.isnan(guarded[5]), nan)
+                or not torch.equal(guarded[5][~nan], want[~nan])
+                or not torch.equal(guarded[4], Z.ozaki_conv2d(a[4], b[4],
+                                                              out))):
+            fail("compiled mode under force: the captured guard is not K1's "
+                 "result or not counted at each replay")
+    finally:
+        for key in force:
+            os.environ.pop(key, None)
+    print(f"phase 14 compiled mode under force, scam model x "
+          f"{SERVING_BATCH} datasets: eager walk and an eager forced "
+          f"product with no {SYNC_CALLS[0]} / {SYNC_CALLS[1]} "
+          f"(torch.profiler), {n} split, K5 and predicated "
+          f"K1 launches a walk; the captured walk launched K5 {k5} times "
+          f"({by_body}), capture {capture_s:.3f} s, replay {replay_ms:.3f} "
+          "ms with read-back, equal to the eager walk bit for bit; the "
+          f"guard's device count 0; $p {OZAKI_COMPILED_HELD} within "
+          f"{worst:.3e} of the eager forced --backend jax run; a captured "
+          "vmapped ozaki_op with one NaN entry: counted at each of 3 "
+          "replays, K1's bits there, K5's elsewhere")
 
 
 def phase14_ozaki(launches: dict) -> dict:
@@ -2081,7 +2380,7 @@ def phase14_ozaki(launches: dict) -> dict:
         a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
         plain_rows = 128 if max(out) > 512 else None
         big = max(out) >= OZAKI_ORDERS[0]
-        if big:
+        if big or label.startswith("main path"):
             k1_ms[out] = _time(lambda: ops.conv2d_trunc_f64(a, b, out))
         for pb, impl in OZAKI_PASSES:
             name = f"ozaki_conv2d[{impl}]"
@@ -2099,20 +2398,22 @@ def phase14_ozaki(launches: dict) -> dict:
             err = _ozaki_gate(f"{name} {label} P={pb}", got, want)
             line = (f"phase 14 {name} {label} P={pb}: same bits twice, max "
                     f"err {err:.3e} of each output column's max")
-            if big or label.startswith("("):
+            main = label.startswith("main path")
+            if big or main or label.startswith("("):
                 ms = _time(lambda: Z.ozaki_conv2d(a, b, out, pb, impl))
                 plain_ms = _time(lambda: Z.ozaki_conv2d_reference(
                     a, b, out, pb, impl, plain_rows))
                 bound, by = product_bound(
                     a.shape, b.shape, out, passes=Z.pair_passes(pb),
                     rate=INT8_MMA if impl == "int8" else BF16_MMA)
-                # the host's time includes the guard's one synchronize;
-                # from order 256 the card is busy for the whole call, and
-                # its CUDA-event time is the device time
+                # the guarded call (split, K5, K1 predicated on the flags
+                # and the select) waits for nothing; from order 256 the
+                # card is busy for the whole call, and its CUDA-event time
+                # is the device time
                 def call():
                     return Z.ozaki_conv2d(a, b, out, pb, impl)
 
-                cost = (_host_and_device_us(call, name, 50) if not big
+                cost = (_profiled_us(call, name, 50) if not big
                         else f"host {_host_us(call):.2f} us a call (not "
                         f"waiting), device {1e3 * ms:.2f} us a call (CUDA "
                         "events)")
@@ -2120,8 +2421,23 @@ def phase14_ozaki(launches: dict) -> dict:
                          f"bound {bound:.4g} ms ({by}, "
                          f"{Z.pair_passes(pb)} passes), share "
                          f"{100 * bound / ms:.1f}%; {cost}")
-                if big:
+                line += f"; K5 body {Z.k5_body(a.shape, b.shape)}"
+                if pb == 7:
+                    line += ("; unguarded (split and K5 alone): " +
+                             _profiled_us(
+                                 lambda: Z.ozaki_conv2d(a, b, out, pb, impl,
+                                                        guard=False),
+                                 name, 50 if not big else 5))
+                if big or main:
                     line += f"; K1 {k1_ms[out]:.4f} ms"
+                if main and (pb, impl) == (7, "int8"):
+                    lib, lib_err = _library(
+                        _conv2d_library(a[None], b, out), want, ATOL)
+                    line += (f"; cuDNN f64 {lib:.4f} ms (max rel err "
+                             f"{lib_err:.3e}); K1 "
+                             + _profiled_us(
+                                 lambda: ops.conv2d_trunc_f64(a, b, out),
+                                 "K1", 50))
                 if pb == 7 and out == (OZAKI_TABLE_ORDER,) * 2:
                     lib, lib_err = _library(
                         _conv2d_library(a[None], b, out), want, ATOL)
@@ -2139,15 +2455,19 @@ def phase14_ozaki(launches: dict) -> dict:
     a = torch.from_numpy(rng.random((16, 16))).cuda()
     b = torch.from_numpy(rng.random((16, 16))).cuda()
     a[3, 5] = float("nan")
-    before = Z.ozaki_conv2d.launches
+    Z.reset_launches()
     got = Z.ozaki_conv2d(a, b, (31, 31))
     want = ops.conv2d_trunc_f64(a, b, (31, 31))
     nan = torch.isnan(want)
-    if (Z.ozaki_conv2d.launches != before or not torch.equal(
-            torch.isnan(got), nan) or not torch.equal(got[~nan], want[~nan])):
+    if (Z.ozaki_conv2d.launches != 1 or Z.guarded_count() != 1
+            or not torch.equal(torch.isnan(got), nan)
+            or not torch.equal(got[~nan], want[~nan])):
         fail("ozaki_conv2d with a NaN operand: not K1's IEEE result")
-    print(f"phase 14 ozaki_conv2d (16,16)x(16,16) with a NaN: the guard ran "
-          f"K1, {int(nan.sum())} NaN outputs, the rest K1's bits")
+    print(f"phase 14 ozaki_conv2d (16,16)x(16,16) with a NaN: K5 launched, "
+          "its blocks wrote nothing, the guard counted 1 on the device and "
+          f"the result is K1's: {int(nan.sum())} NaN outputs, the rest K1's "
+          "bits")
+    _ozaki_serving_batch(rng)
     for n in OZAKI_ORDERS:
         shape = (n, n)
         bound = product_bound(shape, shape, shape, rate=F64_MMA)[0]
@@ -2179,6 +2499,7 @@ def phase14_ozaki(launches: dict) -> dict:
             tp = Path(tmp) / f"two_populations_{size}.sgcl"
             generate_two_populations(tp, size, seed=0)
             _ozaki_e2e(launches, tp, degenerate=size == E2E_SIZE)
+    _ozaki_compiled(launches)
     _check_no_jax()
     return rows
 

@@ -106,14 +106,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         *((name, [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr])
           for name in ("conv2d_trunc_f32", "conv2d_trunc_f32_tile",
                        "conv2d_trunc_f32_grouped")),
-        *((name, [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6
-           + [ptr])
-          for name in ("conv2d_trunc_f32_batched",
-                       "conv2d_trunc_f64_batched")),
+        ("conv2d_trunc_f32_batched",
+         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
+        ("conv2d_trunc_f64_batched",
+         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6
+         + [ptr] * 2),
         ("conv1d_trunc_f32", [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]),
-        ("conv2d_small_f64", [ptr] * 3 + [i32] * 8 + [ptr]),
-        ("ozaki_split", [ptr] + [i32] * 4 + [ptr] * 4),
-        ("ozaki_conv2d", [ptr] * 7 + [i32, ptr] + [i32] * 11 + [ptr]),
+        ("conv2d_small_f64", [ptr] * 3 + [i32] * 8 + [ptr] * 2),
+        ("ozaki_split", [ptr] * 2 + [i32] * 7 + [ptr] * 6),
+        ("ozaki_conv2d", [ptr] * 9 + [i32, ptr] + [i32] * 14 + [ptr]),
+        ("ozaki_small", [ptr] * 7 + [i32] * 12 + [ptr]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -58,9 +58,11 @@ __global__ void __launch_bounds__(SMALL_NT)
 conv2d_small_f64_kernel(const double* __restrict__ a,
                         const double* __restrict__ s, double* __restrict__ c,
                         int tiles1, int tiles, int a0, int a1, int s0, int s1,
-                        int c0, int c1, bool vec) {
+                        int c0, int c1, bool vec,
+                        const int* __restrict__ flag) {
   extern __shared__ __align__(16) double small_smem[];
   const int z = blockIdx.x / tiles;
+  if (flag != nullptr && flag[z] == 0) return;  // the guard's predicate
   const int tile = blockIdx.x - z * tiles;
   const int K0 = tile / tiles1 * SMALL_TR;
   const int K1 = tile % tiles1 * SMALL_TC;
@@ -140,10 +142,13 @@ conv2d_small_f64_kernel(const double* __restrict__ a,
 // was accepted).  a (batch x a0 x a1), s (batch x s0 x s1) and c (batch x
 // c0 x c1) are contiguous row-major f64 on the current device, all sizes
 // >= 1, s0 * s1 <= SMALL_LIMIT; ``vec``: a is 16-byte aligned and a1 is
-// even.  Every output word is written.
+// even.  Every output word is written, except where ``flag`` (batch
+// int32, or null: the guard of ozaki_conv2d.cu) holds 0 for the entry: its
+// blocks return at once.
 extern "C" int conv2d_small_f64(const double* a, const double* s, double* c,
                                 int batch, int a0, int a1, int s0, int s1,
-                                int c0, int c1, int vec, void* stream) {
+                                int c0, int c1, int vec, const int* flag,
+                                void* stream) {
   if (s0 * s1 > SMALL_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles1 = (c1 + SMALL_TC - 1) / SMALL_TC;
   const long long tiles =
@@ -156,6 +161,6 @@ extern "C" int conv2d_small_f64(const double* a, const double* s, double* c,
   conv2d_small_f64_kernel<<<static_cast<unsigned>(tiles * batch), SMALL_NT,
                             smem, static_cast<cudaStream_t>(stream)>>>(
       a, s, c, tiles1, static_cast<int>(tiles), a0, a1, s0, s1, c0, c1,
-      vec != 0);
+      vec != 0, flag);
   return static_cast<int>(cudaGetLastError());
 }

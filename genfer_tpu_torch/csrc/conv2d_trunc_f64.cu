@@ -257,10 +257,12 @@ conv2d_trunc_f64_kernel(const double* __restrict__ a,
                         double* __restrict__ work,
                         const int4* __restrict__ units, int batch, int slots,
                         size_t a_stride, size_t b_stride, int a0, int a1,
-                        int b1, int c0, int c1) {
+                        int b1, int c0, int c1,
+                        const int* __restrict__ flag) {
   extern __shared__ __align__(16) double smem64[];
   const int u = blockIdx.x / batch;
   const size_t g = blockIdx.x - u * batch;
+  if (flag != nullptr && flag[g] == 0) return;  // the guard's predicate
   const int4 p = units[2 * u];
   const int4 q = units[2 * u + 1];
   const bool to_slot = q.z >= 0;
@@ -281,12 +283,14 @@ conv2d_trunc_f64_kernel(const double* __restrict__ a,
 // aligned); ``work`` batch * slots tiles of 64x64 f64, ``slots`` being the
 // slots one pair's table names (not read when n_sums == 0).  Output tiles
 // that no unit names are left as they are.  batch * n_units must stay
-// below 2^31.
+// below 2^31.  ``flag`` (batch int32, or null): where given, the blocks of
+// an entry whose flag is 0 return at once (the guard of ozaki_conv2d.cu),
+// and that entry's slots and output are left unwritten by the units.
 extern "C" int conv2d_trunc_f64_batched(
     const double* a, const double* b, double* c, double* work,
     const void* units, int n_units, const void* sums, int n_sums, int slots,
     size_t a_stride, size_t b_stride, int batch, int a0, int a1, int b1,
-    int c0, int c1, void* stream) {
+    int c0, int c1, const int* flag, void* stream) {
   if (static_cast<long long>(batch) * n_units > INT_MAX)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -297,7 +301,7 @@ extern "C" int conv2d_trunc_f64_batched(
   conv2d_trunc_f64_kernel<<<static_cast<unsigned>(n_units) * batch, NT,
                             F64Geo::SMEM, st>>>(
       a, b, c, work, static_cast<const int4*>(units), batch, slots, a_stride,
-      b_stride, a0, a1, b1, c0, c1);
+      b_stride, a0, a1, b1, c0, c1, flag);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
   return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),

@@ -137,10 +137,13 @@ def unit_plan(a_shape, b_shape, out_shape, cut_j1: bool = True) -> UnitPlan:
 
 
 def plan_units(a_shape, b_shape, out_shape, cut_j1: bool,
-               mma_rows: int) -> UnitPlan:
+               mma_rows: int, j0_align: int = 1) -> UnitPlan:
     """``unit_plan``'s body, with the least j0 range of the plan that cuts
-    j0 only (``cut_j1=False``) as ``mma_rows``: K5 (``ops.ozaki_conv``),
-    which contracts over j0 in ``mma`` slices of 32 rows, asks for 32."""
+    j0 only (``cut_j1=False``) as ``mma_rows``, and every tile's j0 range
+    starting at a multiple of ``j0_align`` (its first rows then meet only
+    zeros of a: ``tile_ranges`` clips j0 where a ends).  K5
+    (``ops.ozaki_conv``), which stages j0 in 16-row pieces and contracts
+    over stages of 64 rows, asks for 64 rows aligned to 16."""
     swap = _swap(a_shape, b_shape)
     if swap:
         a_shape, b_shape = b_shape, a_shape
@@ -154,7 +157,7 @@ def plan_units(a_shape, b_shape, out_shape, cut_j1: bool,
         for K1 in range(0, c1, TILE):
             r = tile_ranges(a_shape, b_shape, out_shape, K0, K1)
             if r[1] > r[0] and r[3] > r[2]:
-                tiles.append((K0, K1, *r))
+                tiles.append((K0, K1, r[0] - r[0] % j0_align, *r[1:]))
     covers = len(tiles) == _cdiv(c0, TILE) * _cdiv(c1, TILE)
     weight = [(t[3] - t[2]) * (t[5] - t[4]) for t in tiles]
     total = sum(weight)

@@ -157,7 +157,7 @@ def conv2d_trunc_f64_reference(a, b, out_shape, rows=None):
                                               rows)[0]
 
 
-def _small(lib, a, b, c0, c1):
+def _small(lib, a, b, c0, c1, flag):
     """The small body: one launch over (entry, output tile)."""
     batch = a.shape[0]
     ka, ks = (b, a) if _swap(tuple(a.shape[1:]), tuple(b.shape[1:])) else (
@@ -169,12 +169,13 @@ def _small(lib, a, b, c0, c1):
     err = lib.conv2d_small_f64(
         ka.data_ptr(), ks.data_ptr(), out.data_ptr(), batch, ka.shape[1],
         ka.shape[2], ks.shape[1], ks.shape[2], c0, c1, int(vec),
+        0 if flag is None else flag.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "conv2d_small_f64", err)
     return out
 
 
-def _dense(lib, a, b, c0, c1):
+def _dense(lib, a, b, c0, c1, flag):
     """The dense body on ``unit_plan(..., cut_j1=False)`` of the pair's
     shapes (its tables kept on the card per shape)."""
     batch = a.shape[0]
@@ -193,38 +194,48 @@ def _dense(lib, a, b, c0, c1):
         units.data_ptr(), len(plan.units), sums.data_ptr(),
         len(plan.sums), plan.slots, ka[0].numel(), kb[0].numel(), batch,
         ka.shape[1], ka.shape[2], kb.shape[2], c0, c1,
+        0 if flag is None else flag.data_ptr(),
         torch.cuda.current_stream().cuda_stream,
     )
     _build.check(lib, "conv2d_trunc_f64_batched", err)
     return out
 
 
-def _launch(body, a, b, c0, c1):
+def _launch(body, a, b, c0, c1, flag):
     """Run ``body`` of K1 on the card (``dense_t``: the dense body on the
     transposed operands, its result transposed back)."""
     lib = _build.load()
     if body == "small":
-        return _small(lib, a, b, c0, c1)
+        return _small(lib, a, b, c0, c1, flag)
     if body == "dense":
-        return _dense(lib, a, b, c0, c1)
-    out = _dense(lib, a.mT.contiguous(), b.mT.contiguous(), c1, c0)
+        return _dense(lib, a, b, c0, c1, flag)
+    out = _dense(lib, a.mT.contiguous(), b.mT.contiguous(), c1, c0, flag)
     return out.mT.contiguous()
 
 
-def conv2d_trunc_f64_batched(a, b, out_shape):
+def conv2d_trunc_f64_batched(a, b, out_shape, flag=None):
     """Truncated 2-D Cauchy products of every pair ``a[z]``, ``b[z]`` of
     the batches ``a`` (B, a0, a1) and ``b`` (B, b0, b1), f64, to (B, c0,
-    c1); any sizes >= 1."""
+    c1); any sizes >= 1.  ``flag``: an int32 tensor (B,) on the card (the
+    guard of ``ops.ozaki_conv``): the kernel's blocks of an entry whose
+    flag is 0 do nothing, and that entry's output is undefined (counted in
+    ``conv2d_trunc_f64.predicated`` besides the launch counts); the plain
+    version computes every entry."""
     c0, c1 = _check(a, b, out_shape, 3, 3, torch.float64)
     if a.shape[0] != b.shape[0]:
         raise ValueError(f"batches of {a.shape[0]} and {b.shape[0]} pairs")
     if not _on_card(a):
         return conv2d_trunc_f64_batched_reference(a, b, (c0, c1))
+    if flag is not None and (flag.dtype != torch.int32
+                             or tuple(flag.shape) != (a.shape[0],)
+                             or flag.device != a.device):
+        raise ValueError("flag must be int32 (B,) on the operands' device")
     body = k1_body(tuple(a.shape[1:]), tuple(b.shape[1:]), (c0, c1))
     with _on_device(a.device):
-        out = _launch(body, a, b, c0, c1)
+        out = _launch(body, a, b, c0, c1, flag)
     conv2d_trunc_f64.launches += 1
     conv2d_trunc_f64.launches_by_body[body] += 1
+    conv2d_trunc_f64.predicated += flag is not None
     return out
 
 
@@ -271,9 +282,10 @@ def k1_op(a, b, out_shape):
 
 
 def reset_launches() -> None:
-    """Set K1's launch counts, total and by body, to 0 (the by-body dict
-    in place, so that a reference to it stays live)."""
+    """Set K1's launch counts, total, by body and predicated, to 0 (the
+    by-body dict in place, so that a reference to it stays live)."""
     conv2d_trunc_f64.launches = 0
+    conv2d_trunc_f64.predicated = 0
     conv2d_trunc_f64.launches_by_body.update(dict.fromkeys(BODIES, 0))
 
 

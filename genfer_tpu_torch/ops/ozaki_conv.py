@@ -26,20 +26,29 @@ chunks' remainder floor, ~1e-16 normwise; P = 6 (28 passes) ~1e-13; P = 5
 their column-scale product lose relative accuracy (the componentwise
 cliff of genfer_tpu's module docstring, a property of the method).
 
-On a CUDA tensor ``ozaki_conv2d`` launches the split
-(``csrc/ozaki_split.cu``: column exponents, the chunks of each operand as
-int8 or bf16 laid out [n_t, rows, cols], an all-finite flag on the card)
-and K5 (``csrc/ozaki_conv2d.cu``: ``mma.sync`` m16n8k32 s8 or m16n8k16
-bf16 passes on the work units of K1's plan, ``unit_plan(cut_j1=False)``,
-with j0 ranges of at least 32 rows (``plan``), the slots added in order),
-or raises; on a CPU tensor it runs the plain version
-``ozaki_conv2d_reference``.  There is no other fallback
-but the guard's: with ``guard`` (the default, and always in
-``ozaki_conv2d_guarded``) a product whose operands hold a non-finite
-value goes to K1 (``taylor.backend._conv_dense``), which keeps IEEE
-propagation, as genfer_tpu's ``lax.cond`` does, and adds one to
-``ozaki_conv2d.guarded``; the guard reads the split's flag once a product
-(one synchronize).
+On a CUDA tensor ``ozaki_conv2d_batched`` (and ``ozaki_conv2d``, its
+batch of one) launches the split once for both operands of every batch
+entry (``csrc/ozaki_split.cu``: column exponents, the chunks as int8 or
+bf16 in the layout K5 stages in 16-byte pieces, one finiteness flag a
+product) and K5 once (``csrc/ozaki_conv2d.cu``): its small body where the
+smaller operand holds at most ``SMALL_MAX_COEFFS`` coefficients (exact
+int32 multiply-adds on the CUDA cores, one launch, no plan), else its
+dense body on the work units of ``plan`` (``wgmma`` m64n64k32 s8 for
+int8, ``mma.sync`` m16n8k16 for bf16, 64-row stages of j0, the slots
+added in order), or raises; on a CPU tensor it runs the plain version
+``ozaki_conv2d_reference`` a batch entry at a time.  There is no other
+fallback but the guard's, which never waits for the host: with ``guard``
+(the default, and always in ``ozaki_conv2d_guarded`` and ``ozaki_op``)
+K5's blocks of a product whose operands hold a non-finite value write
+nothing and add one to the guard's count on the device
+(``guarded_count``); K1 (``ops.conv2d_f64``) is launched predicated on
+the same flags, its blocks of the other products doing nothing, and
+``torch.where`` takes K1's result for the flagged products, as
+genfer_tpu's ``lax.cond`` under ``vmap`` selects.  So a flagged product
+equals K1's bit for bit, which keeps IEEE propagation.  ``ozaki_op`` is
+the batched product as a torch custom op with a vmap rule, for the
+compiled mode (``genfer_tpu_torch.compile``): one split and one K5 launch
+a vmapped product, captured in its CUDA graph like K1's op.
 
 The route (``ozaki_applicable``, read by ``taylor.backend._conv_impl``)
 keeps genfer_tpu's environment knobs:
@@ -76,7 +85,8 @@ import torch
 
 from .. import _build
 from ..taylor.backend import _antidiag_sum, _toeplitz
-from .conv2d import TILE, _check, _on_card, _on_device, plan_units
+from .conv2d import TILE, _check, _on_card, _on_device, _swap, plan_units
+from .conv2d_f64 import SMALL_MAX_COEFFS, conv2d_trunc_f64_batched
 
 # 7-bit signed chunks scaled into [-64, 64]: products fit 2^12; the
 # int32 accumulator is exact for contractions up to 2^19 per pass and
@@ -90,6 +100,7 @@ MAX_K_INT8 = 1 << 16
 #: that both packages route and refuse the same products)
 MAX_K_BF16 = 512
 IMPLS = ("int8", "bf16")
+BODIES = ("small", "dense")
 MAX_PAIR_BITS = 2 * N_CHUNKS - 2  # t + u of the last chunk pair
 
 #: genfer_tpu's crossover against the XLA f64 emulation on the TPU (kept
@@ -99,10 +110,15 @@ OZAKI_MIN_FLOPS_DEFAULT = 6e8
 #: cap on ``estimate_bytes`` (bytes of K5's own buffers)
 OZAKI_MAX_BYTES_DEFAULT = 10e9
 OZAKI_MAX_K = MAX_K_INT8
-#: rows of j0 a stage of K5 contracts over (OzGeo::G in the .cu: one
-#: m16n8k32 slice), and the least j0 range of a unit of its plan
-#: (``ops.conv2d.plan_units(..., cut_j1=False, mma_rows=STAGE_ROWS)``)
-STAGE_ROWS = 32
+#: the split pads every chunk column to a multiple of this many rows, and
+#: every tile of K5's plan starts its j0 range at such a multiple: K5
+#: stages both operands in 16-byte pieces of whole rows (OzStage::PR)
+PIECE_ROWS = 16
+#: rows of j0 a stage of K5's dense body contracts over (OzGeo::G in the
+#: .cu, both impls), and the least j0 range of a unit of its plan
+#: (``ops.conv2d.plan_units(..., cut_j1=False, mma_rows=STAGE_ROWS,
+#: j0_align=PIECE_ROWS)``)
+STAGE_ROWS = 64
 
 
 def _pow2_colexp(x):
@@ -201,12 +217,14 @@ def _elem_dtype(impl: str) -> torch.dtype:
 
 @functools.lru_cache(maxsize=1024)
 def _plan(a_shape, b_shape, out_shape):
-    return plan_units(a_shape, b_shape, out_shape, False, STAGE_ROWS)
+    return plan_units(a_shape, b_shape, out_shape, False, STAGE_ROWS,
+                      PIECE_ROWS)
 
 
 def plan(a_shape, b_shape, out_shape):
-    """K5's work units: K1's dense plan (``unit_plan(cut_j1=False)``) with
-    j0 ranges of at least ``STAGE_ROWS`` rows."""
+    """The work units of K5's dense body: K1's dense plan
+    (``unit_plan(cut_j1=False)``) with j0 ranges of at least
+    ``STAGE_ROWS`` rows, cut at multiples of ``PIECE_ROWS``."""
     return _plan(tuple(a_shape), tuple(b_shape), tuple(out_shape))
 
 
@@ -219,13 +237,28 @@ def _plan_on_card(a_shape, b_shape, out_shape, device):
             torch.from_numpy(p.sums).to(device))
 
 
+def k5_body(a_shape, b_shape) -> str:
+    """K5's body for one pair's shapes: ``"small"`` where the smaller
+    operand holds at most ``SMALL_MAX_COEFFS`` coefficients (K1's small
+    class), else ``"dense"``."""
+    s0, s1 = b_shape if not _swap(tuple(a_shape), tuple(b_shape)) \
+        else a_shape
+    return "small" if s0 * s1 <= SMALL_MAX_COEFFS else "dense"
+
+
+def padded_rows(rows: int) -> int:
+    """Rows of a chunk column as the split lays it out: ``rows`` rounded up
+    to a multiple of ``PIECE_ROWS`` (the padding holds zeros)."""
+    return -(-rows // PIECE_ROWS) * PIECE_ROWS
+
+
 def estimate_bytes(a_shape, b_shape, out_shape,
                    pair_bits: int | None = None,
                    impl: str | None = None) -> float:
     """Device bytes one K5 product allocates: the chunks of both operands
-    (n_t of them, 1 byte an entry for int8, 2 for bf16), their column
-    exponents, the f64 output and the f64 workspace slots of its unit plan
-    (``plan``)."""
+    (n_t of them, 1 byte an entry for int8, 2 for bf16, each column padded
+    to ``padded_rows``), their column exponents, the f64 output and the
+    f64 workspace slots of its unit plan (``plan``)."""
     if pair_bits is None:
         pair_bits = default_pair_bits()
     if impl is None:
@@ -233,7 +266,8 @@ def estimate_bytes(a_shape, b_shape, out_shape,
     (a0, a1), (b0, b1) = a_shape, b_shape
     c0, c1 = out_shape
     elem = 1 if impl == "int8" else 2
-    chunks = _n_chunks(pair_bits) * (a0 * a1 + b0 * b1) * elem
+    chunks = _n_chunks(pair_bits) * (padded_rows(a0) * a1
+                                     + padded_rows(b0) * b1) * elem
     slots = plan(a_shape, b_shape, out_shape).slots
     return float(chunks + 4 * (a1 + b1) + 8 * c0 * c1
                  + 8 * slots * TILE * TILE)
@@ -262,14 +296,15 @@ def ozaki_applicable(dtype_name: str, a_shape, b_shape, out_shape,
 
 def _checked(b, pair_bits, impl) -> int:
     """Validate ``pair_bits`` and ``impl`` and the contraction length
-    (``b``'s rows) against the impl's cap; return pair_bits."""
+    (``b``'s rows, of each batch entry) against the impl's cap; return
+    pair_bits."""
     if impl not in IMPLS:
         raise ValueError(f"ozaki impl {impl!r}: not one of {IMPLS}")
     pair_bits = int(pair_bits)
     if not 0 <= pair_bits <= MAX_PAIR_BITS:
         raise ValueError(f"pair_bits {pair_bits} outside [0, "
                          f"{MAX_PAIR_BITS}]")
-    b0, max_k = int(b.shape[0]), _max_k(impl)
+    b0, max_k = int(b.shape[-2]), _max_k(impl)
     if b0 > max_k:
         raise ValueError(
             f"ozaki conv contraction length {b0} > {max_k}: the {impl} "
@@ -326,102 +361,215 @@ def ozaki_conv2d_reference(a, b, out_shape, pair_bits: int = 7,
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _dense(a, b, out_shape):
-    """The guard's branch: K1 (its plain version on the CPU)."""
-    from ..taylor.backend import _conv_dense
+def _chunk_columns(chunks, rows: int, reverse: bool):
+    """[n_t, rows, cols] chunks as the split kernel lays them out: [n_t,
+    cols, padded_rows(rows)], each column's rows contiguous, ascending
+    from the top (b) or, where ``reverse``, descending from the end (a:
+    the column's last position holds row 0), the padding zero."""
+    n_t, _, cols = chunks.shape
+    col = chunks.transpose(1, 2)
+    pad = torch.zeros((n_t, cols, padded_rows(rows) - rows),
+                      dtype=chunks.dtype, device=chunks.device)
+    return (torch.cat([pad, col.flip(-1)], -1) if reverse
+            else torch.cat([col, pad], -1))
 
-    return _conv_dense(a, b, tuple(out_shape))
+
+def chunk_view(chunks, rows: int, reverse: bool):
+    """The split kernel's chunks [..., n_t, cols, padded rows] seen as the
+    plain version's [..., n_t, rows, cols] (``reverse`` for a's, whose
+    rows run backwards from the end of each column)."""
+    p = chunks.shape[-1]
+    col = chunks[..., p - rows:].flip(-1) if reverse \
+        else chunks[..., :rows]
+    return col.transpose(-1, -2)
 
 
-def ozaki_split(x, pair_bits: int = 7, impl: str = "int8", flag=None):
-    """The split of one f64 matrix: chunks [n_t, rows, cols], int32
-    column exponents, and ``flag``, an int32 tensor of one entry set
-    non-zero where ``x`` holds a non-finite entry (a fresh zero one if
-    None); on the card by ``csrc/ozaki_split.cu`` (the integer split
-    only: raises under ``GENFER_OZAKI_CHUNK=float``), on the CPU by
-    ``ozaki_split_reference``."""
-    _check(x, x, x.shape, 2, 2, torch.float64)
+def ozaki_split_batched_reference(a, b, pair_bits: int = 7,
+                                  impl: str = "int8"):
+    """Plain version of the split kernel: for batches ``a`` (B, a0, a1) and
+    ``b`` (B, b0, b1), each entry split by ``ozaki_split_reference``, as
+    (ca, cb, ea, eb, flags): the chunks in the kernel's layout
+    (``_chunk_columns``: ca [B, n_t, a1, padded_rows(a0)] reversed, cb [B,
+    n_t, b1, padded_rows(b0)]), the int32 column exponents [B, a1] and [B,
+    b1], and int32 flags [B], 1 where a[z] or b[z] holds a non-finite
+    entry."""
+    out = {"ca": [], "cb": [], "ea": [], "eb": [], "flags": []}
+    for az, bz in zip(a, b):
+        ok = True
+        for name, x, rev in (("a", az, True), ("b", bz, False)):
+            chunks, e, finite = ozaki_split_reference(x, pair_bits, impl)
+            out["c" + name].append(_chunk_columns(chunks, x.shape[0], rev))
+            out["e" + name].append(e)
+            ok = ok and finite
+        out["flags"].append(0 if ok else 1)
+    return (torch.stack(out["ca"]), torch.stack(out["cb"]),
+            torch.stack(out["ea"]), torch.stack(out["eb"]),
+            torch.tensor(out["flags"], dtype=torch.int32, device=a.device))
+
+
+def ozaki_split(a, b, pair_bits: int = 7, impl: str = "int8"):
+    """The split of both operands of every batch entry, ``a`` (B, a0, a1)
+    in a's layout and ``b`` (B, b0, b1) in b's: (ca, cb, ea, eb, flags) as
+    ``ozaki_split_batched_reference`` gives them, on the card in one launch
+    of ``csrc/ozaki_split.cu`` (the integer split only: raises under
+    ``GENFER_OZAKI_CHUNK=float``), on the CPU by that plain version."""
+    _check(a, b, (1, 1), 3, 3, torch.float64)
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"batches of {a.shape[0]} and {b.shape[0]} pairs")
     if impl not in IMPLS:
         raise ValueError(f"ozaki impl {impl!r}: not one of {IMPLS}")
-    if flag is None:
-        flag = torch.zeros(1, dtype=torch.int32, device=x.device)
-    if not _on_card(x):
-        chunks, exps, finite = ozaki_split_reference(x, pair_bits, impl)
-        flag |= int(not finite)
-        return chunks, exps, flag
+    if not _on_card(a):
+        return ozaki_split_batched_reference(a, b, pair_bits, impl)
     if _chunk_impl() != "int":
         raise NotImplementedError(
             f"GENFER_OZAKI_CHUNK={_chunk_impl()!r} on the card: the split "
             "kernel runs the integer split only")
-    rows, cols = x.shape
+    batch, a0, a1 = a.shape
+    _, b0, b1 = b.shape
     n_t = _n_chunks(int(pair_bits))
-    chunks = torch.empty((n_t, rows, cols), dtype=_elem_dtype(impl),
-                         device=x.device)
-    exps = torch.empty(cols, dtype=torch.int32, device=x.device)
+    dtype, dev = _elem_dtype(impl), a.device
+    ca = torch.empty((batch, n_t, a1, padded_rows(a0)), dtype=dtype,
+                     device=dev)
+    cb = torch.empty((batch, n_t, b1, padded_rows(b0)), dtype=dtype,
+                     device=dev)
+    ea = torch.empty((batch, a1), dtype=torch.int32, device=dev)
+    eb = torch.empty((batch, b1), dtype=torch.int32, device=dev)
+    flags = torch.zeros(batch, dtype=torch.int32, device=dev)
     lib = _build.load()
-    with _on_device(x.device):
+    with _on_device(dev):
         err = lib.ozaki_split(
-            x.data_ptr(), rows, cols, n_t, int(impl == "bf16"),
-            chunks.data_ptr(), exps.data_ptr(), flag.data_ptr(),
+            a.data_ptr(), b.data_ptr(), batch, a0, a1, b0, b1, n_t,
+            int(impl == "bf16"), ca.data_ptr(), cb.data_ptr(), ea.data_ptr(),
+            eb.data_ptr(), flags.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "ozaki_split", err)
     ozaki_split.launches += 1
-    return chunks, exps, flag
+    return ca, cb, ea, eb, flags
+
+
+#: the guard's counts, one int64 tensor a device (``guarded_count``)
+_GUARDED: dict = {}
+
+
+def _guard_counter(device):
+    """The guard's count on ``device``, made on first use.  Its first use
+    must not be inside a CUDA graph capture: the allocation would belong
+    to the graph (the compiled mode's eager warm-up walk makes it)."""
+    t = _GUARDED.get(device)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the guard's count is first made inside a "
+                               "graph capture: run the walk eagerly first")
+        t = _GUARDED[device] = torch.zeros(1, dtype=torch.int64,
+                                           device=device)
+    return t
+
+
+def guarded_count() -> int:
+    """Products the guard sent to K1 since ``reset_launches``: K5 counts
+    them on the device (its first block of a flagged product adds one);
+    reading them waits for the card."""
+    return sum(int(t.item()) for t in _GUARDED.values())
 
 
 def _launch(a, b, c0, c1, pair_bits, impl, guard):
-    """The split of both operands, the guard, then K5 on the unit plan."""
-    flag = torch.zeros(1, dtype=torch.int32, device=a.device)
-    ca, ea, _ = ozaki_split(a, pair_bits, impl, flag)
-    cb, eb, _ = ozaki_split(b, pair_bits, impl, flag)
-    if guard and int(flag.item()):
-        ozaki_conv2d.guarded += 1
-        return _dense(a, b, (c0, c1))
-    units_plan, units, sums = _plan_on_card(tuple(a.shape), tuple(b.shape),
-                                            (c0, c1), a.device)
-    # the kernel's operand b is the smaller one, as in K1's dense body
-    (ka, kea, (a0, a1)), (kb, keb, (b0, b1)) = (
-        ((cb, eb, b.shape), (ca, ea, a.shape)) if units_plan.swap
-        else ((ca, ea, a.shape), (cb, eb, b.shape)))
-    alloc = torch.empty if units_plan.covers else torch.zeros
-    out = alloc((c0, c1), dtype=torch.float64, device=a.device)
-    work = (torch.empty((units_plan.slots, TILE, TILE), dtype=torch.float64,
-                        device=a.device) if units_plan.slots else None)
+    """The split of both operands, K5 (its small or dense body) with the
+    guard's flags, then, under ``guard``, K1 predicated on them and the
+    per-product select."""
+    batch = a.shape[0]
+    body = k5_body(tuple(a.shape[1:]), tuple(b.shape[1:]))
+    if body == "dense":
+        units_plan, units, sums = _plan_on_card(
+            tuple(a.shape[1:]), tuple(b.shape[1:]), (c0, c1), a.device)
+        swap = units_plan.swap
+    else:
+        swap = _swap(tuple(a.shape[1:]), tuple(b.shape[1:]))
+    # the kernels' operand b is the smaller one, as in K1's bodies
+    ka, kb = (b, a) if swap else (a, b)
+    counter = _guard_counter(a.device) if guard else None
+    ca, cb, ea, eb, flags = ozaki_split(ka, kb, pair_bits, impl)
+    (_, a0, a1), (_, b0, b1) = ka.shape, kb.shape
+    n_t = ca.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    common = (ca.data_ptr(), cb.data_ptr(), ea.data_ptr(), eb.data_ptr(),
+              flags.data_ptr() if guard else 0,
+              counter.data_ptr() if guard else 0)
+    shape = (a0, a1, ca.shape[-1], b0, b1, cb.shape[-1], c0, c1)
     lib = _build.load()
-    err = lib.ozaki_conv2d(
-        ka.data_ptr(), kb.data_ptr(), kea.data_ptr(), keb.data_ptr(),
-        out.data_ptr(), 0 if work is None else work.data_ptr(),
-        units.data_ptr(), len(units_plan.units), sums.data_ptr(),
-        len(units_plan.sums), units_plan.slots, ka.shape[0], pair_bits,
-        int(impl == "bf16"), a0, a1, b0, b1, c0, c1,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, "ozaki_conv2d", err)
+    if body == "small":
+        out = torch.empty((batch, c0, c1), dtype=torch.float64,
+                          device=a.device)
+        err = lib.ozaki_small(*common, out.data_ptr(), batch, n_t, pair_bits,
+                              int(impl == "bf16"), *shape, stream)
+    else:
+        alloc = torch.empty if units_plan.covers else torch.zeros
+        out = alloc((batch, c0, c1), dtype=torch.float64, device=a.device)
+        work = (torch.empty((batch, units_plan.slots, TILE, TILE),
+                            dtype=torch.float64, device=a.device)
+                if units_plan.slots else None)
+        err = lib.ozaki_conv2d(
+            *common, out.data_ptr(), 0 if work is None else work.data_ptr(),
+            units.data_ptr(), len(units_plan.units), sums.data_ptr(),
+            len(units_plan.sums), units_plan.slots, batch, n_t, pair_bits,
+            int(impl == "bf16"), *shape, stream)
+    _build.check(lib, f"ozaki_{'small' if body == 'small' else 'conv2d'}",
+                 err)
     ozaki_conv2d.launches += 1
     ozaki_conv2d.launches_by_impl[impl] += 1
-    return out
+    ozaki_conv2d.launches_by_body[body] += 1
+    if not guard:
+        return out
+    dense = conv2d_trunc_f64_batched(a, b, (c0, c1), flag=flags)
+    return torch.where(flags[:, None, None] != 0, dense, out)
+
+
+def ozaki_conv2d_batched_reference(a, b, out_shape, pair_bits: int = 7,
+                                   impl: str = "int8"):
+    """``ozaki_conv2d_reference`` of every batch entry (no guard)."""
+    return torch.stack([ozaki_conv2d_reference(az, bz, out_shape, pair_bits,
+                                               impl)
+                        for az, bz in zip(a, b)])
+
+
+def ozaki_conv2d_batched(a, b, out_shape, pair_bits: int = 7,
+                         impl: str = "int8", guard: bool = True):
+    """Truncated 2-D Cauchy products of every pair ``a[z]``, ``b[z]`` of
+    the f64 batches ``a`` (B, a0, a1) and ``b`` (B, b0, b1) to (B, c0, c1)
+    through exact integer chunk passes (module docstring).  ``pair_bits``
+    keeps the chunk pairs with t + u <= pair_bits: 7 = 36 passes, 6 = 28,
+    5 = 21.  ``impl``: ``int8`` (int32 sums) or ``bf16`` (f32 sums), whose
+    contraction cap (b0 <= ``MAX_K_BF16``) is genfer_tpu's.  ``guard``: a
+    product with a non-finite operand entry is K1's (counted by
+    ``guarded_count``).  Raises on a bad shape, impl or pair_bits and on a
+    contraction above the cap."""
+    c0, c1 = _check(a, b, out_shape, 3, 3, torch.float64)
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"batches of {a.shape[0]} and {b.shape[0]} pairs")
+    pair_bits = _checked(b, pair_bits, impl)
+    if _on_card(a):
+        with _on_device(a.device):
+            return _launch(a, b, c0, c1, pair_bits, impl, guard)
+    outs = []
+    for az, bz in zip(a, b):
+        if guard and not bool(torch.isfinite(az).all()
+                              & torch.isfinite(bz).all()):
+            _guard_counter(a.device).add_(1)
+            outs.append(conv2d_trunc_f64_batched(az[None], bz[None],
+                                                 (c0, c1))[0])
+        else:
+            outs.append(ozaki_conv2d_reference(az, bz, (c0, c1), pair_bits,
+                                               impl))
+    return torch.stack(outs)
 
 
 def ozaki_conv2d(a, b, out_shape, pair_bits: int = 7, impl: str = "int8",
                  guard: bool = True):
     """Truncated 2-D Cauchy product of f64 matrices ``a`` (a0, a1) and
-    ``b`` (b0, b1) to ``out_shape`` (c0, c1) through exact integer chunk
-    passes (module docstring).  ``pair_bits`` keeps the chunk pairs with t
-    + u <= pair_bits: 7 = 36 passes, 6 = 28, 5 = 21.  ``impl``: ``int8``
-    (int32 sums) or ``bf16`` (f32 sums), whose contraction cap (b0 <=
-    ``MAX_K_BF16``) is genfer_tpu's.  ``guard``: a product with a
-    non-finite operand entry goes to K1 (counted in
-    ``ozaki_conv2d.guarded``).  Raises on a bad shape, impl or
-    pair_bits and on a contraction above the cap."""
-    c0, c1 = _check(a, b, out_shape, 2, 2, torch.float64)
-    pair_bits = _checked(b, pair_bits, impl)
-    if not _on_card(a):
-        if guard and not bool(torch.isfinite(a).all()
-                              & torch.isfinite(b).all()):
-            ozaki_conv2d.guarded += 1
-            return _dense(a, b, (c0, c1))
-        return ozaki_conv2d_reference(a, b, (c0, c1), pair_bits, impl)
-    with _on_device(a.device):
-        return _launch(a, b, c0, c1, pair_bits, impl, guard)
+    ``b`` (b0, b1) to ``out_shape`` (c0, c1): ``ozaki_conv2d_batched`` of
+    one pair."""
+    _check(a, b, out_shape, 2, 2, torch.float64)
+    return ozaki_conv2d_batched(a[None], b[None], out_shape, pair_bits,
+                                impl, guard)[0]
 
 
 def ozaki_conv2d_guarded(a, b, out_shape, pair_bits: int | None = None,
@@ -436,14 +584,61 @@ def ozaki_conv2d_guarded(a, b, out_shape, pair_bits: int | None = None,
     return ozaki_conv2d(a, b, out_shape, pair_bits, impl, guard=True)
 
 
+@torch.library.custom_op("genfer_tpu_torch::ozaki_batched", mutates_args=())
+def _ozaki_batched(a: torch.Tensor, b: torch.Tensor, c0: int, c1: int,
+                   pair_bits: int, impl: str) -> torch.Tensor:
+    return ozaki_conv2d_batched(a, b, (c0, c1), pair_bits, impl, guard=True)
+
+
+@_ozaki_batched.register_fake
+def _(a, b, c0, c1, pair_bits, impl):
+    return a.new_empty((a.shape[0], c0, c1))
+
+
+def _ozaki_batched_vmap(info, in_dims, a, b, c0, c1, pair_bits, impl):
+    """One call over the vmapped dimension times the batch: ``(V, B,
+    ...)`` operands folded to ``(V * B, ...)`` (an operand that is not
+    batched expanded), the result unfolded: one split and one K5 launch."""
+    v = info.batch_size
+
+    def front(x, dim):
+        x = x.expand(v, *x.shape) if dim is None else x.movedim(dim, 0)
+        return x.reshape(v * x.shape[1], *x.shape[2:]).contiguous()
+
+    out = _ozaki_batched(front(a, in_dims[0]), front(b, in_dims[1]), c0, c1,
+                         pair_bits, impl)
+    return out.reshape(v, -1, c0, c1), 0
+
+
+_ozaki_batched.register_vmap(_ozaki_batched_vmap)
+
+
+def ozaki_op(a, b, out_shape, pair_bits: int | None = None,
+             impl: str | None = None):
+    """``ozaki_conv2d_batched`` with the guard through the custom op (see
+    the module docstring), ``pair_bits`` and ``impl`` from the environment
+    by default: the same result, batched by ``torch.func.vmap`` into one
+    call."""
+    if pair_bits is None:
+        pair_bits = default_pair_bits()
+    if impl is None:
+        impl = default_impl()
+    c0, c1 = (int(s) for s in out_shape)
+    return _ozaki_batched(a, b, c0, c1, int(pair_bits), impl)
+
+
 def reset_launches() -> None:
-    """Set the split's and K5's launch counts (total and by impl) and the
-    guard's count of products sent to K1 to 0."""
+    """Set the split's and K5's launch counts (total, by impl and by body)
+    and the guard's counts on every device to 0 (the dicts and counters
+    in place, so that references and captured graphs keep them)."""
     ozaki_split.launches = 0
     ozaki_conv2d.launches = 0
-    ozaki_conv2d.guarded = 0
     ozaki_conv2d.launches_by_impl.update(dict.fromkeys(IMPLS, 0))
+    ozaki_conv2d.launches_by_body.update(dict.fromkeys(BODIES, 0))
+    for t in _GUARDED.values():
+        t.zero_()
 
 
 ozaki_conv2d.launches_by_impl = {}
+ozaki_conv2d.launches_by_body = {}
 reset_launches()

@@ -90,8 +90,9 @@ def _conv_impl(a, b, out_shape: Shape, conv2d=None):
     An f64 product of exactly 2 effective axes for which
     ``ops.ozaki_conv.ozaki_applicable`` holds (``GENFER_OZAKI=force``)
     runs ``ozaki_conv2d_guarded`` (K5 on a card), as genfer_tpu's
-    ``_conv_impl`` does.  The compiled mode (a ``conv2d`` is given) has no
-    vmap rule or graph capture for K5 yet and raises there."""
+    ``_conv_impl`` does; in the compiled mode (a ``conv2d`` is given) it
+    runs K5's custom op ``ozaki_op``, whose vmap rule batches it and whose
+    guard stays on the device, so that a CUDA graph captures it."""
     eff = _effective_axes(out_shape)
     if not eff:
         return (a * b).reshape(out_shape)
@@ -100,19 +101,22 @@ def _conv_impl(a, b, out_shape: Shape, conv2d=None):
     eff_out = tuple(out_shape[i] for i in eff)
     if (len(eff) == 2 and a_sq.dtype == torch.float64
             and b_sq.dtype == torch.float64):
-        from ..ops.ozaki_conv import ozaki_applicable, ozaki_conv2d_guarded
+        from ..ops.ozaki_conv import (
+            ozaki_applicable,
+            ozaki_conv2d_guarded,
+            ozaki_op,
+        )
 
         if ozaki_applicable(
             "float64", tuple(a_sq.shape), tuple(b_sq.shape), eff_out,
             _conv_pair_flops(tuple(a_sq.shape), tuple(b_sq.shape), eff_out),
         ):
             if conv2d is not None:
-                raise NotImplementedError(
-                    "GENFER_OZAKI=force in the compiled mode: K5 has no vmap "
-                    "rule or graph capture yet (ROADMAP Queue 2, K5 "
-                    "follow-ups)")
-            res = ozaki_conv2d_guarded(a_sq.contiguous(), b_sq.contiguous(),
-                                       eff_out)
+                res = ozaki_op(a_sq.contiguous()[None],
+                               b_sq.contiguous()[None], eff_out)[0]
+            else:
+                res = ozaki_conv2d_guarded(a_sq.contiguous(),
+                                           b_sq.contiguous(), eff_out)
             return res.reshape(out_shape)
     return _conv_dense(a_sq, b_sq, eff_out, conv2d).reshape(out_shape)
 

@@ -1,10 +1,13 @@
 """K5, the ozaki route (``genfer_tpu_torch/ops/ozaki_conv.py``), on the CPU
 against genfer_tpu's ``ops/ozaki_conv.py``: the split, the plain version,
 the accuracy ladder, the guard, the routing gates, the backend and the
-CLI under ``GENFER_OZAKI=force``.  The tests marked ``cuda`` hold the
-kernels (``csrc/ozaki_split.cu``, ``csrc/ozaki_conv2d.cu``) to the plain
-version on a card (they skip here); ``tests/test_torch_ozaki_mma.py``
-emulates the kernel's fragments in numpy.
+CLI under ``GENFER_OZAKI=force``; the batched split and product against
+their per-entry calls.  The tests marked ``cuda`` hold the kernels
+(``csrc/ozaki_split.cu``, ``csrc/ozaki_conv2d.cu``) to the plain version
+on a card (they skip here); ``tests/test_torch_ozaki_mma.py`` emulates
+the kernels' layouts and fragments in numpy, and
+``tests/test_torch_ozaki_compile.py`` holds the compiled mode under
+``force``.
 
 genfer_tpu's modules import jax where the tests run them (the card
 machine has no jax; it runs only the ``cuda`` tests of this file).
@@ -156,6 +159,61 @@ def test_split_reference_layout():
     assert not Z.ozaki_split_reference(_t(x))[2]
 
 
+@pytest.mark.parametrize("impl", Z.IMPLS)
+def test_batched_split_against_per_entry(impl):
+    """The split kernel's plain version over a batch: every entry's chunks,
+    seen through ``chunk_view``, are ``ozaki_split_reference``'s bit for
+    bit (a's columns reversed, b's ascending, each padded with zeros to a
+    multiple of 16 rows), its exponents the same, and the flag set only
+    for the entry with a non-finite operand; ``ozaki_split`` on the CPU is
+    that plain version."""
+    rng = np.random.default_rng(7)
+    a = _t(rng.standard_normal((3, 21, 5)) * 10.0 ** rng.integers(-9, 9, 5))
+    b = _t(rng.standard_normal((3, 33, 4)))
+    b[1, 7, 2] = np.inf
+    ca, cb, ea, eb, flags = Z.ozaki_split(a, b, 6, impl)
+    assert ca.shape == (3, 7, 5, 32) and cb.shape == (3, 7, 4, 48)
+    assert flags.tolist() == [0, 1, 0] and flags.dtype == torch.int32
+    view = torch.int8 if impl == "int8" else torch.int16
+    for z in range(3):
+        for x, c, e, rev in ((a[z], ca[z], ea[z], True),
+                             (b[z], cb[z], eb[z], False)):
+            want, want_e, _ = Z.ozaki_split_reference(x, 6, impl)
+            got = Z.chunk_view(c, x.shape[0], rev)
+            if z != 1:
+                assert torch.equal(got.contiguous().view(view),
+                                   want.view(view))
+                assert torch.equal(e, want_e)
+            pad = c[..., :c.shape[-1] - x.shape[0]] if rev else \
+                c[..., x.shape[0]:]
+            assert not pad.double().any()
+
+
+@pytest.mark.parametrize("impl", Z.IMPLS)
+def test_batched_product_against_per_entry(impl):
+    """``ozaki_conv2d_batched`` on the CPU: each entry equals its
+    single-pair ``ozaki_conv2d`` and the plain version bit for bit, and an
+    entry with a NaN operand K1's plain result (the guard, counted once);
+    without the guard the batched plain version."""
+    rng = np.random.default_rng(8)
+    a, b = _t(rng.random((3, 30, 12))), _t(rng.random((3, 9, 14)))
+    out = (35, 20)
+    clean = Z.ozaki_conv2d_batched(a, b, out, 7, impl)
+    assert torch.equal(clean, Z.ozaki_conv2d_batched_reference(a, b, out, 7,
+                                                               impl))
+    for z in range(3):
+        assert torch.equal(clean[z], Z.ozaki_conv2d(a[z], b[z], out, 7, impl))
+    a[0, 4, 4] = float("nan")
+    Z.reset_launches()
+    got = Z.ozaki_conv2d_batched(a, b, out, 7, impl)
+    assert Z.guarded_count() == 1
+    want = T._conv_dense(a[0], b[0], out)
+    assert torch.equal(torch.isnan(got[0]), torch.isnan(want))
+    assert torch.equal(got[1:], clean[1:])
+    unguarded = Z.ozaki_conv2d_batched(a, b, out, 7, impl, guard=False)
+    assert torch.equal(unguarded[1:], clean[1:]) and Z.guarded_count() == 1
+
+
 # ---------------------------------------------- the plain version vs JAX
 
 @pytest.mark.parametrize("shapes", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -264,9 +322,9 @@ def test_guard_propagates_nonfinite():
         np.testing.assert_allclose(got[m], want[m], rtol=1e-13)
         dense = T._conv_dense(_t(a), _t(b), (31, 31)).numpy()
         np.testing.assert_array_equal(got, dense)
-    assert Z.ozaki_conv2d.guarded == 3
+    assert Z.guarded_count() == 3
     Z.ozaki_conv2d(_t(b), _t(b), (31, 31))
-    assert Z.ozaki_conv2d.guarded == 3
+    assert Z.guarded_count() == 3
 
 
 def test_zero_operands_and_zero_columns():
@@ -488,18 +546,6 @@ def test_default_env_keeps_k1(monkeypatch):
     T.TorchF64Backend(device="cpu").conv_trunc(x, x, (40, 40))
 
 
-def test_compiled_mode_under_force_raises(monkeypatch):
-    """The compiled mode has no vmap rule for K5 yet: under force it names
-    its ROADMAP item instead of silently taking K1."""
-    from genfer_tpu_torch.ops.conv2d_f64 import k1_op
-
-    for k, v in FORCE.items():
-        monkeypatch.setenv(k, v)
-    x = torch.rand(20, 20, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        T._conv_impl(x, x, (20, 20), conv2d=k1_op)
-
-
 def _printed(fn, *args, **kwargs):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -548,29 +594,40 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", Z.IMPLS)
 def test_kernel_against_plain_on_card(card, impl):
-    """K5 against its plain version on the card at SHAPES and pair_bits 5
-    to 7, within 1e-13 of each output column's max, the same bits twice;
-    the split equals the CPU split bit for bit."""
+    """K5 against its plain version on the card at SHAPES (the dense body)
+    and at small-body shapes, pair_bits 5 to 7, within 1e-13 of each
+    output column's max, the same bits twice; a batch equal to its
+    entries' single calls; the split equal to the CPU split bit for bit."""
     rng = np.random.default_rng(11)
-    for sa, sb, out in SHAPES:
+    shapes = SHAPES + [((70, 66), (2, 2), (70, 66)),
+                       ((3, 5), (40, 37), (41, 40))]
+    view = torch.int8 if impl == "int8" else torch.int16
+    for sa, sb, out in shapes:
         a, b = _t(rng.random(sa)).to(card), _t(rng.random(sb)).to(card)
-        for x in (a, b):
-            chunks, e, flag = Z.ozaki_split(x, 7, impl)
-            want_c, want_e, _ = Z.ozaki_split_reference(x.cpu(), 7, impl)
-            view = torch.int8 if impl == "int8" else torch.int16
-            assert torch.equal(chunks.cpu().view(view), want_c.view(view))
-            assert torch.equal(e.cpu(), want_e) and int(flag.item()) == 0
+        got_split = Z.ozaki_split(a[None], b[None], 7, impl)
+        want_split = Z.ozaki_split_batched_reference(a[None].cpu(),
+                                                     b[None].cpu(), 7, impl)
+        for g, w in zip(got_split, want_split):
+            if g.dtype in (torch.int8, torch.bfloat16):
+                g, w = g.view(view), w.view(view)
+            assert torch.equal(g.cpu(), w)
         for pb in (5, 6, 7):
             got = Z.ozaki_conv2d(a, b, out, pb, impl)
             assert torch.equal(got, Z.ozaki_conv2d(a, b, out, pb, impl))
             want = Z.ozaki_conv2d_reference(a, b, out, pb, impl)
             assert _col_err(got.cpu().numpy(), want.cpu().numpy()) < 1e-13
+        batch = Z.ozaki_conv2d_batched(torch.stack([a, a.flip(0)]),
+                                       torch.stack([b, b]), out, 7, impl)
+        assert torch.equal(batch[0], Z.ozaki_conv2d(a, b, out, 7, impl))
+        assert torch.equal(batch[1], Z.ozaki_conv2d(a.flip(0).contiguous(),
+                                                    b, out, 7, impl))
 
 
 @pytest.mark.cuda
 def test_guard_on_card(card):
-    """A non-finite operand goes to K1 on the card: K5 does not launch,
-    and the result is K1's bit for bit."""
+    """A non-finite operand: K5 launches once with the split, its blocks of
+    the flagged product write nothing, the guard counts it on the device,
+    and the result is K1's bit for bit; no host synchronize."""
     from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
 
     rng = np.random.default_rng(12)
@@ -578,8 +635,8 @@ def test_guard_on_card(card):
     a[3, 5] = float("nan")
     Z.reset_launches()
     got = Z.ozaki_conv2d(a, b, (60, 60))
-    assert Z.ozaki_conv2d.launches == 0 and Z.ozaki_split.launches == 2
-    assert Z.ozaki_conv2d.guarded == 1
+    assert Z.ozaki_conv2d.launches == 1 and Z.ozaki_split.launches == 1
+    assert Z.guarded_count() == 1
     want = conv2d_trunc_f64(a, b, (60, 60))
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)])

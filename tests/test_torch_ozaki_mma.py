@@ -1,21 +1,36 @@
-"""K5's tensor-core kernel (``genfer_tpu_torch/csrc/ozaki_conv2d.cu``)
-emulated in numpy, lane by lane, on the CPU.
+"""K5's kernels (``genfer_tpu_torch/csrc/ozaki_split.cu`` and
+``ozaki_conv2d.cu``) emulated in numpy, lane by lane, on the CPU.
 
 A CUDA kernel cannot run without a card, so this file holds the design the
-kernel follows: each stage staged as the kernel stages it (a's chunk
-columns reversed, b's window columns with their j0 rows in the kernel's
-word order, in its byte pitches), the ``mma.sync.m16n8k32 .s8`` and
-``m16n8k16 .bf16`` fragments read at the kernel's offsets (the
-``__byte_perm`` of two aligned words with the kernel's selector for A,
-one 64-bit word pair for B) and assembled by the PTX layout into the
-matrices each ``mma`` multiplies, which must be the Toeplitz tile of ``ca_t`` and the
-shifted window of ``cb_u``; then the diagonals (Horner pairs for int8),
-the per-column weights 2^(ea + eb - 7(s+2)), the unit table of
-``unit_plan(..., cut_j1=False)`` and the slot sum.  On small integer
-operands every step is exact, so the emulation must equal the product bit
-for bit; on uniform operands it is held to the plain version at 1e-14 of
-each output column's max.  Change an offset here first, then in the
-``.cu``.  ``tune_port.py`` probe 14 checks the PTX layouts on the card.
+kernels follow:
+
+* the split's transposing tile: 64 rows of 8 columns a pass, a's rows
+  reversed in it, written out in 16-byte pieces at the kernel's positions,
+  which must give the chunk layout of ``ozaki_conv.py::_chunk_columns``;
+* the dense body's stages as its ``cp.async`` pieces fill them (a's
+  reversed window columns, b's window as planes of 16-byte pieces, a piece
+  outside a, the unit's b columns or its j0 range zero-filled), double
+  buffered in the kernel, in the order (g0, I) of its stage loop;
+* the int8 ``wgmma`` m64n64k32: A from registers (the ``__byte_perm`` of
+  two aligned words with the kernel's selector, in the ``mma.sync``
+  m16n8k32 A layout for each warp's 16 rows) and B read through the
+  no-swizzle K-major descriptor (core matrices of 8 columns x 16 bytes,
+  SBO 128, LBO one plane, the start one window column on for each a
+  column); the bf16 ``mma.sync`` m16n8k16 fragments (A from two words, B
+  two words of two planes); each assembled into the matrices it
+  multiplies, which must be the Toeplitz tile of ``ca_t`` and the shifted
+  window of ``cb_u``;
+* the Horner pairs over a 64-row stage (int32 bound held), the
+  per-column weights 2^(ea + eb - 7(s+2)), the unit table of
+  ``ozaki_conv.py::plan`` and the slot sum;
+* the small body's sum order (b columns ascending, exact int32 sums, a
+  flush a Horner pair).
+
+On small integer operands every step is exact, so the emulation must equal
+the product bit for bit; on uniform operands it is held to the plain
+version at 1e-14 of each output column's max.  Change an offset here
+first, then in the ``.cu``.  ``tune_port.py`` probe 14 checks the PTX
+layouts and the descriptor on the card.
 """
 
 import numpy as np
@@ -26,10 +41,9 @@ from genfer_tpu_torch.ops import conv2d as C
 from genfer_tpu_torch.ops import ozaki_conv as Z
 
 TILE = C.TILE
-# OzGeo in ozaki_conv2d.cu
-G, IB = 32, 32
-A_LEN, XW = TILE + G, TILE + IB
-MT, NTL = 2, 4
+PIECE = 16  # bytes a cp.async piece
+SBO = 128  # K5_SBO in the .cu
+SPLIT_COLS = 8  # columns a block of the split (ozaki_split.cu)
 NO_COL = None
 
 LANE = np.arange(32)
@@ -37,75 +51,42 @@ GID, TQ = LANE // 4, LANE % 4
 
 
 class Impl:
-    """The kernel's per-impl constants and offsets (OzPass in the .cu)."""
+    """The kernel's per-impl geometry (OzGeo / OzStage in the .cu)."""
 
     def __init__(self, name):
         self.name = name
         self.esz = 1 if name == "int8" else 2
-        self.k_slices = 1 if name == "int8" else 2
-        self.kk = 32 if name == "int8" else 16  # k of one mma
+        self.G = Z.STAGE_ROWS
+        self.IB = 16 if name == "int8" else 4
+        self.pr = PIECE // self.esz  # rows a piece
+        self.planes = self.G // self.pr
+        self.xw = TILE + self.IB - 1
+        self.a_len = TILE + self.G
+        self.a_bytes = self.a_len * self.esz
+        self.plane = self.xw * PIECE  # the descriptor's LBO
+        self.b_chunk = self.planes * self.plane
         self.horner = name == "int8"
-        self.a_pitch = A_LEN * self.esz
-        self.b_pitch = G * self.esz
-        # A registers a0 .. a3 at window entries y0 + off
-        self.a_off = (0, -8, 16, 8) if name == "int8" else (0, -8, 8, 0)
 
-    def entry0(self, m, ks):
-        """y0 of a lane's A registers (m: the lane's row)."""
+    def selector(self, gid):
         if self.name == "int8":
-            return 63 - m + 4 * TQ
-        return 63 - m + 16 * ks + 2 * TQ
-
-    def selector(self):
-        if self.name == "int8":
-            return 0x3210 + 0x1111 * ((3 - GID) & 3)
-        return np.where(GID & 1, 0x3210, 0x5432)
-
-    def a_word(self, y):
-        """The aligned word a register's first entry lies in."""
-        return y >> 2 if self.name == "int8" else y >> 1
-
-    def b_words(self, ks):
-        """b0's and b1's word in a window column: one 64-bit load of the
-        word pair 2 tq, 2 tq + 1 (of the slice's 8 words for bf16)."""
-        base = 2 * TQ if self.name == "int8" else 8 * ks + 2 * TQ
-        return base, base + 1
-
-    def b_byte(self, kk):
-        """Where the kernel's staging stores row kk of a window column
-        (OzPass::b_byte): the 4-byte word w of rows is stored at position
-        2 (w mod 4) + w // 4 of its group of 8."""
-        if self.name == "int8":
-            w = kk >> 2
-            return 4 * (((w & 3) << 1) | (w >> 2)) + (kk & 3)
-        w = (kk & 15) >> 1
-        return 4 * (8 * (kk >> 4) + (((w & 3) << 1) | (w >> 2))) + 2 * (kk & 1)
-
-    # the PTX ISA's fragment layouts: (row, col) of element j of register r
-    def a_pos(self, r, j):
-        if self.name == "int8":
-            return GID + 8 * (r % 2), 4 * TQ + j + 16 * (r // 2)
-        return GID + 8 * (r % 2), 2 * TQ + j + 8 * (r // 2)
-
-    def b_pos(self, r, j):
-        if self.name == "int8":
-            return 4 * TQ + j + 16 * r, GID
-        return 2 * TQ + j + 8 * r, GID
+            return 0x3210 + 0x1111 * ((3 - gid) & 3)
+        return np.where(gid & 1, 0x3210, 0x5432)
 
 
 def _to_bytes(values, impl):
     """Little-endian bytes of integer chunk values as the kernel stores
-    them (int8, or the bits of bf16)."""
+    them (int8, or the bits of bf16), one row of bytes for each row of
+    values."""
     v = np.asarray(values)
     if impl.name == "int8":
         return v.astype(np.int8).view(np.uint8)
     bits = torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
     return bits.view(torch.int16).numpy().view(np.uint8).reshape(
-        v.shape + (2,)).reshape(v.shape[:-1] + (-1,))
+        v.shape[:-1] + (-1,))
 
 
 def _from_bytes(raw, impl):
-    """Entries of ``raw`` (..., 4) as the mma reads a register."""
+    """Entries of ``raw`` (..., 4) as an mma reads a register."""
     if impl.name == "int8":
         return raw.astype(np.uint8).view(np.int8).astype(np.int64)
     raw = np.ascontiguousarray(raw.astype(np.uint8))
@@ -115,12 +96,12 @@ def _from_bytes(raw, impl):
     return vals.astype(np.int64)
 
 
-def _byte_perm(column, word, sel):
-    """``__byte_perm(w[word], w[word + 1], sel)`` over a staged column of
-    bytes: byte j of the result is byte (sel >> 4 j) & 7 of the 8 bytes
-    from word's first."""
+def _window_word(column, y, sel):
+    """``__byte_perm(w[y >> 2], w[(y >> 2) + 1], sel)`` over a staged
+    column of bytes: byte j of the result is byte (sel >> 4 j) & 7 of the 8
+    bytes from word y >> 2."""
     nib = np.stack([(sel >> (4 * j)) & 7 for j in range(4)], axis=-1)
-    addr = 4 * word[..., None] + nib
+    addr = 4 * (y >> 2)[..., None] + nib
     return column[..., addr]
 
 
@@ -130,112 +111,210 @@ def pow2(e):
     return float(np.ldexp(1.0, e)) if e >= -1074 else 0.0
 
 
-def _stage(ca, cb, impl, a_shape, b_shape, K0, K1, g0, n_dj, I, n_i,
-           j1_lo, j1_hi):
-    """The stage as the kernel's loads write it: a's columns reversed
-    (entry y is row K0 + 63 - g0 - y), b's window columns (column x is b's
-    column K1 - (I + IB - 1) + x) with their G rows contiguous; zero where
-    a ends, beyond the stage's columns, rows or the unit's b columns."""
-    (a0, a1), (b0, b1) = a_shape, b_shape
+def to_f64_exact(c, impl):
+    """The kernel's exact conversion of an int32 sum, or of an f32 sum of
+    the bf16 impl through an int32 (``exact_int``: |x| < 2^22)."""
+    bound = 2 ** 31 if impl.horner else 2 ** 22
+    assert np.abs(c).max(initial=0) < bound
+    return c.astype(np.float64)
+
+
+# ----------------------------------------------------------------- split
+
+def emulate_split(x, pair_bits, impl_name, reverse):
+    """The split kernel's layout of one operand [rows, cols] (one product):
+    the chunks of the plain split, passed through the kernel's transposing
+    tile (64 rows x SPLIT_COLS columns, a's reversed: row rr at tile
+    position 63 - rr) and written out in 16-byte pieces at the kernel's positions into
+    [n_t, cols, padded rows] bytes, unwritten bytes marked 0xEE."""
+    impl = Impl(impl_name)
+    rows, cols = x.shape
+    chunks, _, _ = Z.ozaki_split_reference(torch.from_numpy(x), pair_bits,
+                                           impl_name)
+    vals = chunks.double().numpy().astype(np.int64)  # [n_t, rows, cols]
+    n_t = vals.shape[0]
+    P = Z.padded_rows(rows)
+    out = np.full((n_t, cols, P * impl.esz), 0xEE, np.uint8)
+    for blk in range(-(-cols // SPLIT_COLS)):
+        for r0 in range(0, P, 64):
+            tile = np.zeros((n_t, SPLIT_COLS, 64), np.int64)
+            for rr in range(64):
+                r, at = r0 + rr, (63 - rr if reverse else rr)
+                for col in range(SPLIT_COLS):
+                    c = blk * SPLIT_COLS + col
+                    if c < cols and r < rows:
+                        tile[:, col, at] = vals[:, r, c]
+            raw = _to_bytes(tile, impl)  # [n_t, SPLIT_COLS, 64 esz]
+            n_rows = min(64, P - r0)
+            pieces = 64 // impl.pr
+            first = (64 - n_rows) // impl.pr if reverse else 0
+            last = pieces if reverse else n_rows // impl.pr
+            for q in range(first, last):
+                pos = (P - r0 - 64 if reverse else r0) + q * impl.pr
+                for col in range(SPLIT_COLS):
+                    c = blk * SPLIT_COLS + col
+                    if c < cols:
+                        out[:, c, pos * impl.esz:(pos + impl.pr) * impl.esz] \
+                            = raw[:, col, PIECE * q:PIECE * (q + 1)]
+    return out
+
+
+@pytest.mark.parametrize("impl", ["int8", "bf16"])
+@pytest.mark.parametrize("shape", [(5, 3), (70, 33), (16, 40), (130, 2)])
+def test_split_pieces_give_the_layout(shape, impl):
+    """Every byte of the layout is written once by the kernel's pieces and
+    equals the plain version's layout (``_chunk_columns``), a's reversed
+    and b's ascending, the padding zero."""
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape) * 10.0 ** rng.integers(-30, 30, shape[1])
+    for reverse in (True, False):
+        got = emulate_split(x, 7, impl, reverse)
+        assert not (got == 0xEE).all(axis=-1).any()
+        chunks, _, _ = Z.ozaki_split_reference(torch.from_numpy(x), 7, impl)
+        want = Z._chunk_columns(chunks, shape[0], reverse)
+        view = torch.int8 if impl == "int8" else torch.int16
+        want_bytes = want.contiguous().view(view).numpy().view(np.uint8)
+        assert np.array_equal(got, want_bytes.reshape(got.shape))
+
+
+# ---------------------------------------------------------- dense body
+
+def _stage(ca, cb, impl, Pa, Pb, a1, K0, K1, g0, j0_hi, I, n_i, j1_lo,
+           j1_hi):
+    """The stage's bytes as the kernel's cp.async pieces fill them: sA
+    [n_t, IB, a_bytes] (a's window column: entry y is position pos0 + y of
+    the reversed column), sB [n_t, planes, xw, 16] (piece kc of window
+    column x: b's rows g0 + 16 kc .. of column col0 + x), zero-filled where
+    a piece lies outside a, the unit's b columns or its j0 range."""
     n_t = ca.shape[0]
-    R0 = K0 + TILE - 1 - g0
-    col0 = K1 - (I + IB - 1)
-    sa = np.zeros((n_t, IB, A_LEN), np.int64)
-    y = np.arange(A_LEN)
-    ok = (R0 - y >= 0) & (R0 - y < a0)
-    sa[:, :n_i, ok] = ca[:, R0 - y[ok], I:I + n_i].transpose(0, 2, 1)
-    sb = np.zeros((n_t, XW, G), np.int64)
-    x = np.arange(XW)
-    okb = (col0 + x >= j1_lo) & (col0 + x < j1_hi)
-    sb[:, okb, :n_dj] = cb[:, g0:g0 + n_dj, col0 + x[okb]].transpose(
-        0, 2, 1)
-    bytes_a = np.zeros((n_t, IB, impl.a_pitch), np.uint8)
-    bytes_a[:, :, :A_LEN * impl.esz] = _to_bytes(sa, impl)
-    bytes_b = np.zeros((n_t, XW, impl.b_pitch), np.uint8)
-    for kk in range(G):
-        at = impl.b_byte(kk)
-        bytes_b[:, :, at:at + impl.esz] = _to_bytes(sb[:, :, kk:kk + 1], impl)
-    return bytes_a, bytes_b, col0
+    pos0 = Pa - TILE - K0 + g0
+    col0 = K1 - (I + impl.IB - 1)
+    sA = np.zeros((n_t, impl.IB, impl.a_bytes), np.uint8)
+    for i in range(n_i):
+        for q in range(impl.a_bytes // PIECE):
+            p = pos0 + q * impl.pr
+            assert p % impl.pr == 0
+            if 0 <= p < Pa:
+                sA[:, i, PIECE * q:PIECE * (q + 1)] = ca[
+                    :, I + i, p * impl.esz:(p + impl.pr) * impl.esz]
+    sB = np.zeros((n_t, impl.planes, impl.xw, PIECE), np.uint8)
+    for x in range(impl.xw):
+        ll = col0 + x
+        if not j1_lo <= ll < j1_hi:
+            continue
+        for kc in range(impl.planes):
+            r = g0 + kc * impl.pr
+            if r < j0_hi:
+                assert r + impl.pr <= Pb
+                sB[:, kc, x] = cb[:, ll, r * impl.esz:(r + impl.pr)
+                                  * impl.esz]
+    return sA, sB.reshape(n_t, -1), col0
 
 
-def _fragments(bytes_a, bytes_b, impl, i, ks):
-    """The A (n_t, 64, kk) and B (n_t, kk, 64) that the kernel's mma of
-    k-slice ``ks`` multiply for stage column i, assembled lane by lane
-    from its fragment reads by the PTX layout (NaN-free: every position is
-    written exactly once, checked)."""
-    n_t = bytes_a.shape[0]
-    A = np.full((n_t, TILE, impl.kk), -(1 << 40), np.int64)
-    B = np.full((n_t, impl.kk, TILE), -(1 << 40), np.int64)
-    sel = impl.selector()
-    col_a = bytes_a[:, i]  # (n_t, a_pitch)
-    per = 4 // impl.esz
-    for mb in (0, 32):
-        for M in range(MT):
-            y0 = impl.entry0(mb + 16 * M + GID, ks)
-            for r in range(4):
-                y = y0 + impl.a_off[r]
-                raw = _byte_perm(col_a, impl.a_word(y), sel)  # (n_t, 32, 4)
+def _fragments_s8(sA, sB, impl, i):
+    """A (n_t, 64, G) and B (n_t, G, 64) of stage column i as the int8
+    body's wgmma reads them: A from each warp's registers, B through the
+    descriptor, every position written once."""
+    n_t = sA.shape[0]
+    A = np.full((n_t, TILE, impl.G), -(1 << 40), np.int64)
+    sel = impl.selector(GID)
+    col = sA[:, i]
+    for w in range(4):
+        y0 = 63 - (16 * w + GID) + 4 * TQ
+        for ks in range(impl.G // 32):
+            for r, off in enumerate((0, -8, 16, 8)):
+                vals = _from_bytes(_window_word(col, y0 + off + 32 * ks, sel),
+                                   impl)  # (n_t, 32, 4)
+                for j in range(4):
+                    row = 16 * w + GID + 8 * (r % 2)
+                    k = 32 * ks + 4 * TQ + j + 16 * (r // 2)
+                    assert (A[:, row, k] == -(1 << 40)).all()
+                    A[:, row, k] = vals[:, :, j]
+    B = np.full((n_t, impl.G, TILE), -(1 << 40), np.int64)
+    flat = sB.reshape(-1)  # every chunk's planes, as in shared memory
+    start0 = PIECE * (impl.IB - 1 - i)
+    k, n = np.arange(32)[:, None], np.arange(TILE)[None, :]
+    for u in range(n_t):
+        for ks in range(impl.G // 32):
+            start = start0 + u * impl.b_chunk + 2 * ks * impl.plane
+            addr = (start + (n // 8) * SBO + (n % 8) * PIECE
+                    + (k // 16) * impl.plane + k % 16)
+            B[u, 32 * ks:32 * ks + 32] = flat[addr].view(np.int8)
+    assert (A > -(1 << 40)).all()
+    return A, B
+
+
+def _fragments_bf16(sA, sB, impl, i):
+    """The same for the bf16 body's mma.sync m16n8k16 (warp w: rows 16 w ..
+    16 w + 15, eight 16x8 tiles across the 64 columns)."""
+    n_t = sA.shape[0]
+    A = np.full((n_t, TILE, impl.G), -(1 << 40), np.int64)
+    B = np.full((n_t, impl.G, TILE), -(1 << 40), np.int64)
+    sel = impl.selector(GID)
+    col = sA[:, i]
+    for w in range(4):
+        y0 = 2 * (63 - (16 * w + GID) + 2 * TQ)
+        for ks in range(impl.G // 16):
+            for r, off in enumerate((0, -16, 16, 0)):
+                vals = _from_bytes(_window_word(col, y0 + off + 32 * ks, sel),
+                                   impl)  # (n_t, 32, 2)
+                for j in range(2):
+                    row = 16 * w + GID + 8 * (r % 2)
+                    k = 16 * ks + 2 * TQ + j + 8 * (r // 2)
+                    A[:, row, k] = vals[:, :, j]
+    flat = sB.reshape(n_t, -1)
+    for jt in range(8):
+        n = 8 * jt + GID
+        x = n + impl.IB - 1 - i
+        for ks in range(impl.G // 16):
+            for r in range(2):
+                addr = (PIECE * x + 4 * TQ + (2 * ks + r) * impl.plane)
+                raw = flat[:, addr[:, None] + np.arange(4)]
                 vals = _from_bytes(raw, impl)
-                for j in range(per):
-                    row, col = impl.a_pos(r, j)
-                    A[:, mb + 16 * M + row, col] = vals[:, :, j]
-    for nb in (0, 32):
-        for N in range(NTL):
-            n = nb + 8 * N + GID
-            x = n + IB - 1 - i
-            for r, word in enumerate(impl.b_words(ks)):
-                addr = 4 * (x[:, None] * (impl.b_pitch // 4)
-                            + word[:, None]) + np.arange(4)
-                raw = bytes_b.reshape(n_t, -1)[:, addr]
-                vals = _from_bytes(raw, impl)
-                for j in range(per):
-                    row, col = impl.b_pos(r, j)
-                    B[:, row, nb + 8 * N + col] = vals[:, :, j]
+                for j in range(2):
+                    B[:, 16 * ks + 2 * TQ + j + 8 * r, n] = vals[:, :, j]
     assert (A > -(1 << 40)).all() and (B > -(1 << 40)).all()
     return A, B
 
 
-def _unit(ca, cb, ea, eb, impl, a_shape, b_shape, n_t, n_s, unit, check):
-    """One work unit of the kernel: its 64 x 64 f64 tile."""
+def _unit(ca, cb, ea, eb, impl, shapes, n_t, n_s, unit, check):
+    """One work unit of the dense body: its 64 x 64 f64 tile."""
+    (a0, a1, Pa), (b0, b1, Pb), a_vals, b_vals = shapes
     K0, K1, j0_lo, j0_hi, j1_lo, j1_hi = (int(v) for v in unit[:6])
-    a1 = a_shape[1]
+    assert j0_lo % Z.PIECE_ROWS == 0
     i1_lo = max(0, K1 - j1_hi + 1)
     i1_hi = min(a1, K1 + TILE - j1_lo)
     acc = np.zeros((TILE, TILE))
-    for g0 in range(j0_lo, j0_hi, G):
-        n_dj = min(G, j0_hi - g0)
-        for I in range(i1_lo, i1_hi, IB):
-            n_i = min(IB, i1_hi - I)
-            bytes_a, bytes_b, col0 = _stage(ca, cb, impl, a_shape, b_shape,
-                                            K0, K1, g0, n_dj, I, n_i, j1_lo,
-                                            j1_hi)
+    for g0 in range(j0_lo, j0_hi, impl.G):
+        for I in range(i1_lo, i1_hi, impl.IB):
+            n_i = min(impl.IB, i1_hi - I)
+            sA, sB, col0 = _stage(ca, cb, impl, Pa, Pb, a1, K0, K1, g0,
+                                  j0_hi, I, n_i, j1_lo, j1_hi)
             for i in range(n_i):
                 i1 = I + i
-                frags = [_fragments(bytes_a, bytes_b, impl, i, ks)
-                         for ks in range(impl.k_slices)]
-                A = np.concatenate([f[0] for f in frags], axis=2)
-                B = np.concatenate([f[1] for f in frags], axis=1)
+                frag = _fragments_s8 if impl.horner else _fragments_bf16
+                A, B = frag(sA, sB, impl, i)
                 if check:
-                    m, k = np.arange(TILE)[:, None], np.arange(G)[None, :]
+                    m, k = np.arange(TILE)[:, None], np.arange(impl.G)[None]
                     r = K0 + m - (g0 + k)
-                    ok = (r >= 0) & (r < a_shape[0])
-                    rows = np.clip(r, 0, a_shape[0] - 1)
-                    want_a = np.where(ok, ca[:, rows, i1], 0)
+                    ok = (r >= 0) & (r < a0)
+                    want_a = np.where(ok, a_vals[:, np.clip(r, 0, a0 - 1),
+                                                 i1], 0)
                     assert np.array_equal(A, want_a), (unit, g0, i1)
                     n = np.arange(TILE)[None, :]
                     ll = K1 + n - i1
-                    okb = (ll >= j1_lo) & (ll < j1_hi) & (k.T < n_dj)
+                    rows = g0 + k.T
+                    okb = ((ll >= j1_lo) & (ll < j1_hi) & (rows < j0_hi)
+                           & (rows < b0))
                     want_b = np.where(
-                        okb, cb[:, np.minimum(g0 + k.T, b_shape[0] - 1),
-                                np.clip(ll, 0, b_shape[1] - 1)], 0)
+                        okb, b_vals[:, np.clip(rows, 0, b0 - 1),
+                                    np.clip(ll, 0, b1 - 1)], 0)
                     assert np.array_equal(B, want_b), (unit, g0, i1)
                 ex = []
                 for n in range(TILE):
                     ll = K1 + n - i1
                     ex.append(int(ea[i1]) + int(eb[ll])
                               if j1_lo <= ll < j1_hi else NO_COL)
-                # every chunk pair's integer product (f64 matmuls of small
-                # integers: exact)
                 pair = np.einsum("tmk,ukn->tumn", A.astype(np.float64),
                                  B.astype(np.float64))
                 c = None
@@ -245,39 +324,56 @@ def _unit(ca, cb, ea, eb, impl, a_shape, b_shape, n_t, n_s, unit, check):
                     c = np.zeros((TILE, TILE)) if fresh else c * 128
                     for t in range(max(0, s - 7), min(s, n_t - 1) + 1):
                         c = c + pair[t, s - t]
-                    if impl.horner:  # the int32 registers
-                        assert np.abs(c).max() < 2 ** 31
-                    else:  # exact in the f32 accumulator
-                        assert np.abs(c).max() < 2 ** 24
                     if flush:
+                        # a window column outside the unit's b sums to 0
+                        # (its B column is zero-filled), so the kernel's
+                        # finite weight of NO_COL_EX adds 0 as this 0 does
+                        nocol = np.array([e is NO_COL for e in ex])
+                        assert not c[:, nocol].any()
                         w = np.array([0.0 if e is NO_COL
                                       else pow2(e - 7 * (s + 2)) for e in ex])
-                        acc = acc + c * w[None, :]
+                        acc = acc + to_f64_exact(c, impl) * w[None, :]
     return acc
 
 
+def _split(a, b, pair_bits, impl_name):
+    """The split kernel's outputs for one pair (its plain version), as
+    bytes [n_t, cols, padded rows x esz], and the chunk values."""
+    ca, cb, ea, eb, _ = Z.ozaki_split_batched_reference(
+        torch.from_numpy(a)[None], torch.from_numpy(b)[None], pair_bits,
+        impl_name)
+    view = torch.int8 if impl_name == "int8" else torch.int16
+
+    def raw(c):
+        return c[0].contiguous().view(view).numpy().view(np.uint8).reshape(
+            c.shape[1], c.shape[2], -1)
+
+    a_vals = Z.chunk_view(ca[0], a.shape[0], True).double().numpy().astype(
+        np.int64)
+    b_vals = Z.chunk_view(cb[0], b.shape[0], False).double().numpy().astype(
+        np.int64)
+    return raw(ca), raw(cb), ea[0].numpy(), eb[0].numpy(), a_vals, b_vals
+
+
 def emulate(a, b, out_shape, pair_bits, impl_name, check=True):
-    """K5 as the kernel computes it: the split (the plain version's, which
-    the card's split equals bit for bit), the unit plan, every unit, the
-    slot sum in slot order."""
+    """K5's dense body as the kernel computes it: the split (its plain
+    version, which the card's split equals bit for bit), the unit plan,
+    every unit, the slot sum in slot order."""
     impl = Impl(impl_name)
     c0, c1 = out_shape
     plan = Z.plan(a.shape, b.shape, out_shape)
     if plan.swap:
         a, b = b, a
-    ca, ea, _ = Z.ozaki_split_reference(torch.from_numpy(a), pair_bits,
-                                        impl_name)
-    cb, eb, _ = Z.ozaki_split_reference(torch.from_numpy(b), pair_bits,
-                                        impl_name)
-    ca = ca.to(torch.int64).numpy()
-    cb = cb.to(torch.int64).numpy()
+    ca, cb, ea, eb, a_vals, b_vals = _split(a, b, pair_bits, impl_name)
     n_t = ca.shape[0]
     n_s = min(15, pair_bits + 1)
+    shapes = ((a.shape[0], a.shape[1], Z.padded_rows(a.shape[0])),
+              (b.shape[0], b.shape[1], Z.padded_rows(b.shape[0])),
+              a_vals, b_vals)
     out = np.zeros((c0, c1))
     work = np.zeros((max(plan.slots, 1), TILE, TILE))
     for unit in plan.units:
-        tile = _unit(ca, cb, ea.numpy(), eb.numpy(), impl, a.shape, b.shape,
-                     n_t, n_s, unit, check)
+        tile = _unit(ca, cb, ea, eb, impl, shapes, n_t, n_s, unit, check)
         K0, K1, slot = int(unit[0]), int(unit[1]), int(unit[6])
         if slot >= 0:
             work[slot] = tile
@@ -291,6 +387,48 @@ def emulate(a, b, out_shape, pair_bits, impl_name, check=True):
         h, w = min(TILE, c0 - K0), min(TILE, c1 - K1)
         out[K0:K0 + h, K1:K1 + w] = total[:h, :w]
     return out
+
+
+# ---------------------------------------------------------- small body
+
+def emulate_small(a, b, out_shape, pair_bits, impl_name):
+    """K5's small body: for each output, b's columns j1 ascending (a's
+    column k1 - j1), the exact int32 sums S_s over j0 and t + u = s, a
+    flush a Horner pair (fma: exact here, as each term is rounded once in
+    both), the smaller operand as b."""
+    impl = Impl(impl_name)
+    if C._swap(a.shape, b.shape):
+        a, b = b, a
+    (a0, a1), (b0, b1) = a.shape, b.shape
+    assert b0 * b1 <= Z.SMALL_MAX_COEFFS
+    _, _, ea, eb, av, bv = _split(a, b, pair_bits, impl_name)
+    n_t, n_s = av.shape[0], min(15, pair_bits + 1)
+    c0, c1 = out_shape
+    k0 = np.arange(c0)[:, None]
+    k1 = np.arange(c1)[None, :]
+    acc = np.zeros((c0, c1))
+    for j1 in range(b1):
+        i1 = k1 - j1
+        ok1 = (i1 >= 0) & (i1 < a1)
+        S = np.zeros((15, c0, c1), np.int64)
+        for j0 in range(b0):
+            r = k0 - j0
+            ok = ok1 & (r >= 0) & (r < a0)
+            va = np.where(ok, av[:, np.clip(r, 0, a0 - 1),
+                                 np.clip(i1, 0, a1 - 1)], 0)
+            for t in range(n_t):
+                for u in range(n_t):
+                    if t + u < n_s:
+                        S[t + u] += va[t] * bv[u, j0, j1]
+        ex = np.where(ok1, ea[np.clip(i1, 0, a1 - 1)] + eb[j1], 0)
+        for s in range(0, n_s, 2):
+            h, sf = S[s], s
+            if s + 1 < n_s:
+                h, sf = h * 128 + S[s + 1], s + 1
+            assert np.abs(h).max() < 2 ** 31
+            w = np.vectorize(pow2)(ex - 7 * (sf + 2))
+            acc = acc + np.where(ok1, h.astype(np.float64) * w, 0.0)
+    return acc
 
 
 def _exact(a, b, out_shape):
@@ -308,14 +446,14 @@ def _exact(a, b, out_shape):
     return out.astype(np.float64)
 
 
-# ragged (a band of b columns cut by the truncation), thin, the main
-# path's stencil class, and one whose tiles are cut into several units
-# (slots added in order)
+# ragged (a band of b columns cut by the truncation), thin, a j0 range not
+# starting at row 0 (a short a: the plan aligns it down to 16), and one
+# whose tiles are cut into several units (slots added in order)
 SHAPES = [
     ((33, 17), (21, 45), (40, 40)),
-    ((5, 70), (70, 5), (74, 74)),
-    ((70, 66), (2, 2), (70, 66)),
-    ((72, 72), (72, 72), (72, 72)),
+    ((5, 70), (70, 9), (74, 74)),
+    ((20, 300), (150, 30), (160, 40)),
+    ((136, 10), (136, 10), (136, 10)),
 ]
 
 
@@ -340,9 +478,12 @@ def test_emulation_exact_on_integer_operands(shapes, impl):
 
 
 def test_plan_of_the_slot_shape_has_slots():
-    """The last shape above runs tiles of several units (the slot sum)."""
+    """The last shape above runs tiles of several units (the slot sum),
+    the third a unit whose j0 range starts past row 0."""
     plan = Z.plan(*SHAPES[-1])
     assert plan.slots > 0 and len(plan.sums) > 0
+    lo = Z.plan(*SHAPES[2]).units[:, 2]
+    assert lo.max() > 0 and not (lo % Z.PIECE_ROWS).any()
 
 
 @pytest.mark.parametrize("impl,pair_bits", [("int8", 7), ("int8", 5),
@@ -366,10 +507,47 @@ def test_emulation_against_plain_on_uniform_operands(impl, pair_bits):
 def test_selectors_pick_the_aligned_bytes():
     """The kernel's __byte_perm selectors start every A register at its
     first entry's byte within the aligned word: (3 - g) & 3 for int8
-    (entry 63 - m + 4 t, m = g mod 4), 2 ((63 - g) mod 2) for bf16."""
+    (entry 63 - m + 4 t, m = 16 w + g), 2 ((63 - g) mod 2) for bf16."""
     for name in ("int8", "bf16"):
         impl = Impl(name)
-        y0 = impl.entry0(GID, 0)
-        byte = y0 * impl.esz
-        start = (impl.selector() & 7)
-        assert np.array_equal(start, byte % 4), name
+        for w in range(4):
+            m = 16 * w + GID
+            byte = ((63 - m + 4 * TQ) if name == "int8"
+                    else 2 * (63 - m + 2 * TQ))
+            assert np.array_equal(impl.selector(GID) & 7, byte % 4), name
+
+
+def test_horner_pair_over_a_stage_stays_in_int32():
+    """The worst Horner pair of a 64-row stage: every chunk +-64, all 8
+    pairs of both diagonals, every row: 2^7 (8 64^2 64) + 8 64^2 64 <
+    2^31, and G could grow to 256 before it would not."""
+    for g in (Z.STAGE_ROWS, 256):
+        worst = 128 * (8 * 64 * 64 * g) + 8 * 64 * 64 * g
+        assert worst < 2 ** 31, g
+    assert 128 * (8 * 64 * 64 * 512) + 8 * 64 * 64 * 512 >= 2 ** 31
+
+
+@pytest.mark.parametrize("impl", ["int8", "bf16"])
+@pytest.mark.parametrize("shapes", [((70, 66), (2, 2), (70, 66)),
+                                    ((3, 5), (40, 37), (41, 40)),
+                                    ((27, 27), (2, 2), (27, 27)),
+                                    ((30, 9), (64, 1), (80, 9))],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_small_body_exact_and_against_plain(shapes, impl):
+    """The small body on integer operands equals the integer product bit
+    for bit, and on uniform operands the plain version at 1e-14 of each
+    output column's max (the smaller operand as b, swapped where a is
+    smaller)."""
+    sa, sb, out = shapes
+    assert Z.k5_body(sa, sb) == "small"
+    rng = np.random.default_rng(sum(sa) + sum(sb))
+    a = rng.integers(0, 8, sa).astype(np.float64)
+    b = rng.integers(0, 8, sb).astype(np.float64)
+    assert np.array_equal(emulate_small(a, b, out, 7, impl),
+                          _exact(a, b, out))
+    a, b = rng.random(sa), rng.random(sb)
+    got = emulate_small(a, b, out, 7, impl)
+    want = Z.ozaki_conv2d_reference(torch.from_numpy(a), torch.from_numpy(b),
+                                    out, 7, impl).numpy()
+    col = np.abs(want).max(axis=0, keepdims=True)
+    assert float((np.abs(got - want) / col).max()) < 1e-14

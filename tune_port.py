@@ -99,7 +99,19 @@ two trees run in turns compares their K6.
    [-64, 64].  It fails loudly otherwise.  Then the card's int8 ``mma.sync``
    ceiling (8 independent m16n8k32 accumulators a warp, 1 to 4 blocks of
    four warps an SM): what K5 could reach at most of the data-sheet int8
-   rate behind ``bench.INT8_MMA_PER_S``;
+   rate behind ``bench.INT8_MMA_PER_S``.  Then the int8 ``wgmma``
+   K5's dense body runs (its own ``wgmma_s8`` and ``b_desc``, from the
+   kernel's source): one warpgroup builds A (64x32 s8) in registers in
+   the m16n8k32 A layout of each warp's 16 rows, stages a B window of
+   ``WGMMA_XW`` columns as the kernel does (two planes of 16-byte pieces,
+   one 16-row half of k each), and runs one m64n64k32 from zero with the
+   descriptor's start shifted by x0 window columns, x0 in
+   ``WGMMA_SHIFTS``; every one of the 128 x 32 D registers must hold
+   (A B[:, x0:x0 + 64])[16 w + 8 h + g][8 j + 2 tq + q] at register 4 j +
+   2 h + q (the layout the kernel's flush and write assume), with the
+   strides the kernel uses (SBO 128, LBO one plane).  It fails loudly
+   where they do not hold.  Last, the ``wgmma`` m64n64k32 s8 ceiling (8 in flight
+   between waits, 1 and 2 blocks of one warpgroup an SM);
 15. the twin of ``scripts/ozaki_diag.py::main``: K5 against K1 on square
    truncated products at ``OZAKI_ORDERS`` (128 to 1024), K5 at
    ``pair_bits`` 5, 6 and 7 in int8 and at 7 in bf16 (the integer split,
@@ -396,6 +408,87 @@ extern "C" int s8_layout(const void* A, const void* B, void* d, int bf16,
 // ``blocks`` blocks of four warps, 8 * iters mma (4096 multiply-adds) a warp
 extern "C" int s8_peak(int* out, int blocks, int iters, void* stream) {
   s8_peak_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: the wgmma probe's window columns and descriptor shifts (probe 14)
+WGMMA_XW = 80
+WGMMA_SHIFTS = (0, 1, 7, 15)
+
+WGMMA_CU = r"""
+#include "ozaki_conv2d.cu"
+namespace {
+// one m64n64k32 s8 wgmma from zero: A (64 x 32, row-major) from
+// registers, B's window (32 x xw, row-major) staged as two planes of xw
+// 16-byte pieces, the kernel's descriptor (b_desc: LBO one plane) at
+// window column x0; every D register raw to d[thread][32]
+__global__ void __launch_bounds__(128) wgmma_layout_kernel(
+    const int8_t* A, const int8_t* Bw, int xw, int x0, int* d) {
+  __shared__ __align__(128) unsigned char sB[2 * 128 * 16];
+  for (int e = threadIdx.x; e < 2 * xw * 16; e += 128) {
+    const int kc = e / (xw * 16), x = e / 16 % xw, b = e % 16;
+    sB[kc * xw * 16 + 16 * x + b] =
+        static_cast<unsigned char>(Bw[(16 * kc + b) * xw + x]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  unsigned a[4];
+  for (int r = 0; r < 4; ++r) {
+    const int row = 16 * w + g + 8 * (r % 2), k = 4 * t + 16 * (r / 2);
+    unsigned v = 0;
+    for (int j = 0; j < 4; ++j)
+      v |= static_cast<unsigned>(static_cast<unsigned char>(
+               A[row * 32 + k + j])) << (8 * j);
+    a[r] = v;
+  }
+  const uint64_t desc = b_desc(sB + 16 * x0, 16 * xw);
+  int acc[32];
+  for (int k = 0; k < 32; ++k) acc[k] = 0;
+  wgmma_fence();
+  wgmma_s8(acc, a, desc, 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(acc);
+  for (int k = 0; k < 32; ++k) d[threadIdx.x * 32 + k] = acc[k];
+}
+// iters x 8 wgmma m64n64k32 a warpgroup, a wait every 8
+__global__ void __launch_bounds__(128) wgmma_peak_kernel(int* out,
+                                                         int iters) {
+  __shared__ __align__(128) unsigned char sB[2 * 64 * 16];
+  for (int e = threadIdx.x; e < 2 * 64 * 16; e += 128) sB[e] = e & 3;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  unsigned a[4];
+  for (int j = 0; j < 4; ++j) a[j] = 0x01010101u * ((threadIdx.x + j) & 3);
+  const uint64_t desc = b_desc(sB, 64 * 16);
+  int acc[32];
+  for (int k = 0; k < 32; ++k) acc[k] = 0;
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) wgmma_s8(acc, a, desc, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+  }
+  int s = 0;
+  for (int k = 0; k < 32; ++k) s += acc[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+}  // namespace
+extern "C" int wgmma_layout(const void* A, const void* Bw, int xw, int x0,
+                            void* d, void* stream) {
+  wgmma_layout_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(A), static_cast<const int8_t*>(Bw), xw, x0,
+      static_cast<int*>(d));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int wgmma_peak(int* out, int blocks, int iters, void* stream) {
+  wgmma_peak_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       out, iters);
   return static_cast<int>(cudaGetLastError());
 }
@@ -756,6 +849,67 @@ def ozaki_layout() -> None:
         print(f"probe 14 mma.sync m16n8k32 s8 ceiling, {per_sm} blocks of "
               f"four warps an SM: {rate / 1e12:.1f}e12 multiply-adds/s = "
               f"{2 * rate / 1e12:.0f} TOPS "
+              f"({100 * rate / INT8_MMA_PER_S:.1f}% of the data-sheet int8 "
+              "rate the bounds use)")
+    wgmma_layout(rng)
+
+
+def wgmma_layout(rng) -> None:
+    """Probe 14's wgmma part (module docstring)."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import INT8_MMA_PER_S, time_ms
+
+    lib = _compile("wgmma_layout", WGMMA_CU)
+    lib.wgmma_layout.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p] * 2
+    lib.wgmma_peak.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p]
+    thread = np.arange(128)
+    w, g, t = thread // 32, thread % 32 // 4, thread % 4
+    A = rng.integers(-64, 65, (64, 32))
+    Bw = rng.integers(-64, 65, (32, WGMMA_XW))
+    a = torch.from_numpy(A.astype(np.int8)).cuda()
+    bw = torch.from_numpy(Bw.astype(np.int8)).cuda()
+    ok = []
+    for x0 in WGMMA_SHIFTS:
+        d = torch.full((128, 32), -12345, dtype=torch.int32, device="cuda")
+        err = lib.wgmma_layout(a.data_ptr(), bw.data_ptr(), WGMMA_XW, x0,
+                               d.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"wgmma_layout launch failed ({err})")
+        got = d.cpu().numpy().astype(np.int64)
+        D = A @ Bw[:, x0:x0 + 64]
+        want = np.stack([D[16 * w + 8 * h + g, 8 * j + 2 * t + q]
+                         for j in range(8) for h in (0, 1) for q in (0, 1)],
+                        axis=1)
+        ok.append(int((got == want).sum()))
+    print(f"probe 14 wgmma m64n64k32 s8, B through the kernel's descriptor "
+          f"(SBO 128, LBO a plane), start shifted by {WGMMA_SHIFTS} window "
+          "columns: " + ", ".join(f"{n} of 4096" for n in ok)
+          + " D registers at the kernel's positions")
+    if ok != [4096] * len(WGMMA_SHIFTS):
+        raise RuntimeError("probe 14: the wgmma layout or descriptor K5 "
+                           "assumes does not hold on this card")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 20000
+    for per_sm in (1, 2):
+        blocks = per_sm * sms
+        out = torch.empty(blocks * 128, dtype=torch.int32, device="cuda")
+
+        def run():
+            err = lib.wgmma_peak(out.data_ptr(), blocks, iters,
+                                 torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"wgmma_peak launch failed ({err})")
+
+        ms = time_ms(run, 3, warmup=1)
+        rate = blocks * iters * 8 * 64 * 64 * 32.0 / ms * 1e3
+        print(f"probe 14 wgmma m64n64k32 s8 ceiling (8 between waits), "
+              f"{per_sm} blocks of one warpgroup an SM: {rate / 1e12:.1f}e12 "
+              f"multiply-adds/s = {2 * rate / 1e12:.0f} TOPS "
               f"({100 * rate / INT8_MMA_PER_S:.1f}% of the data-sheet int8 "
               "rate the bounds use)")
 
