@@ -174,9 +174,23 @@ result):
    forced ``--backend jax`` run at ``OZAKI_REL``, the guard's device count
    read; and a captured ``ozaki_op`` with a NaN entry, guarded at every
    replay.
+15. the CLI's flags, the bench's ``--scaling`` and ``--suite``:
+   ``--backend jax --profile DIR`` on two_populations(``OZAKI_E2E_SIZE``
+   = 200), whose Chrome trace must parse and hold K1's kernels;
+   ``--backend jax --debug-nans`` on two_populations(``E2E_SIZE``), which
+   must print what the same run without the flag prints (no false alarm
+   on the main path); one NaN forced through ``TorchF64Backend
+   .conv_trunc`` (inf times 0 in K1) with the check on, which must raise
+   ``FloatingPointError``; ``bench.bench_order_scaling`` at order and
+   limit ``SCALING_SMOKE`` = 256, with no failed row, ``jax`` and
+   ``hybrid`` at is_close of ``numpy`` and ``pallas`` within rel
+   ``E2E_RTOL`` on Z, the moments and every p(k)/Z >= 1e-6 (phase 4's
+   bar: this process routes at phase 4's ``OFFLOAD_FLOPS``); and the
+   suite's in-repo stand-in over ``examples/*.sgcl`` (fp, ``--rational``
+   and ``--backend jax``), every row held to host f64.
 
-Each of phases 4-6 and 8-13 sets the launch counts to 0 just before it
-and reads them just after (phase 11's K1 launches are those of the
+Each of phases 4-6, 8-13 and 15 sets the launch counts to 0 just before
+it and reads them just after (phase 11's K1 launches are those of the
 captured walk: a replay runs the graph, not the wrappers); phase 14 does
 the same for K5 and its split around each forced run. Before the
 table, the shares of their bounds of K2, K3, K4a, K4b, K6 (the tensor-core
@@ -215,6 +229,8 @@ import torch.nn.functional as F
 from genfer_tpu_torch.printed import (
     IS_CLOSE,
     disagreements,
+    read_endpoints,
+    read_intervals,
     read_masses,
     read_results,
 )
@@ -1089,23 +1105,6 @@ def _agree(got: dict, want: dict, what: str, scale: float | None = None
     return len(want)
 
 
-def read_intervals(text: str) -> dict[str, tuple[float, float]]:
-    """The intervals a run printed (``X ∈ [lo, hi]``), by symbol, as
-    ``read_results`` reads points."""
-    out = {}
-    for line in text.splitlines():
-        if "∈ [" in line and "<=" not in line:
-            key, rest = line.split("∈ [")
-            lo, hi = rest.rstrip("]").split(", ")
-            out[key.split(":")[-1].strip()] = (float(lo), float(hi))
-    return out
-
-
-def _endpoints(text: str) -> dict[str, float]:
-    return {f"{key} {end}": v for key, iv in read_intervals(text).items()
-            for end, v in zip(("lo", "hi"), iv)}
-
-
 def phase8_backend_jax(launches: dict) -> None:
     """``--backend jax`` end to end on the card against ``--backend
     numpy``: the examples, two_populations and population at the sizes
@@ -1136,7 +1135,7 @@ def phase8_backend_jax(launches: dict) -> None:
                 host_out, host_s = _capture(cli.main, flags + ["numpy"])
                 n = _agree(read_results(port_out), read_results(host_out),
                            path.name)
-                n += _agree(_endpoints(port_out), _endpoints(host_out),
+                n += _agree(read_endpoints(port_out), read_endpoints(host_out),
                             path.name)
                 print(f"phase 8 {path.name} --backend jax: {n} results at "
                       f"is_close (rel {IS_CLOSE[0]}, abs {IS_CLOSE[1]}; Z at "
@@ -2504,6 +2503,109 @@ def phase14_ozaki(launches: dict) -> dict:
     return rows
 
 
+SCALING_SMOKE = 256  # phase 15's order and limit of bench --scaling
+#: the device kernels of K1's bodies, as torch.profiler names them
+K1_KERNELS = ("conv2d_small_f64_kernel", "conv2d_trunc_f64_kernel")
+
+
+def _flag_runs() -> None:
+    """Phase 15's CLI flags on the card: ``--profile`` and ``--debug-nans``
+    on two_populations, and one forced NaN."""
+    from genfer_tpu_torch import cli
+    from genfer_tpu_torch.taylor.backend import TorchF64Backend
+    from genfer_tpu_torch.tools.generators import generate_two_populations
+
+    with tempfile.TemporaryDirectory() as tmp:
+        small = Path(tmp) / f"two_populations_{OZAKI_E2E_SIZE}.sgcl"
+        generate_two_populations(small, OZAKI_E2E_SIZE, seed=0)
+        trace_dir = Path(tmp) / "trace"
+        _, dt = _capture(cli.main, [str(small), "--no-timing", "--backend",
+                                    "jax", "--profile", str(trace_dir)])
+        events = json.loads((trace_dir / cli.TRACE_FILE).read_text())[
+            "traceEvents"]
+        k1 = [e for e in events if e.get("cat") == "kernel"
+              and any(k in e.get("name", "") for k in K1_KERNELS)]
+        if not k1:
+            fail(f"--profile: the trace of {len(events)} events holds no K1 "
+                 "kernel")
+        print(f"phase 15 --backend jax --profile on {small.name}: "
+              f"{cli.TRACE_FILE} parses, {len(events)} events, {len(k1)} K1 "
+              f"kernels, {sum(e.get('cat') == 'kernel' for e in events)} device "
+              f"kernels in all ({dt:.3f} s wall)")
+        big = Path(tmp) / f"two_populations_{E2E_SIZE}.sgcl"
+        generate_two_populations(big, E2E_SIZE, seed=0)
+        flags = [str(big), "--no-timing", "--backend", "jax"]
+        checked, checked_s = _capture(cli.main, flags + ["--debug-nans"])
+        plain, plain_s = _capture(cli.main, flags)
+        if checked != plain:
+            fail("--debug-nans: two_populations printed other text with the "
+                 "check than without it")
+        print(f"phase 15 --backend jax --debug-nans on {big.name}: the text "
+              f"of the run without the flag ({checked_s:.3f} s wall with "
+              f"the check, {plain_s:.3f} s without)")
+    backend = TorchF64Backend()
+    backend.enable_nan_check()
+    a = torch.tensor([[math.inf, 0.0], [0.0, 0.0]], dtype=torch.float64,
+                     device="cuda")
+    b = torch.tensor([[0.0, 1.0], [1.0, 1.0]], dtype=torch.float64,
+                     device="cuda")
+    try:
+        backend.conv_trunc(a, b, (2, 2))
+    except FloatingPointError as e:
+        print(f"phase 15 a NaN forced through K1 with the check on: "
+              f"FloatingPointError ({e})")
+    else:
+        fail("--debug-nans: a NaN from conv_trunc did not raise")
+
+
+def phase15_flags_and_bench(launches: dict) -> None:
+    """The CLI's ``--profile`` and ``--debug-nans``, then the bench's
+    ``--scaling`` at ``SCALING_SMOKE`` and ``--suite``'s stand-in over the
+    examples."""
+    from genfer_tpu_torch import bench
+
+    where = bench.card()
+    with _counted(launches, ("conv2d_trunc_f64", "conv2d_trunc_f64[small]",
+                             "conv2d_trunc_f32"), "phase 15"):
+        _flag_runs()
+        scaling = bench.bench_order_scaling(where, limits=(SCALING_SMOKE,),
+                                            orders=(SCALING_SMOKE,))
+        suite = bench._suite_stand_in(None, families=())
+    kernel = scaling["kernel"][str(SCALING_SMOKE)]
+    e2e = scaling["end_to_end"][str(SCALING_SMOKE)]
+    for name, cell in [*kernel.items(), *e2e.items()]:
+        if isinstance(cell, str) and cell.startswith("FAILED"):
+            fail(f"bench --scaling {name}: {cell}")
+    for backend in ("hybrid", "jax"):
+        if not e2e[backend]["is_close"]:
+            fail(f"bench --scaling {backend}: not at is_close of numpy "
+                 f"({e2e[backend]})")
+    if not e2e["pallas"]["max_rel_dev_results"] <= E2E_RTOL:
+        fail(f"bench --scaling pallas: {e2e['pallas']} beyond rel {E2E_RTOL}")
+    print(f"phase 15 bench --scaling order {SCALING_SMOKE}: K2 "
+          f"{kernel['pallas_f32_ms']:.4f} ms (max rel err "
+          f"{kernel['pallas_rel_err']:.2e}), K1 {kernel['f64_ms']:.4f} ms, "
+          f"host C++ {kernel['host_cpp_ms']:.3f} ms (f64_vs_host "
+          f"{kernel['f64_vs_host']:.1f})")
+    for backend, row in e2e.items():
+        print(f"phase 15 bench --scaling population{bench.SCALING_MODEL} "
+              f"limit {SCALING_SMOKE} --backend {backend}: {row['s']:.3f} s "
+              f"warm ({row['first_s']:.3f} s first), max rel dev "
+              f"{row['max_rel_dev']:.2e} (masses) / "
+              f"{row['max_rel_dev_results']:.2e} (Z, moments, p/Z >= "
+              f"{bench.P_MIN:g}), is_close {row['is_close']}"
+              + (f", {row['device_ops']} device ops" if "device_ops" in row
+                 else ""))
+    for label, row in suite.items():
+        for mode, cell in row.items():
+            if not isinstance(cell, dict):
+                fail(f"bench --suite stand-in {label} [{mode}]: {cell}")
+        print(f"phase 15 bench --suite stand-in {label}: " + ", ".join(
+            f"{mode} {cell['s']:.3f} s ({cell['held']} values held)"
+            for mode, cell in row.items()))
+    _check_no_jax()
+
+
 def print_shares(rows: dict, bench: dict) -> None:
     """The kernels' shares of their bounds (``bound_ms`` over the
     measured time): K2, K4a and K4b from phase 3's dense orders (K4a and
@@ -2657,6 +2759,7 @@ def main() -> None:
     phase12_scan_models(launches)
     phase13_scan_compiler(launches)
     rows.update(phase14_ozaki(launches))
+    phase15_flags_and_bench(launches)
     print_shares(rows, bench)
     print(json.dumps({"kernels": kernel_table(rows, launches)}))
     print(json.dumps({"ok": True, "device": {

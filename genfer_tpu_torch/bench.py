@@ -1,11 +1,13 @@
-"""Benchmark of the port's kernels on one CUDA card: the twin of the f64
-headline and of the ``--pallas`` sections of genfer_tpu's ``bench.py``.
+"""Benchmark of the port on one CUDA card: the twin of genfer_tpu's
+``bench.py``.
 
     python -m genfer_tpu_torch.bench [--seed N]
     python -m genfer_tpu_torch.bench --pallas [--seed N]
     python -m genfer_tpu_torch.bench --serving --scan [--reference DIR]
     python -m genfer_tpu_torch.bench --nested
     python -m genfer_tpu_torch.bench --ozaki --highorder
+    python -m genfer_tpu_torch.bench --scaling --suite [--reference DIR]
+    python -m genfer_tpu_torch.bench --all
 
 The headline (no option) twins ``bench_kernel`` and ``bench_host_kernel``:
 
@@ -78,14 +80,29 @@ inside.  Both keep the reference's evidence rules: a ``_meta`` stamp, a
 failed row recorded and the others run, and a spot check of 64 output
 coefficients against host-exact f64 dots.
 
-The other sections of genfer_tpu's bench are not ported yet; asking for
-one raises ``NotImplementedError`` naming its ROADMAP item.
+``--scaling`` twins ``bench_order_scaling``: a kernel table at orders
+256, 384 and 512 (K2 with its max rel err against f64, K1, the host C++
+kernel, and the host's time over K1's) and an end-to-end table, the
+population model (``generate_population(None, 200, 2)``) through the CLI
+at limits 256 and 512 under ``--backend numpy``, ``hybrid``, ``pallas``
+and ``jax`` (the last new in the twin): wall seconds and the deviation
+from the numpy run; its ``finding`` is read from the run's own rows.
+``--suite`` twins ``bench_suite``: with the reference's corpus (under
+``--reference`` or ``$GENFER_REFERENCE``) its protocol unchanged (fp and
+``--rational`` rows held to the ``.expected`` lines, the ``approx/`` half
+to the ``.expect`` files with ``golden.py``); without it, where the JAX
+bench returns None, an in-repo stand-in (``examples/*.sgcl`` and the
+generator families, each held to host f64) that its ``_meta`` names.
+``--all`` runs the headline and what the JAX bench's ``--all`` runs
+(``ALL_SECTIONS``: not ``--nested``).  ``main`` records a section that
+raises as ``FAILED ...``, runs the others, and raises at the end.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -125,15 +142,6 @@ INT8_MMA_PER_S = 1979e12 / 2
 BF16_MMA_PER_S = 989e12 / 2
 INT8_MMA = "int8 mma"
 BF16_MMA = "bf16 mma"
-
-#: genfer_tpu bench options this twin does not run yet -> ROADMAP item
-UNPORTED = {
-    "suite": "Queue 1 item 3 (bench twin; end-to-end suite)",
-    "scaling": "Queue 1 item 3 (bench twin; the scaling table over K1, the "
-               "host kernel and K2, which Queue 1 item 1 unblocked)",
-    "all": "Queue 1 item 3 (bench twin; every section)",
-}
-
 
 def card() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
@@ -915,8 +923,383 @@ def bench_highorder(where: str, orders=HIGHORDER_ORDERS) -> dict:
     return results
 
 
-def _meta(where: str) -> dict:
-    return {"device": torch.cuda.get_device_name(0), "card": where,
+SCALING_ORDERS = (256, 384, 512)  # bench.py::bench_order_scaling's orders
+SCALING_LIMITS = (256, 512)  # and its end-to-end limits
+SCALING_MODEL = (200, 2)  # generate_population(None, 200, 2)
+#: the JAX bench's three backends, then the port's main device path
+SCALING_BACKENDS = ("numpy", "hybrid", "pallas", "jax")
+#: the printed masses of an f32 product's run held to host f64 from this
+#: normalized mass up (``chip_smoke.py``'s phase 4 bar); tail masses leave
+#: the f32 range
+P_MIN = 1e-6
+
+
+def _failed(e: Exception) -> str:
+    return f"FAILED {type(e).__name__}: {e}"
+
+
+def _cli(argv, device) -> tuple[str, float, object]:
+    """The port's CLI in process on ``device``: what it printed, the wall
+    seconds (the run ends in its printed values, read from the card), and
+    its backend."""
+    from . import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        backend = cli.main(argv, device=device)
+    return buf.getvalue(), time.perf_counter() - t0, backend
+
+
+def _deviation(text: str, ref: str) -> dict:
+    """How far a run's printed values lie from the host f64 run's:
+    ``max_rel_dev`` over the unnormalized masses above 1e-300 (the JAX
+    bench's measure), ``max_rel_dev_results`` over Z, the moments and
+    every p(k)/Z >= ``P_MIN``, and ``is_close``: every value at the
+    reference's is_close as ``printed.disagreements`` holds them."""
+    from .printed import disagreements, read_masses, read_results
+
+    got, want = read_results(text), read_results(ref)
+    masses, ref_masses = read_masses(text), read_masses(ref)
+    dev = max((abs(masses[k] - v) / v for k, v in ref_masses.items()
+               if v > 1e-300 and k in masses), default=0.0)
+    held = max((abs(got[k] - v) / max(abs(v), 1e-300)
+                for k, v in want.items()
+                if k in got and not (k.endswith("/ Z") and v < P_MIN)),
+               default=0.0)
+    bad = (disagreements(got, want)
+           + disagreements(masses, ref_masses, want.get("Z")))
+    return {"max_rel_dev": dev, "max_rel_dev_results": held,
+            "is_close": not bad}
+
+
+def scaling_kernels(rng, orders, where: str) -> dict:
+    """``bench_order_scaling``'s kernel table: at each order K2
+    (``bench_pallas_kernel``, with its max rel err against f64), K1
+    (``bench_f64_kernel``) and the host C++ kernel
+    (``bench_host_kernel``), and the host kernel's time over K1's
+    (``f64_vs_host``); each cell recorded as ``FAILED ...`` where it
+    fails, and the others run."""
+    table = {}
+    for order in orders:
+        row: dict = {}
+        try:
+            pal = bench_pallas_kernel(rng, order, ITERS, where)
+            row.update(pallas_f32_ms=pal["ms"], pallas_f32_gflops=pal["gflops"],
+                       pallas_rel_err=pal["max_rel_err_vs_f64"],
+                       pallas_bound_ms=pal["bound_ms"])
+        except Exception as e:  # record, keep going
+            row["pallas_f32_ms"] = _failed(e)
+        try:
+            f64 = bench_f64_kernel(rng, order, ITERS, where)
+            row.update(f64_ms=f64["ms"], f64_gflops=f64["gflops"],
+                       f64_max_err_vs_plain=f64["max_err_vs_plain"],
+                       f64_bound_ms=f64["bound_ms"])
+        except Exception as e:  # record, keep going
+            row["f64_ms"] = _failed(e)
+        try:
+            host = bench_host_kernel(rng, order, HOST_ITERS)
+            row.update(host_cpp_ms=host["ms"], host_cpp_gflops=host["gflops"])
+            if isinstance(row.get("f64_ms"), float):
+                row["f64_vs_host"] = host["ms"] / row["f64_ms"]
+        except Exception as e:  # record, keep going
+            row["host_cpp_ms"] = _failed(e)
+        print(f"scaling kernel order {order}: {row}", file=sys.stderr,
+              flush=True)
+        table[str(order)] = row
+    return table
+
+
+def scaling_end_to_end(limits, size: int = SCALING_MODEL[0],
+                       nvars: int = SCALING_MODEL[1], device=None) -> dict:
+    """``bench_order_scaling``'s end-to-end table: population(``size``,
+    ``nvars``) through the port's CLI at each limit under each of
+    ``SCALING_BACKENDS``, twice: the first run's wall seconds
+    (``first_s``) and the second's (``s``, warm), the products the
+    offload backends sent to the device (``device_ops``), and the
+    deviation from the ``numpy`` run (``_deviation``); a run that fails is
+    recorded as ``FAILED ...`` and the others run."""
+    import tempfile
+
+    from .tools.generators import generate_population
+
+    table = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / f"population_{size}_{nvars}.sgcl"
+        generate_population(path, size, nvars)
+        for limit in limits:
+            row: dict = {}
+            ref = None
+            for backend in SCALING_BACKENDS:
+                argv = [str(path), "--no-timing", "--limit", str(limit),
+                        "--backend", backend]
+                try:
+                    _, first, _ = _cli(argv, device)
+                    text, dt, obj = _cli(argv, device)
+                    if backend == "numpy":
+                        ref = text
+                    if ref is None:
+                        raise RuntimeError("no numpy run to hold it to")
+                    row[backend] = {"s": dt, "first_s": first,
+                                    **_deviation(text, ref)}
+                    if hasattr(obj, "device_ops"):
+                        row[backend]["device_ops"] = obj.device_ops
+                except Exception as e:  # record, keep going
+                    row[backend] = _failed(e)
+                print(f"scaling end-to-end limit {limit} [{backend}]: "
+                      f"{row[backend]}", file=sys.stderr, flush=True)
+            table[str(limit)] = row
+    return table
+
+
+def _scaling_finding(end_to_end: dict) -> str:
+    """What this run's end-to-end rows say: each limit's fastest backend
+    and each backend's wall over numpy's."""
+    parts = []
+    for limit, row in end_to_end.items():
+        walls = {b: r["s"] for b, r in row.items() if isinstance(r, dict)}
+        if "numpy" not in walls:
+            parts.append(f"limit {limit}: no numpy row")
+            continue
+        fastest = min(walls, key=walls.get)
+        parts.append(f"limit {limit}: fastest {fastest}; wall over numpy's "
+                     + ", ".join(f"{b} {w / walls['numpy']:.3g}"
+                                 for b, w in walls.items() if b != "numpy"))
+    return "; ".join(parts)
+
+
+def bench_order_scaling(where: str, limits=SCALING_LIMITS,
+                        orders=SCALING_ORDERS, seed: int = 0) -> dict:
+    """``bench.py::bench_order_scaling``: the kernel table on the card
+    (``scaling_kernels``) and the end-to-end table (``scaling_end_to_end``)
+    with a ``jax`` row beside the JAX bench's three backends, and a
+    finding read from this run's rows."""
+    rng = np.random.default_rng(seed)
+    results = {"kernel": scaling_kernels(rng, orders, where),
+               "end_to_end": scaling_end_to_end(limits)}
+    results["finding"] = _scaling_finding(results["end_to_end"])
+    results["_meta"] = {
+        **_meta(where), "seed": seed,
+        "model": "tools/generators.py::generate_population(None, "
+                 f"{SCALING_MODEL[0]}, {SCALING_MODEL[1]})",
+        "note": "the kernel table's f64 row is K1 (the JAX bench's XLA f64 "
+                "row), its f32 row K2 (the Pallas row-strip kernel's twin); "
+                "the jax end-to-end row is new in the twin",
+    }
+    return results
+
+
+#: the JAX bench's expected failure: the reference itself panics there
+SUITE_EXPECTED_FAILURES = {("clinicalTrial", "fp"): "is not a probability"}
+#: the in-repo stand-in's generator families (``tools/generators.py``), at
+#: the sizes the bench and ``chip_smoke.py`` run them
+SUITE_FAMILIES = (
+    ("hmm(30)", "generate_hmm", {"n_steps": 30}),
+    ("mixture", "generate_mixture", {}),
+    ("switchpoint", "generate_switchpoint", {}),
+    ("population(1000, 2)", "generate_population",
+     {"size": 1000, "num_vars": 2}),
+    ("two_populations(2000)", "generate_two_populations", {"size": 2000}),
+)
+SUITE_SOURCE = ("examples/*.sgcl in fp and --rational, and the generator "
+                "families of tools/generators.py in fp, each also with "
+                "--backend jax (the reference's benchmarks/neurips2023 "
+                "corpus is not in the repo)")
+
+
+def _suite_corpus(reference: Path, device) -> dict:
+    """The JAX bench's protocol on the reference's corpus under
+    ``reference``, unchanged: fp on ``<name>.sgcl``, ``--rational`` on
+    ``<name>.rational.sgcl`` (else the same file), each output held to
+    its ``.expected`` lines (one must occur in it), the expected failure
+    of ``SUITE_EXPECTED_FAILURES``; then the ``approx/`` half, each
+    output compared with its ``.expect`` file (``golden.py``)."""
+    from . import cli
+    from .golden import _first_line_flags, compare_outputs, run_cli
+
+    suite = reference / "benchmarks" / "neurips2023" / "exact"
+
+    def run_one(path, flags):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main([str(path), "--no-timing"] + flags, device=device)
+        except Exception as e:  # report any failure
+            return None, f"crashed: {e}"
+        dt = time.perf_counter() - t0
+        expected_file = path.parent / (path.parent.name + ".expected")
+        if expected_file.exists():
+            expected = [e for e in expected_file.read_text().splitlines()
+                        if e.strip()]
+            if not any(e in buf.getvalue() for e in expected):
+                return dt, "wrong result"
+        return dt, None
+
+    results: dict = {}
+    total, n = 0.0, 0
+    for model_dir in sorted(p for p in suite.iterdir() if p.is_dir()):
+        name = model_dir.name
+        fp = model_dir / f"{name}.sgcl"
+        if not fp.exists():
+            continue
+        results[name] = {}
+        rational = model_dir / f"{name}.rational.sgcl"
+        for mode, path, flags in (
+            ("fp", fp, []),
+            ("rational", rational if rational.exists() else fp,
+             ["--rational"]),
+        ):
+            dt, err = run_one(path, flags)
+            if dt is None and (name, mode) in SUITE_EXPECTED_FAILURES:
+                msg = "expected failure (parity: reference also panics here)"
+                results[name][mode] = msg
+            elif dt is None:
+                # the JAX bench tests ``err`` first and formats the missing
+                # time there, so a crash raises TypeError and ends its suite
+                msg = err
+                results[name][mode] = msg
+            elif err:
+                msg = f"{dt:.3f}s ({err})"
+                results[name][mode] = msg
+            else:
+                msg = f"{dt:.3f}s"
+                results[name][mode] = round(dt, 4)
+                if mode == "fp":
+                    total += dt
+                    n += 1
+            print(f"  {name} [{mode}]: {msg}", file=sys.stderr)
+    print(f"suite total ({n} fp models passing): {total:.3f}s",
+          file=sys.stderr)
+    approx = reference / "benchmarks" / "neurips2023" / "approx"
+    if approx.exists():
+        for model_dir in sorted(p for p in approx.iterdir() if p.is_dir()):
+            name = model_dir.name
+            fp = model_dir / f"{name}.sgcl"
+            exp = model_dir / f"{name}.expect"
+            if not fp.exists() or not exp.exists():
+                continue
+            flags = _first_line_flags(fp)
+            if flags is None:  # marked `skip integration test`
+                continue
+            t0 = time.perf_counter()
+            try:
+                out = run_cli(fp, flags)
+                dt = time.perf_counter() - t0
+                compare_outputs(out, exp.read_text(encoding="utf-8"), name)
+                results[f"approx/{name}"] = {"fp": round(dt, 4)}
+                msg = f"{dt:.3f}s"
+            except Exception as e:  # record, keep going
+                results[f"approx/{name}"] = {"fp": f"FAILED {e}"}
+                msg = f"FAILED {e}"
+            print(f"  approx/{name} [fp]: {msg}", file=sys.stderr)
+    return results
+
+
+#: what a ``--rational`` row is not held to host f64 on: the square root
+#: of a variance that is 0 in exact arithmetic is ~1e-8 after f64 rounding,
+#: above is_close's absolute 1e-8 (examples/nested_inference.sgcl: σ = 0
+#: against 1.7e-8); its variance is held
+RATIONAL_UNHELD = ("σ",)
+
+
+def _held(text: str, ref: str, rational: bool) -> int:
+    """Hold a run's printed values to the host f64 run's as
+    ``printed.disagreements`` does (raising where they differ); for a
+    ``rational`` run only the values both printed (it prints "(not a
+    rational)" for the rest, and to a limit of its own), less
+    ``RATIONAL_UNHELD``; the number held."""
+    from .printed import (
+        disagreements,
+        read_endpoints,
+        read_masses,
+        read_results,
+    )
+
+    got = {**read_results(text), **read_endpoints(text)}
+    want = {**read_results(ref), **read_endpoints(ref)}
+    masses, ref_masses = read_masses(text), read_masses(ref)
+    if rational:
+        got = {k: v for k, v in got.items()
+               if k in want and k not in RATIONAL_UNHELD}
+        want = {k: want[k] for k in got}
+        masses = {k: v for k, v in masses.items() if k in ref_masses}
+        ref_masses = {k: ref_masses[k] for k in masses}
+    z = read_results(ref).get("Z")
+    bad = disagreements(got, want) + disagreements(masses, ref_masses, z)
+    if bad:
+        raise RuntimeError("; ".join(bad[:3]) + " (host f64)")
+    return len(got) + len(masses)
+
+
+def _suite_stand_in(device, families=SUITE_FAMILIES) -> dict:
+    """The in-repo stand-in for the reference's corpus: each program of
+    ``examples/*.sgcl`` in fp (host ``--backend numpy``, the CLI's
+    default, the yardstick), ``--rational`` and ``--backend jax``, each
+    generator family of ``families`` in fp and ``--backend jax``.  Each
+    row: its wall seconds and the values held to the fp run's
+    (``_held``: ``--backend jax`` all of them, ``--rational`` those it
+    prints as rationals), or ``FAILED ...``, and the others run."""
+    import tempfile
+
+    from .tools import generators
+
+    paths = [(p.name, p, ("fp", "rational", "jax"))
+             for p in sorted((Path(__file__).resolve().parent.parent
+                              / "examples").glob("*.sgcl"))]
+    results: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, generate, kwargs in families:
+            path = Path(tmp) / f"{generate}.sgcl"
+            getattr(generators, generate)(path, **kwargs)
+            paths.append((label, path, ("fp", "jax")))
+        for label, path, modes in paths:
+            row: dict = {}
+            ref = None
+            for mode in modes:
+                flags = {"fp": ["--backend", "numpy"],
+                         "rational": ["--rational"],
+                         "jax": ["--backend", "jax"]}[mode]
+                try:
+                    text, dt, _ = _cli([str(path), "--no-timing", *flags],
+                                       device)
+                    if mode == "fp":
+                        ref = text
+                    held = _held(text, ref, rational=mode == "rational")
+                    row[mode] = {"s": dt, "held": held}
+                except Exception as e:  # record, keep going
+                    row[mode] = _failed(e)
+                print(f"  {label} [{mode}]: {row[mode]}", file=sys.stderr,
+                      flush=True)
+            results[label] = row
+    return results
+
+
+def bench_suite(where: str, reference: Path | None = None, device=None,
+                families=SUITE_FAMILIES) -> dict:
+    """``bench.py::bench_suite``: end-to-end walls through the port's CLI.
+    With the reference's corpus under ``reference`` (or
+    ``$GENFER_REFERENCE``), its protocol unchanged (``_suite_corpus``);
+    without it, where the JAX bench returns None, the in-repo stand-in
+    (``_suite_stand_in``), which its ``_meta`` names."""
+    ref = reference or os.environ.get("GENFER_REFERENCE")
+    if ref is not None and (Path(ref) / "benchmarks" / "neurips2023"
+                            / "exact").exists():
+        results = _suite_corpus(Path(ref), device)
+        source = f"{ref}/benchmarks/neurips2023 (the reference's protocol)"
+    else:
+        results = _suite_stand_in(device, families=families)
+        source = SUITE_SOURCE
+    results["_meta"] = {**_meta(where, device), "source": source}
+    return results
+
+
+def _meta(where: str, device=None) -> dict:
+    """A section's stamp: the device it ran on (``None``: the card), the
+    card's nvidia-smi line, the time."""
+    dev = torch.device(device if device is not None else "cuda")
+    name = torch.cuda.get_device_name(0) if dev.type == "cuda" else str(dev)
+    return {"device": name, "card": where,
             "run": time.strftime("%Y-%m-%dT%H:%M:%S")}
 
 
@@ -966,6 +1349,23 @@ def run_highorder(orders=HIGHORDER_ORDERS) -> dict:
     return {"highorder": bench_highorder(_card(), orders)}
 
 
+def run_scaling(seed: int = 0) -> dict:
+    """``--scaling``: the kernel and end-to-end scaling tables."""
+    return {"scaling": bench_order_scaling(_card(), seed=seed)}
+
+
+def run_suite(reference: Path | None = None) -> dict:
+    """``--suite``: the end-to-end suite (the reference's corpus, or the
+    in-repo stand-in)."""
+    return {"suite": bench_suite(_card(), reference)}
+
+
+#: the sections ``--all`` runs after the headline: the JAX bench's ``--all``
+#: (not ``--nested``), in its order
+ALL_SECTIONS = ("ozaki", "pallas", "scaling", "highorder", "serving",
+                "scan", "suite")
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m genfer_tpu_torch.bench")
     ap.add_argument("--pallas", action="store_true",
@@ -985,41 +1385,65 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--highorder", action="store_true",
                     help="blocked products (K2, K1, K5 inside) at orders "
                     f"{', '.join(map(str, HIGHORDER_ORDERS))}")
+    ap.add_argument("--scaling", action="store_true",
+                    help="K2, K1 and the host C++ kernel at orders "
+                    f"{', '.join(map(str, SCALING_ORDERS))}, and "
+                    f"population{SCALING_MODEL} end to end under "
+                    f"{', '.join(SCALING_BACKENDS)} at limits "
+                    f"{', '.join(map(str, SCALING_LIMITS))}")
+    ap.add_argument("--suite", action="store_true",
+                    help="end-to-end walls: the reference's neurips2023 "
+                    "corpus under --reference or $GENFER_REFERENCE, else "
+                    "the in-repo stand-in (examples and generator "
+                    "families)")
+    ap.add_argument("--all", action="store_true",
+                    help="the headline and " + ", ".join(ALL_SECTIONS))
     ap.add_argument("--reference", type=Path, default=None,
                     help="the reference's checkout: --scan then also runs "
-                    "its committed hmm and mixture benchmarks")
+                    "its committed hmm and mixture benchmarks, and --suite "
+                    "its neurips2023 corpus")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the numpy generator of the operands")
-    for name in UNPORTED:
-        ap.add_argument(f"--{name}", action="store_true",
-                        help=f"not ported yet: ROADMAP {UNPORTED[name]}")
     return ap
 
 
 def main(argv=None) -> dict:
+    """Run the sections asked for (the f64 headline where none is), each
+    one recorded as ``FAILED ...`` where it raises while the others run;
+    write and print the results, then raise if a section failed.  Without
+    a card it raises before any section runs."""
     args = build_arg_parser().parse_args(argv)
-    for name, item in UNPORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name} is not ported yet: ROADMAP {item}")
+    _card()
+    sections = {
+        "ozaki": run_ozaki,
+        "pallas": lambda: run_pallas(args.seed),
+        "scaling": lambda: run_scaling(args.seed),
+        "highorder": run_highorder,
+        "serving": run_serving,
+        "scan": lambda: run_scan(args.reference),
+        "nested": run_nested,
+        "suite": lambda: run_suite(args.reference),
+    }
+    asked = [name for name in sections
+             if getattr(args, name) or (args.all and name in ALL_SECTIONS)]
     results: dict = {}
-    if args.pallas:
-        results.update(run_pallas(args.seed))
-    if args.serving:
-        results.update(run_serving())
-    if args.scan:
-        results.update(run_scan(args.reference))
-    if args.nested:
-        results.update(run_nested())
-    if args.ozaki:
-        results.update(run_ozaki())
-    if args.highorder:
-        results.update(run_highorder())
-    if not results:
-        results = run_headline(args.seed)
+    failed = []
+    if args.all or not asked:
+        asked.insert(0, "headline")
+        sections["headline"] = lambda: run_headline(args.seed)
+    for name in asked:
+        try:
+            results.update(sections[name]())
+        except Exception as e:  # record, keep going
+            results[name] = _failed(e)
+            failed.append(name)
+            print(f"bench section {name} {results[name]}", file=sys.stderr,
+                  flush=True)
     RESULTS.parent.mkdir(parents=True, exist_ok=True)
     RESULTS.write_text(json.dumps(results, indent=2) + "\n")
     print(json.dumps(results))
+    if failed:
+        raise RuntimeError(f"bench sections failed: {', '.join(failed)}")
     return results
 
 

@@ -10,8 +10,11 @@ genfer_tpu's; the backend selection builds the port's backends
 ``TorchIntervalBackend`` with ``--bounds``, on the card).
 ``--compile-scan`` runs the scan compiler (``scanc.py``) on the card and
 falls back to the interpreter only where the program or the mode is
-outside its fragment.  ``--backend sharded``, ``--profile`` and
-``--debug-nans`` reach code not yet ported and raise.
+outside its fragment.  ``--profile DIR`` writes a ``torch.profiler``
+Chrome trace (``TRACE_FILE``) where genfer_tpu writes a ``jax.profiler``
+trace; ``--debug-nans`` turns on the device backends' NaN check
+(``enable_nan_check``) where genfer_tpu turns on ``jax_debug_nans``.
+``--backend sharded`` reaches code not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ __all__ = ["build_arg_parser", "main", "run", "select_mode"]
 
 _NOT_PORTED = ("sharded",)
 MAX_PROB_LIMIT = 1000
+#: the Chrome trace ``--profile DIR`` writes into DIR
+TRACE_FILE = "trace.json"
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -74,9 +79,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", "--limit", type=int, default=None)
     p.add_argument("--json", type=Path, default=None)
     p.add_argument("--profile", type=Path, default=None, metavar="DIR",
-                   help="write a jax.profiler trace of the inference to DIR")
+                   help="write a torch.profiler Chrome trace of the "
+                   f"inference to DIR/{TRACE_FILE} (CPU activity, and CUDA "
+                   "activity when the run's device is a card)")
     p.add_argument("--debug-nans", action="store_true",
-                   help="enable jax NaN debugging (jax_debug_nans)")
+                   help="raise FloatingPointError on the first NaN an op "
+                   "of a device backend (jax, hybrid and pallas: the ops "
+                   "they run on the device) produces; checked per backend "
+                   "op, not per primitive as jax_debug_nans; the host "
+                   "backends are not checked")
     p.add_argument("--compile-scan", action="store_true",
                    help="detect repeated observation blocks in the AST and "
                    "compile the whole inference into one loop on the card over "
@@ -196,18 +207,21 @@ def select_mode(args, program=None, device=None):
     return T, backend, elem
 
 
-def main(argv=None):
+def main(argv=None, device=None):
     """Run everything on a dedicated thread with a large stack: recursion
-    depth on deep GF DAGs exceeds default stacks."""
+    depth on deep GF DAGs exceeds default stacks.  ``device`` as in
+    ``run``; returns what ``run`` returns (the backend, or the scan
+    compiler's object)."""
     import threading
 
     result: list = []
+    error: list = []
 
     def work():
         try:
-            _main_impl(argv)
+            result.append(_main_impl(argv, device))
         except BaseException as e:  # propagate to the caller's thread
-            result.append(e)
+            error.append(e)
 
     old_limit = sys.getrecursionlimit()
     sys.setrecursionlimit(1_000_000)
@@ -221,31 +235,47 @@ def main(argv=None):
     finally:
         threading.stack_size(0)
         sys.setrecursionlimit(old_limit)
-    if result:
-        raise result[0]
+    if error:
+        raise error[0]
+    return result[0]
 
 
-def _main_impl(argv=None):
+def _main_impl(argv=None, device=None):
     args = build_arg_parser().parse_args(argv)
     text = args.file_name.read_text(encoding="utf-8")
     program = parse_program(text)
     if args.print_program:
         print(f"Parsed program:\n{program}\n")
-    run(program, args)
+    return run(program, args, device)
 
 
 def run(program, args, device=None):
     """Inference and printing for one parsed program; ``device`` as in
     ``select_mode`` (and of the scan compiler under ``--compile-scan``)."""
-    for on, flag in (
-        (args.profile is not None, "--profile"),
-        (args.debug_nans, "--debug-nans"),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to genfer_tpu_torch"
-            )
-    return _run_impl(program, args, device)
+    if args.profile is None:
+        return _run_impl(program, args, device)
+    return _profiled(args.profile, device,
+                     lambda: _run_impl(program, args, device))
+
+
+def _profiled(out_dir: Path, device, call):
+    """``call()`` under ``torch.profiler``, its Chrome trace written to
+    ``out_dir / TRACE_FILE`` (also where ``call`` raises).  The activities
+    follow the run's device (``None``: the card): CPU always, CUDA where
+    that device is a card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device if device is not None else "cuda").type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            return call()
+    finally:
+        prof.export_chrome_trace(str(out_dir / TRACE_FILE))
 
 
 def _run_impl(program, args, device=None):
@@ -254,6 +284,8 @@ def _run_impl(program, args, device=None):
         if scan_obj is not None:
             return scan_obj
     T, backend, elem = select_mode(args, program, device)
+    if args.debug_nans and hasattr(backend, "enable_nan_check"):
+        backend.enable_nan_check()
     IV = Interval.over(elem) if not args.bounds else T
     inference_start = time.perf_counter()
     uses_observe = program.uses_observe()

@@ -6,32 +6,57 @@ from __future__ import annotations
 
 import math
 import re
+from fractions import Fraction
 
 #: the reference's is_close (number.rs:59-77): rel 1e-9 or abs 1e-8
 IS_CLOSE = (1e-9, 1e-8)
 
 _POINT = re.compile(r"^(?:Normalized:\s+)?(.+?)\s+=\s+(\S+)$")
-_MASS = re.compile(r"Unnormalized: p\((\d+)\)\s*=\s*([\d.e+-]+)")
+_MASS = re.compile(r"Unnormalized: p\((\d+)\)\s*=\s*([\d.e+/-]+)")
+
+
+def _number(text: str) -> float:
+    """A printed value: a float, or a fraction as ``--rational`` prints."""
+    return float(Fraction(text)) if "/" in text else float(text)
 
 
 def read_results(text: str) -> dict[str, float]:
     """The point results a run printed: ``Z``, ``E``, ``σ`` and the other
     moments by their symbol, each ``p(k)`` of a normalized program, and
     each ``p(k) / Z`` of an unnormalized one (its unnormalized lines and
-    the "p(n) <= ..." tail bounds are left out)."""
+    the "p(n) <= ..." tail bounds are left out); a fraction as its float,
+    and "(not a rational)" left out."""
     out: dict[str, float] = {}
     for line in text.splitlines():
         if line.startswith("Unnormalized:") or "<=" in line:
             continue
         m = _POINT.match(line.strip())
         if m is not None:
-            out[m.group(1).split(":")[-1].strip()] = float(m.group(2))
+            out[m.group(1).split(":")[-1].strip()] = _number(m.group(2))
     return out
+
+
+def read_intervals(text: str) -> dict[str, tuple[float, float]]:
+    """The intervals a run printed (``X ∈ [lo, hi]``), by symbol, as
+    ``read_results`` reads points ("(not a rational)" left out)."""
+    out = {}
+    for line in text.splitlines():
+        if "∈ [" in line and "<=" not in line and "(not" not in line:
+            key, rest = line.split("∈ [")
+            lo, hi = rest.rstrip("]").split(", ")
+            out[key.split(":")[-1].strip()] = (_number(lo), _number(hi))
+    return out
+
+
+def read_endpoints(text: str) -> dict[str, float]:
+    """``read_intervals`` as points: ``X lo`` and ``X hi``."""
+    return {f"{key} {end}": v for key, iv in read_intervals(text).items()
+            for end, v in zip(("lo", "hi"), iv)}
 
 
 def read_masses(text: str) -> dict[str, float]:
     """The unnormalized masses a run printed, by ``p(k)``."""
-    return {f"p({m.group(1)})": float(m.group(2))
+    return {f"p({m.group(1)})": _number(m.group(2))
             for m in _MASS.finditer(text)}
 
 

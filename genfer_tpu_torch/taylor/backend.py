@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from .host import (
     ArrayF64Backend,
     ArrayIntervalBackend,
+    IvArr,
     NumpyF64Backend,
     _conv_pair_flops,
     _effective_axes,
@@ -224,6 +225,49 @@ def _log1d(xs, out_shape: Shape, axis: int):
 
 
 # ===================================================================
+# --debug-nans
+# ===================================================================
+
+#: the public ops of ``Backend`` whose results ``enable_nan_check`` checks
+NAN_CHECKED_OPS = (
+    "scalar", "from_nested", "zeros", "reshape", "index", "slice_axis",
+    "stack", "concat", "pad_to", "add", "sub", "neg", "mul", "div",
+    "scale", "scale_left", "div_scalar", "exp_el", "log_el", "sum_axis",
+    "sum_all", "scale_axis", "conv_trunc", "poly_div", "poly_exp",
+    "poly_log",
+)
+
+
+def _nan_error(op: str) -> FloatingPointError:
+    return FloatingPointError(f"invalid value (nan) encountered in {op}")
+
+
+def _nan_checked(op, name: str):
+    """``op`` whose tensor (or interval tensor) result is checked for a
+    NaN: one reduction and one read of the card a call."""
+    def checked(*args, **kwargs):
+        out = op(*args, **kwargs)
+        data = out.data if isinstance(out, IvArr) else out
+        if torch.is_tensor(data) and bool(torch.isnan(data).any()):
+            raise _nan_error(name)
+        return out
+
+    return checked
+
+
+class _DeviceNanCheck:
+    """``enable_nan_check`` of the backends that keep their tensors on the
+    device."""
+
+    def enable_nan_check(self) -> None:
+        """Check the result of every public op from now on (the ops'
+        internal calls of one another included), as ``--debug-nans``
+        asks: per backend op, not per primitive as ``jax_debug_nans``."""
+        for name in NAN_CHECKED_OPS:
+            setattr(self, name, _nan_checked(getattr(self, name), name))
+
+
+# ===================================================================
 # host backends with device offload
 # ===================================================================
 
@@ -240,7 +284,7 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-class TorchF64Backend(ArrayF64Backend):
+class TorchF64Backend(_DeviceNanCheck, ArrayF64Backend):
     """IEEE-f64 coefficient tensors kept on ``device`` (``--backend
     jax``): the twin of genfer_tpu's ``JaxF64Backend``.  Its array body
     and the Newton-lifted n-axis div / exp / log are ``ArrayF64Backend``'s
@@ -288,7 +332,7 @@ class TorchF64Backend(ArrayF64Backend):
         return self._poly_log_nd(xs, out_shape)
 
 
-class TorchIntervalBackend(ArrayIntervalBackend):
+class TorchIntervalBackend(_DeviceNanCheck, ArrayIntervalBackend):
     """Interval tensors on ``device`` (``--bounds --backend jax``): the
     twin of genfer_tpu's ``JaxIntervalBackend``, ``ArrayIntervalBackend``'s
     body (one-ULP outward widening, the zero / one masks) over
@@ -323,11 +367,23 @@ class HybridBackend(NumpyF64Backend):
     #: minimum length before a 1-axis recurrence is offloaded
     SOLVE_OFFLOAD_LEN = 16384
 
+    #: ``--debug-nans``: check every op's result that comes back from
+    #: ``device`` (``enable_nan_check``)
+    check_nans = False
+
     def __init__(self, device=None):
         super().__init__()
         self.device = _resolve_device(device)
         #: number of ops this backend ran on ``device``
         self.device_ops = 0
+
+    def enable_nan_check(self) -> None:
+        """``--debug-nans``: from now on an op run on ``device`` raises
+        ``FloatingPointError`` where its result holds a NaN; the host's
+        ops stay unchecked, as genfer_tpu's numpy ops are under
+        ``jax_debug_nans``.  The check reads the host copy the op makes
+        anyway: no launch and no synchronize of its own."""
+        self.check_nans = True
 
     @staticmethod
     def _conv_flops(a_shape, b_shape, out_shape):
@@ -338,9 +394,12 @@ class HybridBackend(NumpyF64Backend):
             device=self.device, dtype=dtype
         )
 
-    def _offloaded(self, out) -> np.ndarray:
+    def _offloaded(self, out, op: str) -> np.ndarray:
         self.device_ops += 1
-        return out.cpu().numpy()
+        host = out.cpu().numpy()
+        if self.check_nans and np.isnan(host).any():
+            raise _nan_error(op)
+        return host
 
     def conv_trunc(self, a, b, out_shape):
         out_shape = _norm_shape(out_shape)
@@ -350,7 +409,7 @@ class HybridBackend(NumpyF64Backend):
         ):
             return self._offloaded(_conv_impl(
                 self._to_device(a), self._to_device(b), out_shape
-            ))
+            ), "conv_trunc")
         return super().conv_trunc(a, b, out_shape)
 
     def poly_div(self, xs, ys, out_shape):
@@ -365,7 +424,7 @@ class HybridBackend(NumpyF64Backend):
             return self._offloaded(_div1d(
                 self._to_device(xs), self._to_device(ys), out_shape,
                 eff_ys[0],
-            ))
+            ), "poly_div")
         return super().poly_div(xs, ys, out_shape)
 
     def poly_exp(self, xs, out_shape):
@@ -373,7 +432,7 @@ class HybridBackend(NumpyF64Backend):
         eff = _effective_axes(tuple(xs.shape))
         if len(eff) == 1 and out_shape[eff[0]] >= self.SOLVE_OFFLOAD_LEN:
             return self._offloaded(
-                _exp1d(self._to_device(xs), out_shape, eff[0])
+                _exp1d(self._to_device(xs), out_shape, eff[0]), "poly_exp"
             )
         return super().poly_exp(xs, out_shape)
 
@@ -387,7 +446,7 @@ class HybridBackend(NumpyF64Backend):
             and xs.reshape(-1)[0] > 0.0
         ):
             return self._offloaded(
-                _log1d(self._to_device(xs), out_shape, eff[0])
+                _log1d(self._to_device(xs), out_shape, eff[0]), "poly_log"
             )
         return super().poly_log(xs, out_shape)
 
@@ -432,5 +491,6 @@ class PallasBackend(HybridBackend):
                 self._to_device(b2, torch.float32),
                 eff_out,
             )
-            return self._offloaded(out).astype(np.float64).reshape(out_shape)
+            return self._offloaded(out, "conv_trunc").astype(
+                np.float64).reshape(out_shape)
         return super().conv_trunc(a, b, out_shape)

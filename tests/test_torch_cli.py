@@ -120,8 +120,6 @@ def test_main_reads_the_file(tmp_path):
 
 @pytest.mark.parametrize("extra,what", [
     (["--backend", "sharded"], "--backend sharded"),
-    (["--debug-nans"], "--debug-nans"),
-    (["--profile", "trace_dir"], "--profile"),
 ])
 def test_unported_options_raise(program, extra, what):
     args = cli.build_arg_parser().parse_args(["model.sgcl", *extra])
@@ -255,7 +253,8 @@ def test_native_eval_gate_names_the_ports_classes():
 def test_port_never_imports_jax(tmp_path):
     """Every module of the port imported (the f64 device path's namespace,
     K1's wrapper, the ``entry()`` twin, compiled serving, ``api``, the
-    models, the scan compiler and the ozaki route among them), one K5
+    models, the scan compiler, the ozaki route, the tools and the golden
+    comparison among them), one K5
     product's plain version, one compiled program, one
     model, one scan compile and one ``api.compile_serving`` run on the
     CPU, then one CLI inference run on the host path and one with
@@ -273,7 +272,8 @@ def test_port_never_imports_jax(tmp_path):
         "assert len(mods) >= 28, mods\n"
         "for m in ('taylor.xp', 'ops.conv2d_f64', 'entry', 'compile', "
         "'api', 'models', 'models.population', 'models.hmm', 'scanc', "
-        "'ops.ozaki_conv', 'ops.blocked_conv'):\n"
+        "'ops.ozaki_conv', 'ops.blocked_conv', 'tools.stats', "
+        "'tools.translate', 'tools.baselines', 'golden'):\n"
         "    assert 'genfer_tpu_torch.' + m in mods, m\n"
         "import torch\n"
         "from genfer_tpu_torch.ops.ozaki_conv import ozaki_conv2d\n"
@@ -314,7 +314,8 @@ def test_port_never_imports_jax(tmp_path):
     assert "Total measure" in proc.stdout
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_port.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_port.py",
+                                    "tune_port.py"])
 def test_scripts_import_neither_jax_nor_genfer_tpu(script):
     tree = ast.parse((REPO / script).read_text())
     names = set()

@@ -8,7 +8,7 @@ CUDA card.
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Fifteen probes (all, or the numbered ones), each printed with the card's
+Sixteen probes (all, or the numbered ones), each printed with the card's
 name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
@@ -119,7 +119,20 @@ two trees run in turns compares their K6.
    CUDA-event times in turns (K1, K5 .., K1), each K5 row's share of its
    int8 / bf16 bound and its max error over the max of K1's result; and,
    for each K5 row, the smallest order from which it is no slower than K1
-   (its crossover), or none.
+   (its crossover), or none;
+16. the twin of ``scripts/ozaki_diag.py::fullblock_kernel_ab``: K2 (the
+   row strip, ``conv2d_trunc_f32``) against K4a (the tile,
+   ``conv2d_trunc_f32_tile``) at the full-block shape (order, order) ->
+   (2 order - 1, 2 order - 1) that ``ops/blocked_conv.py::conv2d_blocked``
+   gives each pair, at ``FULLBLOCK_ORDERS``, on operands from
+   ``np.random.RandomState(2)`` as in the script: each result held to the
+   plain version of the product in f64 (``conv2d_trunc_f64_reference`` in
+   strips of ``FULLBLOCK_ROWS`` output rows, the f32 one needing over
+   80 GB at 1024) at ``FULLBLOCK_RTOL`` of each entry plus
+   ``FULLBLOCK_ATOL`` of the largest, CUDA-event times in turns (K2, K4a,
+   K4a, K2), the f32 plain version's time (``conv2d_trunc_f32_reference``,
+   cuBLAS in IEEE f32) where it fits on the card, and each kernel's share
+   of its bound (K2: the FFMA rate; K4a: three TF32 passes).
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -1354,6 +1367,82 @@ def scan_capture_against_eager() -> None:
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
 
+FULLBLOCK_ORDERS = (512, 1024)
+#: the bar of the f32 kernels' tests and of ``chip_smoke.py`` phase 3
+FULLBLOCK_RTOL = 5e-5
+#: an absolute floor for entries near 0, as a share of the largest entry
+FULLBLOCK_ATOL = 1e-6
+FULLBLOCK_REPS = 10
+FULLBLOCK_ROWS = 128  # output rows a strip of the f64 plain version
+
+
+def fullblock_ab() -> None:
+    """Probe 16."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import (
+        SPLIT_PASSES,
+        product_bound,
+        time_ms,
+    )
+    from genfer_tpu_torch.ops import (
+        conv2d_trunc_f32,
+        conv2d_trunc_f32_reference,
+        conv2d_trunc_f32_tile,
+        conv2d_trunc_f64_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (("K2", conv2d_trunc_f32, None),
+               ("K4a", conv2d_trunc_f32_tile, SPLIT_PASSES))
+    for order in FULLBLOCK_ORDERS:
+        rng = np.random.RandomState(2)
+        a64 = torch.from_numpy(rng.rand(order, order)).cuda()
+        b64 = torch.from_numpy(rng.rand(order, order)).cuda()
+        a, b = a64.float(), b64.float()
+        full = (2 * order - 1, 2 * order - 1)
+        plain = conv2d_trunc_f64_reference(a64, b64, full,
+                                           rows=FULLBLOCK_ROWS)
+        bar = FULLBLOCK_RTOL * plain.abs() + FULLBLOCK_ATOL * plain.abs().max()
+        errs = {}
+        for label, kernel, _ in kernels:
+            diff = (kernel(a, b, full).double() - plain).abs()
+            if not bool((diff <= bar).all()):
+                sys.exit(f"probe 16 {label} order {order}: off by "
+                         f"{float((diff / bar).max()):.3g} x the bar")
+            errs[label] = float((diff / plain.abs().clamp_min(1e-300)).max())
+        del plain, bar, diff
+        torch.cuda.empty_cache()
+        try:
+            ms = time_ms(lambda: conv2d_trunc_f32_reference(a, b, full), 1,
+                         warmup=0)
+            plain_ms = f"{ms:.3f} ms"
+        except torch.OutOfMemoryError:
+            plain_ms = "does not fit on the card"
+        torch.cuda.empty_cache()
+        times: dict = {label: [] for label, *_ in kernels}
+        for label, kernel, _ in (*kernels, *reversed(kernels)):
+            times[label].append(time_ms(lambda k=kernel: k(a, b, full),
+                                        FULLBLOCK_REPS))
+        parts = []
+        for label, _, passes in kernels:
+            bound, by = product_bound((order, order), (order, order), full,
+                                      passes=passes)
+            best = min(times[label])
+            parts.append(f"{label} " + " / ".join(f"{t:.4f}" for t in
+                                                 times[label])
+                         + f" ms ({100 * bound / best:.1f}% of {bound:.4f} "
+                         f"ms, {by})")
+        print(f"probe 16 full block {order} -> {full}: " + "; ".join(parts)
+              + f"; f32 plain {plain_ms}; K4a over K2 (time) "
+              f"{min(times['K4a']) / min(times['K2']):.3f}; max rel err "
+              "against the f64 plain version "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (each within rtol {FULLBLOCK_RTOL} + {FULLBLOCK_ATOL} of "
+              "the max)")
+
+
 def main(argv) -> None:
     if "--tree" in argv:  # before the first import of the package
         i = argv.index("--tree")
@@ -1372,7 +1461,7 @@ def main(argv) -> None:
         6: mma_plan_sweep, 7: fold_plan_sweep, 8: k6_lengths,
         9: f64_mma_ceiling, 10: f64_mma_layout, 11: small_against_dense,
         12: serving_batch, 13: scan_capture_against_eager,
-        14: ozaki_layout, 15: ozaki_against_k1,
+        14: ozaki_layout, 15: ozaki_against_k1, 16: fullblock_ab,
     }
     print(card())
     _build.load()
