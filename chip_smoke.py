@@ -188,15 +188,30 @@ result):
    bar: this process routes at phase 4's ``OFFLOAD_FLOPS``); and the
    suite's in-repo stand-in over ``examples/*.sgcl`` (fp, ``--rational``
    and ``--backend jax``), every row held to host f64.
+16. the mesh layer (``genfer_tpu_torch.parallel.mesh``): (a) the
+   ``dryrun_multichip`` twin (``genfer_tpu_torch.entry``) on a one-rank
+   NCCL group, its stage lines printed, K1's windowed launches (its
+   inference step's) required; (b) every rank's local body of tp = 2, 4
+   and 8 splits (``MESH_TPS``) on K1 at ``MESH_SHAPES`` (orders 512 and
+   1024 dense, two_populations(2000)'s dense_t class): each rank's row
+   window equal to the whole product's rows bit for bit and to the plain
+   version's rows (``rows=``) at ``K1_TOL``, its ms per block
+   beside the whole product's and the window's bound, the inference
+   step's batched body likewise, and the halo schedule's bodies run in
+   lock step at ``MESH_HALO`` against K1's whole product at rel
+   ``K1_TOL``; (c) ``--backend sharded`` in-process on phase 8's
+   two_populations and population (a group of one rank: no route
+   shards) against ``--backend jax`` at is_close, with the walls.
 
-Each of phases 4-6, 8-13 and 15 sets the launch counts to 0 just before
-it and reads them just after (phase 11's K1 launches are those of the
+Each of phases 4-6, 8-13, 15 and 16 (around (a) and each run of (c)) sets
+the launch counts to 0 just before it and reads them just after (phase 11's K1 launches are those of the
 captured walk: a replay runs the graph, not the wrappers); phase 14 does
 the same for K5 and its split around each forced run. Before the
 table, the shares of their bounds of K2, K3, K4a, K4b, K6 (the tensor-core
 kernels against the TF32 rate, three passes) with K2's time beside K4a's
 and K4b's, and of K1 (against the FP64 tensor rate). The second-to-last line is the kernel table as
-JSON, with one entry for each of K1's bodies and each of K5's impls and
+JSON, with one entry for each of K1's bodies (and its launches with a row
+window in phase 16, ``window_launches``) and each of K5's impls and
 one for the split; the last line is ``{"ok": true, "device": {...}}``.
 Everything is reached through
 ``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
@@ -477,6 +492,18 @@ OZAKI_SOURCES = {
     "ozaki_split": "genfer_tpu_torch/csrc/ozaki_split.cu",
     "ozaki_conv2d": "genfer_tpu_torch/csrc/ozaki_conv2d.cu",
 }
+
+# phase 16: the mesh layer (parallel/mesh.py) on the card.  The local
+# bodies of every rank of a tp = MESH_TPS split, each on K1 in this
+# process, at these shapes (dense orders 512 and 1024, and the dense_t
+# class of two_populations(2000)); the halo schedule's bodies in lock
+# step at MESH_HALO
+MESH_TPS = (2, 4, 8)
+MESH_SHAPES = [((512, 512),) * 3, ((1024, 1024),) * 3, K1_MAIN_PATH]
+MESH_HALO = ((1024, 96), (1024, 80), (1024, 128))
+#: --backend sharded end to end, against --backend jax (phase 8's models)
+MESH_CLI = (("two_populations", "generate_two_populations", (E2E_SIZE,)),
+            ("population", "generate_population", (POP_SIZE, POP_VARS)))
 
 #: the kernels whose operations bound is the tensor cores' TF32 rate (K6
 #: where it runs its tensor-core body: ``_passes``)
@@ -2606,6 +2633,172 @@ def phase15_flags_and_bench(launches: dict) -> None:
     _check_no_jax()
 
 
+def _window_bound(a_shape, b_shape, out, rows) -> float:
+    """``bound_ms`` of K1's rows [r0, r1): the multiply-adds of those rows
+    (the truncated product to r1 rows less that to r0), the operands read
+    once and the window written once, at the FP64 tensor rate."""
+    from genfer_tpu_torch.bench import F64_MMA, _conv_pair_flops, bound_ms
+
+    (r0, r1), c1 = rows, out[1]
+    macs = (_conv_pair_flops(a_shape, b_shape, (r1, c1))
+            - (_conv_pair_flops(a_shape, b_shape, (r0, c1)) if r0 else 0))
+    nbytes = 8.0 * (np.prod(a_shape) + np.prod(b_shape) + (r1 - r0) * c1)
+    return bound_ms(macs, nbytes, None, F64_MMA)[0]
+
+
+def _halo_lock_step(a, b, out, tp):
+    """The halo schedule of a tp-rank group run in this process: every
+    rank's local bodies (``halo_local_conv``, ``halo_keep``,
+    ``halo_take``) step by step, the broadcast, the spill ring (rank r
+    receives r - 1's) and the rotation (r receives r + 1's accumulator)
+    done by indexing; the output blocks concatenated."""
+    from genfer_tpu_torch.parallel.mesh import (
+        halo_keep,
+        halo_local_conv,
+        halo_take,
+    )
+
+    B = out[0] // tp
+    a_blk = [a[r * B:(r + 1) * B].contiguous() for r in range(tp)]
+    b_blk = [b[r * B:(r + 1) * B].contiguous() for r in range(tp)]
+    acc = [a.new_zeros((B, out[1])) for _ in range(tp)]
+    for s in range(tp):
+        kept = [halo_keep(acc[r], halo_local_conv(a_blk[s], b_blk[r], out,
+                                                  tp), r, s, tp)
+                for r in range(tp)]
+        acc = [halo_take(kept[r][0], kept[(r - 1) % tp][1], r, s, tp)
+               for r in range(tp)]
+        acc = [acc[(r + 1) % tp] for r in range(tp)]
+    return torch.cat(acc)
+
+
+def phase16_mesh(launches: dict) -> dict:
+    """The mesh layer on the card: (a) the ``dryrun_multichip`` twin on a
+    one-rank NCCL group; (b) the local bodies of every rank of tp = 2, 4,
+    8 splits on K1, each window held to the whole product's rows bit for
+    bit and to the plain version's rows (``rows=``) at ``K1_TOL``, with
+    the ms per block beside the whole product's and the
+    window's bound, and the halo schedule in lock step against K1's whole
+    product; (c) ``--backend sharded`` end to end (a group of one rank:
+    no route shards) against ``--backend jax``.  Returns K1's windowed
+    launches by body (its kernel-table rows)."""
+    from genfer_tpu_torch import cli
+    from genfer_tpu_torch.entry import dryrun_multichip
+    from genfer_tpu_torch.ops import conv2d_f64 as K
+    from genfer_tpu_torch.parallel import mesh as M
+    from genfer_tpu_torch.tools import generators
+
+    windowed = dict.fromkeys(K.BODIES, 0)
+
+    def add_windowed():
+        for body, n in K.conv2d_trunc_f64.windowed_by_body.items():
+            windowed[body] += n
+
+    # (a) the dryrun twin
+    t0 = time.perf_counter()
+    with _counted(launches, ("conv2d_trunc_f64",), "phase 16 (a)"):
+        text, _ = _capture(lambda argv: dryrun_multichip(1), None)
+        add_windowed()
+    for stage in ("1", "1b", "1c", "2", "3"):
+        if f"dryrun_multichip stage {stage} OK" not in text:
+            fail(f"phase 16 dryrun_multichip: no stage {stage} line:\n"
+                 f"{text}")
+    if "dryrun_multichip OK on mesh dp=1 tp=1" not in text:
+        fail(f"phase 16 dryrun_multichip: no OK line:\n{text}")
+    for line in text.splitlines():
+        print(f"phase 16 (a) {line}")
+    print(f"phase 16 (a) dryrun_multichip(1) on a one-rank NCCL group: "
+          f"{time.perf_counter() - t0:.3f} s wall; K1 windowed launches "
+          + ", ".join(f"{k} {v}" for k, v in windowed.items()))
+
+    # (b) every rank's local body of tp = 2, 4, 8 splits
+    rng = np.random.default_rng(16)
+    for sa, sb, out in MESH_SHAPES:
+        a = torch.from_numpy(rng.standard_normal(sa)).cuda()
+        b = torch.from_numpy(rng.standard_normal(sb)).cuda()
+        whole = K.conv2d_trunc_f64(a, b, out)
+        whole_ms = _time(lambda: K.conv2d_trunc_f64(a, b, out))
+        body = K.k1_body(sa, sb, out)
+        for tp in MESH_TPS:
+            windows = M.row_windows(out[0], tp)
+            blocks = [M.conv_2d_block(a, b, out, tp, r) for r in range(tp)]
+            err = 0.0
+            for (r0, r1), blk in zip(windows, blocks):
+                if not torch.equal(blk, whole[r0:r1]):
+                    fail(f"phase 16 {sa}x{sb} tp={tp}: rank rows "
+                         f"[{r0}, {r1}) differ from K1's whole product")
+                want = K.conv2d_trunc_f64_reference(
+                    a, b, out, _plain_rows(out), rows=(r0, r1))
+                err = max(err, _k1_gate(
+                    f"phase 16 {sa}x{sb} tp={tp} rows [{r0}, {r1})", blk,
+                    want, "norm"))
+                del want
+            ms = [_time(lambda r=r: M.conv_2d_block(a, b, out, tp, r))
+                  for r in range(tp)]
+            bounds = [_window_bound(sa, sb, out, w) for w in windows]
+            print(f"phase 16 (b) {sa}x{sb} {body} tp={tp}: every rank's "
+                  f"window equals the whole product's rows bit for bit and "
+                  f"the plain version's rows within max abs err {err:.3e} "
+                  f"(norm gate {K1_TOL}); "
+                  f"ms per block " + " / ".join(f"{t:.4f}" for t in ms)
+                  + f" (max {max(ms):.4f}, sum {sum(ms):.4f}) against the "
+                  f"whole {whole_ms:.4f} ms; bound per block "
+                  + " / ".join(f"{t:.4g}" for t in bounds) + " ms")
+        # the inference step's body: a batch of 2, every rank's rows
+        ab, bb = torch.stack([a, -a]), torch.stack([b, b])
+        for tp in MESH_TPS:
+            parts = [M.inference_block(ab, bb, out, tp, r) for r in
+                     range(tp)]
+            prod = torch.cat([p for p, _ in parts], dim=1)
+            if not (torch.equal(prod[0], whole) and torch.equal(prod[1],
+                                                                 -whole)):
+                fail(f"phase 16 {sa}x{sb} tp={tp}: inference_block rows "
+                     "differ from K1's whole product")
+            total = sum(t for _, t in parts)
+            err = float(((total - prod.sum(dim=(1, 2))).abs()
+                         / prod.abs().sum(dim=(1, 2))).max())
+            if not err <= K1_TOL:
+                fail(f"phase 16 {sa}x{sb} tp={tp}: totals off by {err:.3g}")
+        print(f"phase 16 (b) {sa}x{sb}: inference_block of every rank at "
+              f"tp = {MESH_TPS} equals the whole batch bit for bit")
+        del whole, a, b, ab, bb
+    sa, sb, out = MESH_HALO
+    a = torch.from_numpy(rng.random(sa)).cuda()
+    b = torch.from_numpy(rng.random(sb)).cuda()
+    whole = K.conv2d_trunc_f64(a, b, out)
+    for tp in MESH_TPS:
+        halo = _halo_lock_step(a, b, out, tp)
+        err = float(((halo - whole).abs() / whole.abs()).max())
+        if not err <= K1_TOL:
+            fail(f"phase 16 halo {sa}x{sb} tp={tp}: rel err {err:.3g}")
+        ms = _time(lambda: _halo_lock_step(a, b, out, tp))
+        print(f"phase 16 (b) halo {sa}x{sb}->{out} tp={tp}: every rank's "
+              f"bodies in lock step within rel {err:.2e} of K1's whole "
+              f"product; {ms:.4f} ms for all ranks' steps in one process")
+
+    # (c) --backend sharded end to end
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, gen, gargs in MESH_CLI:
+            path = Path(tmp) / f"{label}.sgcl"
+            getattr(generators, gen)(path, *gargs, seed=0)
+            flags = [str(path), "--no-timing", "--backend"]
+            with _counted(launches, ("conv2d_trunc_f64",),
+                          f"phase 16 (c) {label}{gargs}"):
+                sharded_out, sharded_s = _capture(cli.main,
+                                                  flags + ["sharded"])
+                add_windowed()
+            M.close_group()
+            jax_out, jax_s = _capture(cli.main, flags + ["jax"])
+            n = _agree(read_results(sharded_out), read_results(jax_out),
+                       f"{label} sharded")
+            print(f"phase 16 (c) {label}{gargs} --backend sharded (one "
+                  f"rank): {n} results at is_close of --backend jax "
+                  f"(identical text: {sharded_out == jax_out}); sharded "
+                  f"{sharded_s:.3f} s, jax {jax_s:.3f} s wall")
+    _check_no_jax()
+    return windowed
+
+
 def print_shares(rows: dict, bench: dict) -> None:
     """The kernels' shares of their bounds (``bound_ms`` over the
     measured time): K2, K4a and K4b from phase 3's dense orders (K4a and
@@ -2693,7 +2886,7 @@ def _entry(name, source, replaces, launches, row, rows, bound, by,
     }
 
 
-def kernel_table(rows: dict, launches: dict) -> list:
+def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
     from genfer_tpu_torch.bench import F64_MMA, product_bound
 
     table = []
@@ -2736,6 +2929,8 @@ def kernel_table(rows: dict, launches: dict) -> list:
             k1[(shape, kind)],
             {k: r for k, r in k1.items() if r["body"] == body}, bound, by,
             F64_MMA))
+        # of those, the launches with an output-row window (phase 16)
+        table[-1]["window_launches"] = windowed[body]
     return table
 
 
@@ -2760,8 +2955,9 @@ def main() -> None:
     phase13_scan_compiler(launches)
     rows.update(phase14_ozaki(launches))
     phase15_flags_and_bench(launches)
+    windowed = phase16_mesh(launches)
     print_shares(rows, bench)
-    print(json.dumps({"kernels": kernel_table(rows, launches)}))
+    print(json.dumps({"kernels": kernel_table(rows, launches, windowed)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

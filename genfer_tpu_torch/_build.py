@@ -109,10 +109,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         ("conv2d_trunc_f32_batched",
          [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
         ("conv2d_trunc_f64_batched",
-         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6
+         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 8
          + [ptr] * 2),
         ("conv1d_trunc_f32", [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]),
-        ("conv2d_small_f64", [ptr] * 3 + [i32] * 8 + [ptr] * 2),
+        ("conv2d_small_f64", [ptr] * 3 + [i32] * 9 + [ptr] * 2),
         ("ozaki_split", [ptr] * 2 + [i32] * 7 + [ptr] * 6),
         ("ozaki_conv2d", [ptr] * 9 + [i32, ptr] + [i32] * 14 + [ptr]),
         ("ozaki_small", [ptr] * 7 + [i32] * 12 + [ptr]),

@@ -14,12 +14,17 @@ outside its fragment.  ``--profile DIR`` writes a ``torch.profiler``
 Chrome trace (``TRACE_FILE``) where genfer_tpu writes a ``jax.profiler``
 trace; ``--debug-nans`` turns on the device backends' NaN check
 (``enable_nan_check``) where genfer_tpu turns on ``jax_debug_nans``.
-``--backend sharded`` reaches code not yet ported and raises.
+``--backend sharded`` builds ``parallel.mesh.ShardedF64Backend`` over the
+process group (``torchrun --nproc-per-node N``; a group of one rank
+otherwise), and the automatic choice takes it where the launched group
+has more than one rank; every rank runs the inference, and only rank 0
+prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import sys
@@ -46,7 +51,6 @@ from .semantics.supportset import SupportSet
 
 __all__ = ["build_arg_parser", "main", "run", "select_mode"]
 
-_NOT_PORTED = ("sharded",)
 MAX_PROB_LIMIT = 1000
 #: the Chrome trace ``--profile DIR`` writes into DIR
 TRACE_FILE = "trace.json"
@@ -168,10 +172,6 @@ def select_mode(args, program=None, device=None):
         elem = F64
 
     choice = args.backend or os.environ.get("GENFER_BACKEND")
-    if choice in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--backend {choice} is not yet ported to genfer_tpu_torch"
-        )
     if choice is None:
         if (
             elem is F64
@@ -179,9 +179,12 @@ def select_mode(args, program=None, device=None):
             >= HybridBackend.CONV_OFFLOAD_FLOPS
             and _accelerator_present()
         ):
-            # genfer_tpu shards over several devices here; the sharded
-            # backend is not ported, so every card count gets the hybrid
-            choice = "hybrid"
+            # several devices (genfer_tpu: len(jax.devices()) > 1; here
+            # the ranks of the launched group, one a device): shard the
+            # large products over the mesh; one device: host + offload
+            from .parallel.mesh import launched_ranks
+
+            choice = "sharded" if launched_ranks() > 1 else "hybrid"
         else:
             choice = "numpy"
     if args.bounds:
@@ -194,7 +197,11 @@ def select_mode(args, program=None, device=None):
             backend = ObjectBackend(T)
         return T, backend, elem
     T = elem
-    if elem is F64 and choice == "jax":
+    if elem is F64 and choice == "sharded":
+        from .parallel.mesh import ShardedF64Backend
+
+        backend = ShardedF64Backend(device=device)
+    elif elem is F64 and choice == "jax":
         backend = TorchF64Backend(device)
     elif elem is F64 and choice == "hybrid":
         backend = HybridBackend(device)
@@ -251,11 +258,32 @@ def _main_impl(argv=None, device=None):
 
 def run(program, args, device=None):
     """Inference and printing for one parsed program; ``device`` as in
-    ``select_mode`` (and of the scan compiler under ``--compile-scan``)."""
-    if args.profile is None:
-        return _run_impl(program, args, device)
-    return _profiled(args.profile, device,
-                     lambda: _run_impl(program, args, device))
+    ``select_mode`` (and of the scan compiler under ``--compile-scan``).
+    In a process group of several ranks (``--backend sharded``), every
+    rank runs it and only rank 0 prints."""
+    with _rank0_prints():
+        if args.profile is None:
+            return _run_impl(program, args, device)
+        return _profiled(args.profile, device,
+                         lambda: _run_impl(program, args, device))
+
+
+def _silent_rank() -> bool:
+    """This process is a rank other than 0 of an initialized process
+    group: it prints nothing and writes no ``--json`` file."""
+    import torch.distributed as dist
+
+    return dist.is_initialized() and dist.get_rank() != 0
+
+
+@contextlib.contextmanager
+def _rank0_prints():
+    """Send a ``_silent_rank``'s standard output to the null device."""
+    if not _silent_rank():
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
 
 
 def _profiled(out_dir: Path, device, call):
@@ -683,7 +711,8 @@ def print_json(ms: Moments, time_for_moments, probs_data,
     "time_infer": {inference_time},
 }}
 """
-    args.json.write_text(body)
+    if not _silent_rank():
+        args.json.write_text(body)
 
 
 if __name__ == "__main__":

@@ -58,13 +58,13 @@ __global__ void __launch_bounds__(SMALL_NT)
 conv2d_small_f64_kernel(const double* __restrict__ a,
                         const double* __restrict__ s, double* __restrict__ c,
                         int tiles1, int tiles, int a0, int a1, int s0, int s1,
-                        int c0, int c1, bool vec,
+                        int c0, int c1, int r0, bool vec,
                         const int* __restrict__ flag) {
   extern __shared__ __align__(16) double small_smem[];
   const int z = blockIdx.x / tiles;
   if (flag != nullptr && flag[z] == 0) return;  // the guard's predicate
   const int tile = blockIdx.x - z * tiles;
-  const int K0 = tile / tiles1 * SMALL_TR;
+  const int K0 = r0 + tile / tiles1 * SMALL_TR;
   const int K1 = tile % tiles1 * SMALL_TC;
   const int h0 = s0 - 1;
   // window columns start e1 left of K1 (even, so that a 16-byte load of
@@ -129,30 +129,32 @@ conv2d_small_f64_kernel(const double* __restrict__ a,
     }
   }
   if (k1 >= c1) return;
-  double* cz = c + static_cast<size_t>(z) * c0 * c1;
+  double* cz = c + static_cast<size_t>(z) * (c0 - r0) * c1;
 #pragma unroll
   for (int i = 0; i < SMALL_RPT; ++i)
     if (K0 + y0 + i < c0)
-      cz[static_cast<size_t>(K0 + y0 + i) * c1 + k1] = acc[i];
+      cz[static_cast<size_t>(K0 + y0 + i - r0) * c1 + k1] = acc[i];
 }
 
 }  // namespace
 
 // Launches on ``stream``; returns the CUDA error of the launch (0 when it
 // was accepted).  a (batch x a0 x a1), s (batch x s0 x s1) and c (batch x
-// c0 x c1) are contiguous row-major f64 on the current device, all sizes
-// >= 1, s0 * s1 <= SMALL_LIMIT; ``vec``: a is 16-byte aligned and a1 is
-// even.  Every output word is written, except where ``flag`` (batch
+// (c0 - r0) x c1: output rows r0 .. c0 - 1 of each product, 0 <= r0 <
+// c0) are contiguous row-major f64 on the current device, all sizes >= 1,
+// s0 * s1 <= SMALL_LIMIT; ``vec``: a is 16-byte aligned and a1 is even.
+// An output's fma chain does not depend on r0: a window's rows equal the
+// same rows of the whole product bit for bit.  Every output word is written, except where ``flag`` (batch
 // int32, or null: the guard of ozaki_conv2d.cu) holds 0 for the entry: its
 // blocks return at once.
 extern "C" int conv2d_small_f64(const double* a, const double* s, double* c,
                                 int batch, int a0, int a1, int s0, int s1,
-                                int c0, int c1, int vec, const int* flag,
-                                void* stream) {
+                                int c0, int c1, int r0, int vec,
+                                const int* flag, void* stream) {
   if (s0 * s1 > SMALL_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles1 = (c1 + SMALL_TC - 1) / SMALL_TC;
   const long long tiles =
-      static_cast<long long>((c0 + SMALL_TR - 1) / SMALL_TR) * tiles1;
+      static_cast<long long>((c0 - r0 + SMALL_TR - 1) / SMALL_TR) * tiles1;
   if (tiles * batch > INT_MAX)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = sizeof(double) *
@@ -160,7 +162,7 @@ extern "C" int conv2d_small_f64(const double* a, const double* s, double* c,
                        s0 * s1);
   conv2d_small_f64_kernel<<<static_cast<unsigned>(tiles * batch), SMALL_NT,
                             smem, static_cast<cudaStream_t>(stream)>>>(
-      a, s, c, tiles1, static_cast<int>(tiles), a0, a1, s0, s1, c0, c1,
+      a, s, c, tiles1, static_cast<int>(tiles), a0, a1, s0, s1, c0, c1, r0,
       vec != 0, flag);
   return static_cast<int>(cudaGetLastError());
 }

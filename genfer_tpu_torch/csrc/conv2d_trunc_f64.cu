@@ -102,14 +102,14 @@ __device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
 
 // One unit: the tile at (K0, K1) summed over j0 in [j0_lo, j0_hi) and j1
 // in [j1_lo, j1_hi) (both nonempty and inside b).  ``to_slot``: ``out`` is
-// a dense BM x BN workspace tile, written whole; otherwise it is c
-// (row-major c0 x c1), written where k < (c0, c1).  ``smem`` holds
-// F64Geo::SMEM bytes.
+// a dense BM x BN workspace tile, written whole; otherwise it is the
+// window [w0, c0) x [w1, c1) of c (row-major, c1 - w1 words a row),
+// written where w <= k < (c0, c1).  ``smem`` holds F64Geo::SMEM bytes.
 __device__ __forceinline__ void f64_unit(
     const double* __restrict__ a, const double* __restrict__ b,
     double* __restrict__ out, bool to_slot, int a0, int a1, int b1, int c0,
-    int c1, int K0, int K1, int j0_lo, int j0_hi, int j1_lo, int j1_hi,
-    double* __restrict__ smem) {
+    int c1, int w0, int w1, int K0, int K1, int j0_lo, int j0_hi, int j1_lo,
+    int j1_hi, double* __restrict__ smem) {
   using L = F64Geo;
   constexpr int G = L::G;
   constexpr int KB = L::KB;
@@ -241,12 +241,14 @@ __device__ __forceinline__ void f64_unit(
         const int n = nb + 8 * N + 2 * t;
         const double x0 = acc[M][N][2 * h];
         const double x1 = acc[M][N][2 * h + 1];
+        const int k0 = K0 + m;
+        const int k1 = K1 + n;
         if (to_slot) {
           *reinterpret_cast<double2*>(out + m * BN + n) = make_double2(x0, x1);
-        } else if (K0 + m < c0) {
-          double* row = out + static_cast<size_t>(K0 + m) * c1 + K1 + n;
-          if (K1 + n < c1) row[0] = x0;
-          if (K1 + n + 1 < c1) row[1] = x1;
+        } else if (k0 >= w0 && k0 < c0) {
+          double* row = out + static_cast<size_t>(k0 - w0) * (c1 - w1);
+          if (k1 >= w1 && k1 < c1) row[k1 - w1] = x0;
+          if (k1 + 1 >= w1 && k1 + 1 < c1) row[k1 + 1 - w1] = x1;
         }
       }
 }
@@ -257,7 +259,7 @@ conv2d_trunc_f64_kernel(const double* __restrict__ a,
                         double* __restrict__ work,
                         const int4* __restrict__ units, int batch, int slots,
                         size_t a_stride, size_t b_stride, int a0, int a1,
-                        int b1, int c0, int c1,
+                        int b1, int c0, int c1, int w0, int w1,
                         const int* __restrict__ flag) {
   extern __shared__ __align__(16) double smem64[];
   const int u = blockIdx.x / batch;
@@ -266,10 +268,10 @@ conv2d_trunc_f64_kernel(const double* __restrict__ a,
   const int4 p = units[2 * u];
   const int4 q = units[2 * u + 1];
   const bool to_slot = q.z >= 0;
-  double* out =
-      to_slot ? work + (g * slots + q.z) * TILE_WORDS : c + g * c0 * c1;
+  double* out = to_slot ? work + (g * slots + q.z) * TILE_WORDS
+                        : c + g * (c0 - w0) * (c1 - w1);
   f64_unit(a + g * a_stride, b + g * b_stride, out, to_slot, a0, a1, b1, c0,
-           c1, p.x, p.y, p.z, p.w, q.x, q.y, smem64);
+           c1, w0, w1, p.x, p.y, p.z, p.w, q.x, q.y, smem64);
 }
 
 }  // namespace
@@ -277,7 +279,11 @@ conv2d_trunc_f64_kernel(const double* __restrict__ a,
 // Launches on ``stream``; returns the first non-zero CUDA error (0 when
 // every launch was accepted).  All sizes must be >= 1 and every pointer a
 // contiguous array on the current device: a (batch entries a_stride
-// apart) and b (b_stride apart) row-major f64, c batch * c0 * c1 f64;
+// apart) and b (b_stride apart) row-major f64, c batch * (c0 - w0) *
+// (c1 - w1) f64: the window of output rows [w0, c0) and columns [w1, c1)
+// of each product (0 <= w0 < c0, 0 <= w1 < c1; w0 = w1 = 0 and c0, c1 the
+// output's shape for the whole product), which the units' tables may
+// restrict to the tiles that meet it;
 // ``units`` n_units x 8 and ``sums`` n_sums x 4 int32 as
 // ops/conv2d.py::unit_plan(cut_j1=False) lays them out for one pair (16-byte
 // aligned); ``work`` batch * slots tiles of 64x64 f64, ``slots`` being the
@@ -290,7 +296,7 @@ extern "C" int conv2d_trunc_f64_batched(
     const double* a, const double* b, double* c, double* work,
     const void* units, int n_units, const void* sums, int n_sums, int slots,
     size_t a_stride, size_t b_stride, int batch, int a0, int a1, int b1,
-    int c0, int c1, const int* flag, void* stream) {
+    int c0, int c1, int w0, int w1, const int* flag, void* stream) {
   if (static_cast<long long>(batch) * n_units > INT_MAX)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -301,9 +307,10 @@ extern "C" int conv2d_trunc_f64_batched(
   conv2d_trunc_f64_kernel<<<static_cast<unsigned>(n_units) * batch, NT,
                             F64Geo::SMEM, st>>>(
       a, b, c, work, static_cast<const int4*>(units), batch, slots, a_stride,
-      b_stride, a0, a1, b1, c0, c1, flag);
+      b_stride, a0, a1, b1, c0, c1, w0, w1, flag);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
   return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
-                                    n_sums, slots, batch, c0, c1, st));
+                                    n_sums, slots, batch, c0, c1, st, w0,
+                                    w1));
 }

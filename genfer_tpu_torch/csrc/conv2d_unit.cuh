@@ -353,6 +353,8 @@ __device__ __forceinline__ void run_unit(
 // One block per (batch entry g, tile of several units m, quarter of the
 // tile): the tile's slots added in slot order, 4 outputs a thread.  sums
 // row m: K0, K1, first slot, slots.  T is float (K2-K6) or double (K1).
+// c holds the window [w0, c0) x [w1, c1) of each entry's output (c1 - w1
+// words a row; K1's row window, w0 = w1 = 0 elsewhere).
 constexpr int SUM_NT = TILE_WORDS / 16;  // threads of a quarter tile
 
 // the four consecutive words at p (16-byte aligned), in one or two loads
@@ -377,7 +379,7 @@ template <typename T>
 __global__ void __launch_bounds__(SUM_NT)
 sum_units_kernel(const T* __restrict__ work, T* __restrict__ c,
                  const int4* __restrict__ sums, int n_sums, int slots,
-                 int c0, int c1) {
+                 int c0, int c1, int w0, int w1) {
   const int quarter = blockIdx.x % 4;
   const int m = blockIdx.x / 4 % n_sums;
   const int g = blockIdx.x / 4 / n_sums;
@@ -396,11 +398,11 @@ sum_units_kernel(const T* __restrict__ work, T* __restrict__ c,
   }
   const int k0 = s.x + e / BN;
   const int k1 = s.y + e % BN;
-  if (k0 >= c0) return;
-  T* out = c + (static_cast<size_t>(g) * c0 + k0) * c1 + k1;
+  if (k0 < w0 || k0 >= c0) return;
+  T* out = c + (static_cast<size_t>(g) * (c0 - w0) + k0 - w0) * (c1 - w1);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    if (k1 + i < c1) out[i] = sum[i];
+    if (k1 + i >= w1 && k1 + i < c1) out[k1 + i - w1] = sum[i];
 }
 
 // whether 16-byte cp.async may read rows of an array at ``p``
@@ -428,9 +430,10 @@ inline cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
 template <typename T>
 inline cudaError_t sum_units(const T* work, T* c, const int4* sums,
                              int n_sums, int slots, int batch, int c0,
-                             int c1, cudaStream_t stream) {
+                             int c1, cudaStream_t stream, int w0 = 0,
+                             int w1 = 0) {
   sum_units_kernel<T><<<4u * n_sums * batch, SUM_NT, 0, stream>>>(
-      work, c, sums, n_sums, slots, c0, c1);
+      work, c, sums, n_sums, slots, c0, c1, w0, w1);
   return cudaGetLastError();
 }
 

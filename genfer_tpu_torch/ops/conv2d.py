@@ -205,6 +205,37 @@ def plan_units(a_shape, b_shape, out_shape, cut_j1: bool,
         np.asarray(sums, dtype=np.int32).reshape(-1, 4), slots, covers)
 
 
+@functools.lru_cache(maxsize=1024)
+def window_plan(a_shape, b_shape, out_shape, axis: int, lo: int,
+                hi: int) -> UnitPlan:
+    """``unit_plan(a_shape, b_shape, out_shape, False)``, the whole
+    product's plan, restricted to the output tiles that meet [lo, hi) on
+    ``axis`` (0: rows, 1: columns): those tiles keep their units, in the
+    whole plan's order, and each tile of several units its slots in slot
+    order, renumbered from 0 in the order of the tables' sum rows.  So
+    every output in the window is summed as in the whole product."""
+    plan = unit_plan(a_shape, b_shape, out_shape, False)
+
+    def meets(k):
+        return (k + TILE > lo) & (k < hi)
+
+    units = plan.units[meets(plan.units[:, axis])].copy()
+    sums = plan.sums[meets(plan.sums[:, axis])].copy()
+    shift = {}
+    first = 0
+    for row in sums:
+        shift[(int(row[0]), int(row[1]))] = int(row[2]) - first
+        row[2] = first
+        first += int(row[3])
+    for u in units:
+        if u[6] >= 0:
+            u[6] -= shift[(int(u[0]), int(u[1]))]
+    other = out_shape[1 - axis]
+    tiles = ((-(-hi // TILE) - lo // TILE) * -(-other // TILE))
+    covers = len({(int(u[0]), int(u[1])) for u in units}) == tiles
+    return UnitPlan(plan.swap, units, sums, first, covers)
+
+
 def tile_body(a_shape, b_shape) -> str:
     """Which body ``conv2d_trunc_f32_tile`` and ``conv2d_trunc_f32_grouped``
     run for these operands: ``"mma"`` (split TF32 on the tensor cores), or
@@ -242,10 +273,13 @@ def batched_blocks(batch: int, plan: UnitPlan) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_on_card(a_shape, b_shape, out_shape, device, cut_j1=True):
+def _plan_on_card(a_shape, b_shape, out_shape, device, cut_j1=True,
+                  window=None):
     """``unit_plan`` with its two tables on ``device``, kept for the next
-    call of the same shapes (no host-to-device copy then)."""
-    plan = unit_plan(a_shape, b_shape, out_shape, cut_j1)
+    call of the same shapes (no host-to-device copy then); with
+    ``window`` = (axis, lo, hi), ``window_plan`` of that window."""
+    plan = (unit_plan(a_shape, b_shape, out_shape, cut_j1) if window is None
+            else window_plan(a_shape, b_shape, out_shape, *window))
     units = torch.from_numpy(plan.units).to(device)
     sums = torch.from_numpy(plan.sums).to(device)
     return plan, units, sums

@@ -38,6 +38,18 @@ equals the single-pair call bit for bit.  Both wrappers count the kernel's
 launches in ``conv2d_trunc_f64.launches`` and, by body, in
 ``conv2d_trunc_f64.launches_by_body`` (CPU calls add nothing).
 
+``rows=(r0, r1)`` asks for output rows [r0, r1) only, a (r1 - r0, c1)
+result: the local body of the sharded routes (``parallel.mesh``), each
+rank its own rows.  The body is the one ``k1_route`` picks for the whole
+product, and each computes the window's rows as the whole product does:
+the small body starts its tiles at r0; the dense body runs the units of
+the whole product's plan whose tiles meet the window
+(``ops.conv2d.window_plan``: a tile keeps its units and their slot order)
+and writes the window's rows; ``dense_t`` takes the window on the
+transposed output's columns.  So a
+window equals the same rows of the whole product bit for bit.  Windowed
+launches are counted besides, in ``conv2d_trunc_f64.windowed_by_body``.
+
 ``k1_op`` is ``conv2d_trunc_f64_batched`` as a torch custom op, for the
 compiled mode (``genfer_tpu_torch.compile``), whose walk runs under
 ``torch.func.vmap``: a vmapped tensor has no ``data_ptr()``, so the op's
@@ -131,61 +143,87 @@ def dense_issued_macs(a_shape, b_shape, out_shape,
     return issued_macs(unit_plan(*shapes, False), *shapes[:2], KB)
 
 
-def conv2d_trunc_f64_batched_reference(a, b, out_shape, rows=None):
-    """Plain PyTorch version of the batch: for each strip of ``rows``
-    output rows (all of them by default), a Toeplitz tensor of ``a``
-    [rows, b0, a1, B] contracted with ``b`` into [B, rows, a1, b1], then
-    the anti-diagonal sum along axis 1.  The dense form holds ~8 c0 a1 b1
-    doubles at once (~69 GB at order 1024); a strip holds rows / c0 of
+def _window(rows, c0: int) -> tuple[int, int]:
+    """The output rows [r0, r1) that ``rows`` asks for (``None``: all
+    ``c0``); a window is nonempty and inside the output."""
+    if rows is None:
+        return 0, c0
+    r0, r1 = (int(r) for r in rows)
+    if not 0 <= r0 < r1 <= c0:
+        raise ValueError(f"rows {tuple(rows)} is not a window of {c0} rows")
+    return r0, r1
+
+
+def conv2d_trunc_f64_batched_reference(a, b, out_shape, strip=None,
+                                       rows=None):
+    """Plain PyTorch version of the batch, output rows ``rows`` = (r0,
+    r1) (all by default): for each strip of ``strip`` output rows (the
+    whole window by default), a Toeplitz tensor of ``a`` [strip, b0, a1,
+    B] contracted with ``b`` into [B, strip, a1, b1], then the
+    anti-diagonal sum along axis 1.  The dense form holds ~8 c0 a1 b1
+    doubles at once (~69 GB at order 1024); a strip holds strip / c0 of
     that."""
     c0, c1 = _check(a, b, out_shape, 3, 3, torch.float64)
-    rows = rows or c0
+    r0, r1 = _window(rows, c0)
+    strip = strip or r1 - r0
     parts = []
-    for r0 in range(0, c0, rows):
-        n = min(rows, c0 - r0)
-        Ta = _toeplitz(a.movedim(0, -1), n, b.shape[1], start=r0)
+    for s0 in range(r0, r1, strip):
+        n = min(strip, r1 - s0)
+        Ta = _toeplitz(a.movedim(0, -1), n, b.shape[1], start=s0)
         H = torch.einsum("kjiz,zjl->zkil", Ta, b)  # [B, n, a1, b1]
         parts.append(_antidiag_sum(H, c1))
         del Ta, H
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def conv2d_trunc_f64_reference(a, b, out_shape, rows=None):
+def conv2d_trunc_f64_reference(a, b, out_shape, strip=None, rows=None):
     """``conv2d_trunc_f64_batched_reference`` of one pair."""
     _check(a, b, out_shape, 2, 2, torch.float64)
     return conv2d_trunc_f64_batched_reference(a[None], b[None], out_shape,
-                                              rows)[0]
+                                              strip, rows)[0]
 
 
-def _small(lib, a, b, c0, c1, flag):
-    """The small body: one launch over (entry, output tile)."""
+def _small(lib, a, b, c0, c1, flag, r0=0, r1=None):
+    """The small body: one launch over (entry, output tile of rows [r0,
+    r1))."""
     batch = a.shape[0]
+    r1 = c0 if r1 is None else r1
     ka, ks = (b, a) if _swap(tuple(a.shape[1:]), tuple(b.shape[1:])) else (
         a, b)
     # the launch refuses more than SMALL_LIMIT coefficients and a grid of
     # more than 2^31 - 1 blocks (an error that raises below)
     vec = ka.data_ptr() % 16 == 0 and ka.shape[2] % 2 == 0
-    out = torch.empty((batch, c0, c1), dtype=torch.float64, device=a.device)
+    out = torch.empty((batch, r1 - r0, c1), dtype=torch.float64,
+                      device=a.device)
     err = lib.conv2d_small_f64(
         ka.data_ptr(), ks.data_ptr(), out.data_ptr(), batch, ka.shape[1],
-        ka.shape[2], ks.shape[1], ks.shape[2], c0, c1, int(vec),
+        ka.shape[2], ks.shape[1], ks.shape[2], r1, c1, r0, int(vec),
         0 if flag is None else flag.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "conv2d_small_f64", err)
     return out
 
 
-def _dense(lib, a, b, c0, c1, flag):
+def _dense(lib, a, b, c0, c1, flag, window=None):
     """The dense body on ``unit_plan(..., cut_j1=False)`` of the pair's
-    shapes (its tables kept on the card per shape)."""
+    shapes (its tables kept on the card per shape); ``window`` = (axis,
+    lo, hi): output rows (axis 0) or columns (axis 1) [lo, hi) only, on
+    ``window_plan``."""
     batch = a.shape[0]
-    plan, units, sums = _plan_on_card(tuple(a.shape[1:]), tuple(b.shape[1:]),
-                                      (c0, c1), a.device, False)
+    shapes = (tuple(a.shape[1:]), tuple(b.shape[1:]), (c0, c1))
+    plan, units, sums = _plan_on_card(*shapes, a.device, False, window)
+    if window is None:
+        w, e = (0, 0), (c0, c1)
+    else:
+        axis, lo, hi = window
+        w = (lo, 0) if axis == 0 else (0, lo)
+        e = (hi, c1) if axis == 0 else (c0, hi)
     batched_blocks(batch, plan)
     # the kernel's operand b is the smaller one
     ka, kb = (b, a) if plan.swap else (a, b)
     alloc = torch.empty if plan.covers else torch.zeros
-    out = alloc((batch, c0, c1), dtype=torch.float64, device=a.device)
+    out = alloc((batch, e[0] - w[0], e[1] - w[1]), dtype=torch.float64,
+                device=a.device)
     work = (torch.empty((batch, plan.slots, TILE, TILE), dtype=torch.float64,
                         device=a.device) if plan.slots else None)
     err = lib.conv2d_trunc_f64_batched(
@@ -193,7 +231,7 @@ def _dense(lib, a, b, c0, c1, flag):
         0 if work is None else work.data_ptr(),
         units.data_ptr(), len(plan.units), sums.data_ptr(),
         len(plan.sums), plan.slots, ka[0].numel(), kb[0].numel(), batch,
-        ka.shape[1], ka.shape[2], kb.shape[2], c0, c1,
+        ka.shape[1], ka.shape[2], kb.shape[2], *e, *w,
         0 if flag is None else flag.data_ptr(),
         torch.cuda.current_stream().cuda_stream,
     )
@@ -201,49 +239,61 @@ def _dense(lib, a, b, c0, c1, flag):
     return out
 
 
-def _launch(body, a, b, c0, c1, flag):
+def _launch(body, a, b, c0, c1, flag=None, rows=None):
     """Run ``body`` of K1 on the card (``dense_t``: the dense body on the
-    transposed operands, its result transposed back)."""
+    transposed operands, its result transposed back), output rows
+    ``rows`` = (r0, r1) (``None``: all)."""
     lib = _build.load()
     if body == "small":
-        return _small(lib, a, b, c0, c1, flag)
+        return _small(lib, a, b, c0, c1, flag, *(rows or ()))
     if body == "dense":
-        return _dense(lib, a, b, c0, c1, flag)
-    out = _dense(lib, a.mT.contiguous(), b.mT.contiguous(), c1, c0, flag)
+        return _dense(lib, a, b, c0, c1, flag,
+                      None if rows is None else (0, *rows))
+    out = _dense(lib, a.mT.contiguous(), b.mT.contiguous(), c1, c0, flag,
+                 None if rows is None else (1, *rows))
     return out.mT.contiguous()
 
 
-def conv2d_trunc_f64_batched(a, b, out_shape, flag=None):
+def conv2d_trunc_f64_batched(a, b, out_shape, flag=None, rows=None):
     """Truncated 2-D Cauchy products of every pair ``a[z]``, ``b[z]`` of
     the batches ``a`` (B, a0, a1) and ``b`` (B, b0, b1), f64, to (B, c0,
-    c1); any sizes >= 1.  ``flag``: an int32 tensor (B,) on the card (the
-    guard of ``ops.ozaki_conv``): the kernel's blocks of an entry whose
-    flag is 0 do nothing, and that entry's output is undefined (counted in
-    ``conv2d_trunc_f64.predicated`` besides the launch counts); the plain
-    version computes every entry."""
+    c1); any sizes >= 1.  ``rows`` = (r0, r1): output rows [r0, r1) only,
+    to (B, r1 - r0, c1) (see the module docstring).  ``flag``: an int32
+    tensor (B,) on the card (the guard of ``ops.ozaki_conv``): the
+    kernel's blocks of an entry whose flag is 0 do nothing, and that
+    entry's output is undefined (counted in ``conv2d_trunc_f64.predicated``
+    besides the launch counts); the plain version computes every entry."""
     c0, c1 = _check(a, b, out_shape, 3, 3, torch.float64)
     if a.shape[0] != b.shape[0]:
         raise ValueError(f"batches of {a.shape[0]} and {b.shape[0]} pairs")
+    window = None if rows is None else _window(rows, c0)
     if not _on_card(a):
-        return conv2d_trunc_f64_batched_reference(a, b, (c0, c1))
+        return conv2d_trunc_f64_batched_reference(a, b, (c0, c1),
+                                                  rows=window)
     if flag is not None and (flag.dtype != torch.int32
                              or tuple(flag.shape) != (a.shape[0],)
                              or flag.device != a.device):
         raise ValueError("flag must be int32 (B,) on the operands' device")
+    if window is not None and window[0] >= a.shape[1] + b.shape[1] - 1:
+        # below the product's last row: zeros, and no unit to launch
+        return a.new_zeros((a.shape[0], window[1] - window[0], c1))
     body = k1_body(tuple(a.shape[1:]), tuple(b.shape[1:]), (c0, c1))
     with _on_device(a.device):
-        out = _launch(body, a, b, c0, c1, flag)
+        out = _launch(body, a, b, c0, c1, flag, window)
     conv2d_trunc_f64.launches += 1
     conv2d_trunc_f64.launches_by_body[body] += 1
+    conv2d_trunc_f64.windowed_by_body[body] += window is not None
     conv2d_trunc_f64.predicated += flag is not None
     return out
 
 
-def conv2d_trunc_f64(a, b, out_shape):
+def conv2d_trunc_f64(a, b, out_shape, rows=None):
     """Truncated 2-D Cauchy product of f64 matrices ``a`` (a0, a1) and
-    ``b`` (b0, b1) to ``out_shape`` (c0, c1): the batch of one pair."""
+    ``b`` (b0, b1) to ``out_shape`` (c0, c1): the batch of one pair;
+    ``rows`` = (r0, r1): output rows [r0, r1) only."""
     _check(a, b, out_shape, 2, 2, torch.float64)
-    return conv2d_trunc_f64_batched(a[None], b[None], out_shape)[0]
+    return conv2d_trunc_f64_batched(a[None], b[None], out_shape,
+                                    rows=rows)[0]
 
 
 @torch.library.custom_op("genfer_tpu_torch::k1_batched", mutates_args=())
@@ -282,12 +332,15 @@ def k1_op(a, b, out_shape):
 
 
 def reset_launches() -> None:
-    """Set K1's launch counts, total, by body and predicated, to 0 (the
-    by-body dict in place, so that a reference to it stays live)."""
+    """Set K1's launch counts, total, by body, windowed by body and
+    predicated, to 0 (the by-body dicts in place, so that a reference to
+    them stays live)."""
     conv2d_trunc_f64.launches = 0
     conv2d_trunc_f64.predicated = 0
     conv2d_trunc_f64.launches_by_body.update(dict.fromkeys(BODIES, 0))
+    conv2d_trunc_f64.windowed_by_body.update(dict.fromkeys(BODIES, 0))
 
 
 conv2d_trunc_f64.launches_by_body = {}
+conv2d_trunc_f64.windowed_by_body = {}
 reset_launches()

@@ -3251,9 +3251,14 @@ class ScanCompiled:
         self.last_rest = float(self._rest(logz, rr))
         return masses, float(masses.sum())
 
-    def _many(self, entry, xs, consts):
-        """One call of a batched entry point: host masses and totals."""
+    def _many(self, entry, xs, consts, gather=None):
+        """One call of a batched entry point: host masses and totals;
+        ``gather`` joins each of its device results (the marginals, the
+        log scales, the rest masses) with the other ranks' (``run_batch``
+        on a mesh)."""
         marg, logz, rr = entry(self._g0, *xs, *consts)
+        if gather is not None:
+            marg, logz, rr = gather(marg), gather(logz), gather(rr)
         scale = 2.0 ** logz.cpu().numpy()
         masses = marg.cpu().numpy() * scale[:, None]
         self.last_rest = self._rest(logz, rr)
@@ -3285,16 +3290,28 @@ class ScanCompiled:
         are built once per distinct tuple and scattered to the (B,
         steps) layout with one fancy-indexing gather.
 
-        ``mesh`` (genfer_tpu: a ``jax.sharding.Mesh`` to shard the batch
-        over its ``batch_axis``) is not ported: the sharded path waits
-        for ``parallel/mesh.py``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "run_batch(mesh=...) is not ported: it waits for "
-                "parallel/mesh.py, ROADMAP Queue 1 item 12"
+        ``mesh``: a ``parallel.mesh.Mesh`` (the process group's ranks):
+        shard the batch over its ``batch_axis`` (data-parallel serving
+        across devices; B must be divisible by the axis size).  Each rank
+        serves its slice through its own batched entry (its own graph on
+        its card), and the masses and totals are all-gathered over the
+        axis, so every rank returns the whole batch's.  A slot-less
+        program has a pseudo-batch of one: the mesh is a no-op there."""
+        if mesh is None or not batch_cols:
+            return self._many(self._run_batch, self.batch_xs(batch_cols),
+                              self._consts0)
+        n = mesh.shape[batch_axis]
+        B = np.asarray(batch_cols[0]).shape[0]
+        if B % n:
+            raise ValueError(
+                f"batch {B} not divisible by mesh axis '{batch_axis}' "
+                f"({n}) — pad the batch"
             )
-        return self._many(self._run_batch, self.batch_xs(batch_cols),
-                          self._consts0)
+        k, per = mesh.coords[batch_axis], B // n
+        part = [np.asarray(c)[k * per:(k + 1) * per] for c in batch_cols]
+        return self._many(self._run_batch, self.batch_xs(part),
+                          self._consts0,
+                          lambda t: mesh.gather(batch_axis, t))
 
     def batch_xs(self, batch_cols):
         """``run_batch``'s host prep: the (B, steps, ...) feed tensors and

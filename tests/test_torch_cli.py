@@ -122,9 +122,24 @@ def test_main_reads_the_file(tmp_path):
     (["--backend", "sharded"], "--backend sharded"),
 ])
 def test_unported_options_raise(program, extra, what):
-    args = cli.build_arg_parser().parse_args(["model.sgcl", *extra])
-    with pytest.raises(NotImplementedError, match=what):
-        cli.run(tparse(program), args, device="cpu")
+    """Once unported, ``--backend sharded`` now runs: outside a process
+    group the CLI forms a group of one rank (gloo on the CPU), where no
+    route shards (tp = 1), and prints what ``--backend jax`` prints."""
+    from genfer_tpu_torch.parallel.mesh import ShardedF64Backend, close_group
+
+    args = cli.build_arg_parser().parse_args(
+        ["model.sgcl", "--no-timing", *extra])
+    try:
+        port, backend = _printed(cli.run, tparse(program), args,
+                                 device="cpu")
+    finally:
+        close_group()
+    assert isinstance(backend, ShardedF64Backend), what
+    assert backend.mesh.shape == {"dp": 1, "tp": 1}
+    assert not any(backend.routes.values())
+    jax_text, _ = _printed(cli.run, tparse(program), _args("jax"),
+                           device="cpu")
+    assert port == jax_text
 
 
 def test_compile_scan_runs_the_scan_compiler(program):
@@ -257,9 +272,10 @@ def test_port_never_imports_jax(tmp_path):
     comparison among them), one K5
     product's plain version, one compiled program, one
     model, one scan compile and one ``api.compile_serving`` run on the
-    CPU, then one CLI inference run on the host path and one with
-    ``--backend jax``, in a fresh interpreter: neither jax nor genfer_tpu
-    (nor any module of it) is loaded."""
+    CPU, then one CLI inference run on the host path, one with
+    ``--backend jax`` and one with ``--backend sharded`` (the mesh layer,
+    on a group of one gloo rank), in a fresh interpreter: neither jax nor
+    genfer_tpu (nor any module of it) is loaded."""
     path = tmp_path / "model.sgcl"
     generate_two_populations(path, 20, seed=0)
     code = (
@@ -273,7 +289,8 @@ def test_port_never_imports_jax(tmp_path):
         "for m in ('taylor.xp', 'ops.conv2d_f64', 'entry', 'compile', "
         "'api', 'models', 'models.population', 'models.hmm', 'scanc', "
         "'ops.ozaki_conv', 'ops.blocked_conv', 'tools.stats', "
-        "'tools.translate', 'tools.baselines', 'golden'):\n"
+        "'tools.translate', 'tools.baselines', 'golden', 'parallel', "
+        "'parallel.mesh'):\n"
         "    assert 'genfer_tpu_torch.' + m in mods, m\n"
         "import torch\n"
         "from genfer_tpu_torch.ops.ozaki_conv import ozaki_conv2d\n"
@@ -303,6 +320,9 @@ def test_port_never_imports_jax(tmp_path):
         "args = cli.build_arg_parser().parse_args("
         f"[{str(path)!r}, '--no-timing', '--backend', 'jax'])\n"
         f"text = open({str(path)!r}).read()\n"
+        "cli.run(parse_program(text), args, device='cpu')\n"
+        "args = cli.build_arg_parser().parse_args("
+        f"[{str(path)!r}, '--no-timing', '--backend', 'sharded'])\n"
         "cli.run(parse_program(text), args, device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'genfer_tpu.')) or m == 'genfer_tpu']\n"

@@ -162,14 +162,38 @@ A_OFF = np.array([0, 8 * A_PITCH, 4, 8 * A_PITCH + 4])
 B_OFF = np.array([0, -4])
 
 
-def emulate_dense(a, b, out):
+def _write(c, w, e, K0, K1, tile):
+    """The write-back of one output tile at (K0, K1) into the window [w0,
+    e0) x [w1, e1) that ``c`` holds, as the kernel and the slot sum index
+    it: c[k0 - w0, k1 - w1] for w <= k < e."""
+    for m in range(TILE):
+        k0 = K0 + m
+        if not w[0] <= k0 < e[0]:
+            continue
+        for n in range(TILE):
+            k1 = K1 + n
+            if w[1] <= k1 < e[1]:
+                c.reshape(-1)[(k0 - w[0]) * (e[1] - w[1]) + k1 - w[1]] = (
+                    tile[m, n])
+
+
+def emulate_dense(a, b, out, window=None):
     """The dense body's result for operands ``a``, ``b`` in this
     orientation: every unit of the plan with the kernel's staging,
-    fragment offsets and write-back, then the slot sum."""
-    plan = C.unit_plan(a.shape, b.shape, out, cut_j1=False)
+    fragment offsets and write-back, then the slot sum.  ``window`` =
+    (axis, lo, hi): ``C.window_plan``'s units and the window's write-back
+    (output rows, axis 0, or columns, axis 1, [lo, hi))."""
+    if window is None:
+        plan = C.unit_plan(a.shape, b.shape, out, cut_j1=False)
+        w, e = (0, 0), tuple(out)
+    else:
+        axis, lo, hi = window
+        plan = C.window_plan(a.shape, b.shape, tuple(out), *window)
+        w = (lo, 0) if axis == 0 else (0, lo)
+        e = (hi, out[1]) if axis == 0 else (out[0], hi)
     ka, kb = (b, a) if plan.swap else (a, b)
     a1 = ka.shape[1]
-    c = np.full(out, np.nan)
+    c = np.full((e[0] - w[0], e[1] - w[1]), np.nan)
     work = np.zeros((max(plan.slots, 1), TILE, TILE))
     ks = np.arange(S)[:, None, None, None]
     for K0, K1, j0_lo, j0_hi, j1_lo, j1_hi, slot, _ in plan.units.tolist():
@@ -209,23 +233,22 @@ def emulate_dense(a, b, out):
         if slot >= 0:
             work[slot] = tile
         else:
-            r, q = min(TILE, out[0] - K0), min(TILE, out[1] - K1)
-            c[K0:K0 + r, K1:K1 + q] = tile[:r, :q]
+            _write(c, w, e, K0, K1, tile)
     for K0, K1, first, n in plan.sums.tolist():
-        total = work[first:first + n].sum(axis=0)
-        r, q = min(TILE, out[0] - K0), min(TILE, out[1] - K1)
-        c[K0:K0 + r, K1:K1 + q] = total[:r, :q]
+        _write(c, w, e, K0, K1, work[first:first + n].sum(axis=0))
     if not plan.covers:
         c[np.isnan(c)] = 0.0
     return c
 
 
-def emulate(a, b, out):
+def emulate(a, b, out, rows=None):
     """The dense body in the orientation ``k1_route`` gives it:
-    ``dense_t`` runs on the transposed operands and transposes back."""
+    ``dense_t`` runs on the transposed operands and transposes back (a
+    window of ``rows`` on the transposed output's columns)."""
     if K.dense_transposed(a.shape, b.shape, tuple(out)):
-        return emulate_dense(a.T, b.T, out[::-1]).T
-    return emulate_dense(a, b, out)
+        window = None if rows is None else (1, *rows)
+        return emulate_dense(a.T, b.T, out[::-1], window).T
+    return emulate_dense(a, b, out, None if rows is None else (0, *rows))
 
 
 @pytest.mark.parametrize("sa,sb,out", SHAPES + [
@@ -240,6 +263,25 @@ def test_fragment_offsets_name_the_product(sa, sb, out):
     got = emulate(a, b, out)
     want = J.NumpyF64Backend().conv_trunc(a, b, out)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [(0, 64), (64, 130), (13, 77), (129, 130),
+                                  (0, 130)])
+@pytest.mark.parametrize("sa,sb,out", [
+    ((130, 140), (120, 100), (130, 140)),  # several tiles and units
+    ((130, 1), (130, 87), (130, 87)),  # dense_t: the window on columns
+    ((5, 7), (4, 6), (130, 150)),  # output tiles without a unit
+])
+def test_window_write_back_names_the_rows(sa, sb, out, rows):
+    """The dense body's window (``window_plan``'s units, the kernel's
+    write-back at (k0 - w0, k1 - w1)) gives the whole product's rows
+    bit for bit, in both orientations, on integer operands (exact)."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(-4, 5, sa).astype(np.float64)
+    b = rng.integers(-4, 5, sb).astype(np.float64)
+    got = emulate(a, b, out, rows)
+    whole = J.NumpyF64Backend().conv_trunc(a, b, out)
+    assert np.array_equal(got, whole[rows[0]:rows[1]])
 
 
 def test_unstaged_words_would_poison_the_emulation():
@@ -357,17 +399,20 @@ def _small_window(ka, K0, K1, s0, s1, vec):
     return sw
 
 
-def emulate_small(a, b, out, vec=None):
+def emulate_small(a, b, out, vec=None, rows=None):
     """The small body's result for one pair: per 32x32 output tile its
     window, then every output as the kernel sums it, j0 ascending then
-    j1 (fma's single rounding aside), read at the kernel's offsets."""
+    j1 (fma's single rounding aside), read at the kernel's offsets;
+    ``rows`` = (r0, r1): the tiles start at row r0, and output row k is
+    written at k - r0."""
     ka, ks = (b, a) if C._swap(a.shape, b.shape) else (a, b)
     s0, s1 = ks.shape
     assert s0 * s1 <= SMALL_LIMIT
     vec = ka.shape[1] % 2 == 0 if vec is None else vec
     h0, e1 = s0 - 1, s1 & ~1
-    c = np.full(out, np.nan)
-    for K0 in range(0, out[0], SMALL_TILE):
+    r0, r1 = (0, out[0]) if rows is None else rows
+    c = np.full((r1 - r0, out[1]), np.nan)
+    for K0 in range(r0, r1, SMALL_TILE):
         for K1 in range(0, out[1], SMALL_TILE):
             sw = _small_window(ka, K0, K1, s0, s1, vec)
             acc = np.zeros((SMALL_TILE, SMALL_TILE))  # [y, x]
@@ -375,8 +420,8 @@ def emulate_small(a, b, out, vec=None):
                 for j1 in range(s1):
                     acc = acc + ks[j0, j1] * sw[h0 - j0:h0 - j0 + SMALL_TILE,
                                                 e1 - j1:e1 - j1 + SMALL_TILE]
-            r, q = min(SMALL_TILE, out[0] - K0), min(SMALL_TILE, out[1] - K1)
-            c[K0:K0 + r, K1:K1 + q] = acc[:r, :q]
+            r, q = min(SMALL_TILE, r1 - K0), min(SMALL_TILE, out[1] - K1)
+            c[K0 - r0:K0 - r0 + r, K1:K1 + q] = acc[:r, :q]
     assert not np.isnan(c).any()  # every output word written
     return c
 
@@ -428,6 +473,18 @@ def test_small_body_loads_stage_the_same_window(sa, sb, out):
     a, b = _normal(sa, 24), _normal(sb, 25)
     assert np.array_equal(emulate_small(a, b, out, vec=True),
                           emulate_small(a, b, out, vec=False))
+
+
+@pytest.mark.parametrize("rows", [(0, 32), (7, 41), (30, 31)])
+@pytest.mark.parametrize("sa,sb,out", [SMALL_SHAPES[0], SMALL_SHAPES[2],
+                                       SMALL_SHAPES[9]])
+def test_small_body_window_equals_the_whole_rows(sa, sb, out, rows):
+    """The small body's row offset: a window's outputs are the whole
+    product's, bit for bit (each output's fma chain is the same)."""
+    a, b = _normal(sa, 30), _normal(sb, 31)
+    whole = emulate_small(a, b, out)
+    assert np.array_equal(emulate_small(a, b, out, rows=rows),
+                          whole[rows[0]:rows[1]])
 
 
 def test_small_body_batch_replay_matches_the_plain_version():
@@ -520,6 +577,23 @@ def test_kernel_on_card(card, sa, sb, out):
     assert K.conv2d_trunc_f64.launches_by_body[K.k1_body(sa, sb, out)] == 1
     _gate(got, K.conv2d_trunc_f64_reference(a, b, out))
     assert torch.equal(got, K.conv2d_trunc_f64(a, b, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(0, 64), (64, 128), (13, 77)])
+@pytest.mark.parametrize("sa,sb,out", BODY_SHAPES[:1] + BODY_SHAPES[4:5]
+                         + [((200, 190), (150, 170), (200, 190))])
+def test_window_equals_the_whole_rows_on_card(card, sa, sb, out, rows):
+    """K1's row window on the card (small, dense_t, dense): the same rows
+    of the whole product bit for bit, one windowed launch each."""
+    a = _t(_normal(sa, 13)).to(card)
+    b = _t(_normal(sb, 14)).to(card)
+    whole = K.conv2d_trunc_f64(a, b, out)
+    K.reset_launches()
+    got = K.conv2d_trunc_f64(a, b, out, rows=rows)
+    body = K.k1_body(sa, sb, out)
+    assert K.conv2d_trunc_f64.windowed_by_body[body] == 1
+    assert torch.equal(got, whole[rows[0]:rows[1]])
 
 
 @pytest.mark.cuda

@@ -234,7 +234,7 @@ def test_batched_launch_plan(batch, sa, sb, out, swap):
     import inspect
 
     assert list(inspect.signature(C._plan_on_card.__wrapped__).parameters) == [
-        "a_shape", "b_shape", "out_shape", "device", "cut_j1"]
+        "a_shape", "b_shape", "out_shape", "device", "cut_j1", "window"]
     plan = C.unit_plan(sa, sb, out)
     assert plan.swap is swap
     blocks = C.batched_blocks(batch, plan)

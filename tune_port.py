@@ -8,7 +8,7 @@ CUDA card.
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Sixteen probes (all, or the numbered ones), each printed with the card's
+Eighteen probes (all, or the numbered ones), each printed with the card's
 name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
@@ -131,8 +131,27 @@ two trees run in turns compares their K6.
    80 GB at 1024) at ``FULLBLOCK_RTOL`` of each entry plus
    ``FULLBLOCK_ATOL`` of the largest, CUDA-event times in turns (K2, K4a,
    K4a, K2), the f32 plain version's time (``conv2d_trunc_f32_reference``,
-   cuBLAS in IEEE f32) where it fits on the card, and each kernel's share
-   of its bound (K2: the FFMA rate; K4a: three TF32 passes).
+   cuBLAS in IEEE f32) where it fits on the card, the library call's (one
+   cuDNN f32 ``conv2d`` of ``a`` padded with the flipped ``b``, TF32 off,
+   timed once after its first call, with its max rel err) and each
+   kernel's share of its bound (K2: the FFMA rate; K4a: three TF32
+   passes);
+17. K1's output-row window (``conv2d_trunc_f64(..., rows=(r0, r1))``,
+   the sharded routes' local body) at the slowest rank's rows, the last
+   window of ``parallel.mesh.row_windows`` for tp = 2, 4 and 8, at dense
+   orders ``WINDOW_ORDERS``: its time, its plain version's
+   (``conv2d_trunc_f64_reference(..., rows=)``) and one cuDNN f64
+   ``conv2d`` computing the same rows (the padded ``a``'s rows [r0, r1 +
+   b0 - 1) correlated with the flipped ``b``; timed once after its first
+   call where a call takes over a second), each held to K1's window at
+   1e-12 of its max;
+18. ``chip_smoke.py``'s phase 16 alone, its lines condensed to one a
+   (shape, tp) of (b): the max abs error against the plain rows and the
+   ms per block beside the whole product's; then every rank's window of tp = 2
+   and 4 at order 1024 on phase 16's operands, the ms per block (CUDA
+   events, ``chip_smoke._time``) in one process: fresh, again, after the
+   plain version of every window, again, and after
+   ``torch.cuda.empty_cache()``, with the SM clock and power drawn.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -1403,7 +1422,7 @@ def fullblock_ab() -> None:
         a, b = a64.float(), b64.float()
         full = (2 * order - 1, 2 * order - 1)
         plain = conv2d_trunc_f64_reference(a64, b64, full,
-                                           rows=FULLBLOCK_ROWS)
+                                           strip=FULLBLOCK_ROWS)
         bar = FULLBLOCK_RTOL * plain.abs() + FULLBLOCK_ATOL * plain.abs().max()
         errs = {}
         for label, kernel, _ in kernels:
@@ -1412,7 +1431,19 @@ def fullblock_ab() -> None:
                 sys.exit(f"probe 16 {label} order {order}: off by "
                          f"{float((diff / bar).max()):.3g} x the bar")
             errs[label] = float((diff / plain.abs().clamp_min(1e-300)).max())
-        del plain, bar, diff
+        # the library call: one cuDNN f32 conv2d (TF32 off) of a padded
+        # with the flipped b, timed once, cold (seconds at 1024)
+        torch.backends.cudnn.allow_tf32 = False
+        x = torch.zeros((1, 1, full[0] + order - 1, full[1] + order - 1),
+                        dtype=torch.float32, device=a.device)
+        x[0, 0, order - 1:2 * order - 1, order - 1:2 * order - 1] = a
+        w = torch.flip(b, dims=(0, 1))[None, None].contiguous()
+        library = torch.nn.functional.conv2d(x, w)[0, 0]
+        errs["cuDNN"] = float(((library.double() - plain).abs()
+                               / plain.abs().clamp_min(1e-300)).max())
+        library_ms = time_ms(lambda: torch.nn.functional.conv2d(x, w), 1,
+                             warmup=0)
+        del plain, bar, diff, x, w, library
         torch.cuda.empty_cache()
         try:
             ms = time_ms(lambda: conv2d_trunc_f32_reference(a, b, full), 1,
@@ -1435,12 +1466,121 @@ def fullblock_ab() -> None:
                          + f" ms ({100 * bound / best:.1f}% of {bound:.4f} "
                          f"ms, {by})")
         print(f"probe 16 full block {order} -> {full}: " + "; ".join(parts)
-              + f"; f32 plain {plain_ms}; K4a over K2 (time) "
+              + f"; f32 plain {plain_ms}; cuDNN f32 conv2d "
+              f"{library_ms:.3f} ms (one call, after one); K4a over K2 (time) "
               f"{min(times['K4a']) / min(times['K2']):.3f}; max rel err "
               "against the f64 plain version "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
               + f" (each within rtol {FULLBLOCK_RTOL} + {FULLBLOCK_ATOL} of "
               "the max)")
+
+
+WINDOW_ORDERS = (512, 1024)
+
+
+def window_blocks() -> None:
+    """Probe 17."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import time_ms
+    from genfer_tpu_torch.ops.conv2d_f64 import (
+        conv2d_trunc_f64,
+        conv2d_trunc_f64_reference,
+    )
+    from genfer_tpu_torch.parallel.mesh import row_windows
+
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(17)
+    for order in WINDOW_ORDERS:
+        a = torch.from_numpy(rng.standard_normal((order, order))).cuda()
+        b = torch.from_numpy(rng.standard_normal((order, order))).cuda()
+        out = (order, order)
+        x = torch.zeros((1, 1, 2 * order - 1, 2 * order - 1),
+                        dtype=torch.float64, device=a.device)
+        x[0, 0, order - 1:, order - 1:] = a
+        w = torch.flip(b, dims=(0, 1))[None, None].contiguous()
+        for tp in (2, 4, 8):
+            r0, r1 = row_windows(order, tp)[-1]
+            calls = {
+                "K1": lambda: conv2d_trunc_f64(a, b, out, rows=(r0, r1)),
+                "plain": lambda: conv2d_trunc_f64_reference(
+                    a, b, out, strip=128, rows=(r0, r1)),
+                "cuDNN": lambda: torch.nn.functional.conv2d(
+                    x[:, :, r0:r1 + order - 1], w)[0, 0],
+            }
+            want = calls["K1"]()
+            parts = []
+            for label, call in calls.items():
+                got = call()
+                err = float((got - want).abs().max() / want.abs().max())
+                if not err <= 1e-12:
+                    sys.exit(f"probe 17 {label} order {order} tp {tp}: "
+                             f"off by {err:.3g} of the max")
+                ms = time_ms(call, 1, warmup=0)
+                if ms < 1000.0:
+                    ms = time_ms(call, max(1, min(50, int(200 / ms))))
+                parts.append(f"{label} {ms:.4f} ms")
+            print(f"probe 17 order {order} tp={tp} rows [{r0}, {r1}): "
+                  + ", ".join(parts) + " (each within 1e-12 of the max of "
+                  "K1's window)")
+
+
+def window_timing_state() -> None:
+    """Probe 18."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64_reference
+    from genfer_tpu_torch.parallel.mesh import conv_2d_block, row_windows
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        chip_smoke.phase16_mesh({})
+    for line in buf.getvalue().splitlines():
+        m = re.match(r"phase 16 \(b\) \((\d+), \d+\)x\((\d+), (\d+)\) \w+ "
+                     r"tp=(\d+):.*max abs err (\S+) .*ms per block (.*?) "
+                     r"\(max.*whole (\S+) ms", line)
+        if m:
+            print(f"probe 18 {m[1]}x{m[3]} tp={m[4]} err {m[5]} whole "
+                  f"{m[7]}: " + m[6].replace(" / ", " "))
+
+    def clocks():
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
+
+    rng = np.random.default_rng(16)  # phase 16's: its 512 pair first
+    rng.standard_normal((512, 512)), rng.standard_normal((512, 512))
+    a = torch.from_numpy(rng.standard_normal((1024, 1024))).cuda()
+    b = torch.from_numpy(rng.standard_normal((1024, 1024))).cuda()
+    out = (1024, 1024)
+
+    def blocks(label):
+        for tp in (2, 4):
+            ms = [chip_smoke._time(lambda r=r: conv_2d_block(a, b, out, tp,
+                                                             r))
+                  for r in range(tp)]
+            print(f"probe 18 1024 {label} tp={tp}: "
+                  + " ".join(f"{t:.4f}" for t in ms) + " ms")
+
+    print(f"probe 18 SM clock, power: {clocks()}")
+    blocks("fresh")
+    blocks("again")
+    for tp in (2, 4):
+        for rows in row_windows(1024, tp):
+            conv2d_trunc_f64_reference(a, b, out, 128, rows=rows)
+    print(f"probe 18 SM clock, power after the plain version: {clocks()}")
+    blocks("after the plain version")
+    blocks("again")
+    torch.cuda.empty_cache()
+    blocks("after empty_cache")
 
 
 def main(argv) -> None:
@@ -1462,6 +1602,7 @@ def main(argv) -> None:
         9: f64_mma_ceiling, 10: f64_mma_layout, 11: small_against_dense,
         12: serving_batch, 13: scan_capture_against_eager,
         14: ozaki_layout, 15: ozaki_against_k1, 16: fullblock_ab,
+        17: window_blocks, 18: window_timing_state,
     }
     print(card())
     _build.load()
