@@ -202,19 +202,43 @@ result):
    ``K1_TOL``; (c) ``--backend sharded`` in-process on phase 8's
    two_populations and population (a group of one rank: no route
    shards) against ``--backend jax`` at is_close, with the walls.
+17. the one-pass mode (``highest=False``: one TF32 ``mma`` pass, the
+   TPU kernels' DEFAULT precision) of K2, K4a, K4b (``SHAPES`` and
+   ``EXTREME``) and K3 (at ``BATCHES``, order 768 at B = 3 only): each
+   within phase 3's rtol / atol of its one-pass plain version (the f32
+   product of ``tf32_round`` of both operands), within the one-pass bound
+   of f64 (``ONE_PASS`` = 2^-10 plus ``RTOL`` of the product, the
+   operands being >= 0, plus the atol), never equal to the three-pass
+   result, the same bits twice; K2's one pass the one-pass tile kernel's
+   bits, every K3 entry the single-pair one pass's; times of the kernel,
+   its plain version and one cuDNN f32 ``conv2d`` with TF32 on (the
+   same one-pass function) at ``ONE_PASS_TIMED``.  Then the mode's main
+   path, counted: ``tune_port.py`` probe 19 (the twin of
+   ``scripts/ozaki_diag.py::pallas_floor_decomposition``) at 256 and 512,
+   which must launch all four one-pass kernels; the example twins at
+   their defaults: ``examples/digit_serving_torch.py`` (784 pixels,
+   batch 1024, a ``digitParams.csv`` written from ``RandomState(0)``),
+   rows ``DIGIT_HOST_ROWS`` at is_close of the host interpreter, and
+   ``examples/switchpoint_serving_torch.py`` on the generated coal-mining
+   cascade (order 128, 200 datasets), the committed dataset's posterior
+   at is_close of the host interpreter (Z printed beside it: the cascade
+   at order 128 and the interpreter differ by ~1e-8 of it).
 
-Each of phases 4-6, 8-13, 15 and 16 (around (a) and each run of (c)) sets
-the launch counts to 0 just before it and reads them just after (phase 11's K1 launches are those of the
-captured walk: a replay runs the graph, not the wrappers); phase 14 does
-the same for K5 and its split around each forced run. Before the
-table, the shares of their bounds of K2, K3, K4a, K4b, K6 (the tensor-core
-kernels against the TF32 rate, three passes) with K2's time beside K4a's
-and K4b's, and of K1 (against the FP64 tensor rate). The second-to-last line is the kernel table as
-JSON, with one entry for each of K1's bodies (and its launches with a row
-window in phase 16, ``window_launches``) and each of K5's impls and
-one for the split; the last line is ``{"ok": true, "device": {...}}``.
-Everything is reached through
-``genfer_tpu_torch``; nothing here imports jax or genfer_tpu.
+Each of phases 4-6, 8-13, 15, 16 (around (a) and each run of (c)) and
+17 (around each of its main path's runs) sets the launch counts to 0 just
+before it and reads them just after (phase 11's K1 launches are those of
+the captured walk: a replay runs the graph, not the wrappers); phase 14
+does the same for K5 and its split around each forced run.  Before the
+table, the shares of their bounds of K2, K3, K4a, K4b, K6 (the
+tensor-core kernels against the TF32 rate, three passes) with K2's time
+beside K4a's and K4b's, of K1 (against the FP64 tensor rate) and of the
+one-pass K2, K4a and K4b (one TF32 pass).  The second-to-last line is
+the kernel table as JSON, with one entry for each of K1's bodies (and its
+launches with a row window in phase 16, ``window_launches``), each of
+K5's impls, one for the split and one for each one-pass kernel
+(``[1pass]``); the last line is ``{"ok": true, "device": {...}}``.
+Everything is reached through ``genfer_tpu_torch``; nothing here imports
+jax or genfer_tpu.
 
 Why size 500 with ``GENFER_PALLAS_OFFLOAD_FLOPS=1e5``: the f32 route
 casts f64 coefficients to f32 without scaling (as genfer_tpu's
@@ -504,6 +528,37 @@ MESH_HALO = ((1024, 96), (1024, 80), (1024, 128))
 #: --backend sharded end to end, against --backend jax (phase 8's models)
 MESH_CLI = (("two_populations", "generate_two_populations", (E2E_SIZE,)),
             ("population", "generate_population", (POP_SIZE, POP_VARS)))
+
+# phase 17: the one-pass mode (highest=False) of K2, K3, K4a and K4b.  Its
+# bar against f64: (ONE_PASS + RTOL) of the product of the absolute values
+# (the operands here lie in [0, 1): the product itself) plus the atol
+ONE_PASS = 2.0 ** -10  # two TF32 roundings: 2u + u^2, u = 2^-11
+#: one-pass wrapper -> (its kernel-table name, source, the TPU kernel's
+#: precision switch it replaces, the table's shape and batch: the
+#: decomposition's order 512 for the single pairs, K3's 256 x B32)
+ONE_PASS_KERNELS = {
+    "conv2d_trunc_f32": (
+        "conv2d_trunc_f32[1pass]",
+        "genfer_tpu_torch/csrc/conv2d_trunc_f32_tile.cu",
+        "genfer_tpu/ops/pallas_conv2d.py:213", (DENSE_512, 1)),
+    "conv2d_trunc_f32_tile": (
+        "conv2d_trunc_f32_tile[1pass]",
+        "genfer_tpu_torch/csrc/conv2d_trunc_f32_tile.cu",
+        "genfer_tpu/ops/pallas_conv2d.py:99", (DENSE_512, 1)),
+    "conv2d_trunc_f32_grouped": (
+        "conv2d_trunc_f32_grouped[1pass]",
+        "genfer_tpu_torch/csrc/conv2d_trunc_f32_grouped.cu",
+        "genfer_tpu/ops/pallas_conv2d.py:334", (DENSE_512, 1)),
+    "conv2d_trunc_f32_batched": (
+        "conv2d_trunc_f32_batched[1pass]",
+        "genfer_tpu_torch/csrc/conv2d_trunc_f32_batched_1pass.cu",
+        "genfer_tpu/ops/pallas_conv2d.py:479", (DENSE_256, 32)),
+}
+#: the shapes at which phase 17 times each one-pass wrapper (the others it
+#: checks only): the end-to-end run's largest product and the dense orders
+ONE_PASS_TIMED = [MAIN_PATH, *(((n, n),) * 3 for n in DENSE_ORDERS)]
+#: the example twins: the digit model's rows held to the host interpreter
+DIGIT_HOST_ROWS = (0, DIGIT_BATCH - 1)
 
 #: the kernels whose operations bound is the tensor cores' TF32 rate (K6
 #: where it runs its tensor-core body: ``_passes``)
@@ -876,17 +931,22 @@ def _k1_by_body() -> dict:
 
 @contextlib.contextmanager
 def _counted(launches: dict, must: tuple, what: str):
-    """Set every kernel's launch count (and K1's by body) to 0, run the
-    block, then add the counts to ``launches``; fail if a kernel of
-    ``must`` was not launched."""
+    """Set every kernel's launch count (and K1's by body, and the one-pass
+    modes') to 0, run the block, then add the counts to ``launches``; fail
+    if a kernel of ``must`` was not launched."""
     from genfer_tpu_torch.ops.conv2d_f64 import reset_launches
 
     wrappers = _wrappers()
-    for w in wrappers.values():
+    for name, w in wrappers.items():
         w.launches = 0
+        if name in ONE_PASS_KERNELS:
+            w.launches_1pass = 0
     reset_launches()
     yield
     counts = {name: w.launches for name, w in wrappers.items()}
+    counts.update({ONE_PASS_KERNELS[name][0]: w.launches_1pass
+                   for name, w in wrappers.items()
+                   if name in ONE_PASS_KERNELS})
     counts.update(_k1_by_body())
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
@@ -2799,12 +2859,265 @@ def phase16_mesh(launches: dict) -> dict:
     return windowed
 
 
+def _one_pass_hold(name, got, plain, want, three, atol, label) -> tuple:
+    """Fail unless the one-pass ``got`` is finite, within phase 3's bar of
+    its one-pass ``plain`` version, within the one-pass bound of the f64
+    ``want`` (operands >= 0: |a| * |b| is the product) and not the
+    three-pass result ``three``; its max abs and rel error against f64."""
+    if tuple(got.shape) != tuple(want.shape) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"{name} {label}: bad shape {tuple(got.shape)} or non-finite")
+    bar = atol + RTOL * plain.abs()
+    if not bool(((got - plain).abs() <= bar).all()):
+        fail(f"{name} {label}: off its one-pass plain version by "
+             f"{float(((got - plain).abs() / bar).max()):.3g} x the rtol "
+             f"{RTOL} / atol {atol} bar")
+    diff = (got.double() - want).abs()
+    bound = atol + (ONE_PASS + RTOL) * want.abs()
+    if not bool((diff <= bound).all()):
+        fail(f"{name} {label}: off f64 by {float((diff / bound).max()):.3g}"
+             " x the one-pass bound")
+    if torch.equal(got, three):
+        fail(f"{name} {label}: the one-pass result equals the three-pass "
+             "one: it ran three passes")
+    return (diff.max().item(),
+            (diff / want.abs().clamp_min(atol)).max().item())
+
+
+def _tf32_library(library, want, atol) -> tuple[float, float]:
+    """``_library`` with cuDNN's TF32 on: one cuDNN f32 ``conv2d`` on
+    TF32-rounded operands, the one-pass function, timed after one untimed
+    call (cuDNN's first call with TF32 picks its algorithm: several times
+    the next one's time at 512); the flag restored."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        library()
+        return _library(library, want, atol)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def phase17_one_pass_kernels() -> dict:
+    """The one-pass wrappers against their plain versions and f64 on
+    ``SHAPES`` and ``EXTREME``, K3's at ``BATCHES`` (module docstring)."""
+    from genfer_tpu_torch import ops
+    from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64_reference
+
+    rng = np.random.default_rng(17)
+    rows: dict = {name: {} for name in ONE_PASS_KERNELS}
+    single = [name for name in ONE_PASS_KERNELS
+              if name != "conv2d_trunc_f32_batched"]
+    cases = [(shape, ATOL) for shape in SHAPES] + [(EXTREME, ATOL_EXTREME)]
+    for (sa, sb, out), atol in cases:
+        a, b = rng.random(sa), rng.random(sb)
+        if atol == ATOL_EXTREME:
+            a = a * 10.0 ** np.linspace(-30, 30, sa[1])
+            b = b * 10.0 ** np.linspace(-6, 6, sb[1])
+        a64, b64 = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        a32, b32 = a64.float(), b64.float()
+        want = conv2d_trunc_f64_reference(a64, b64, out)
+        label = f"{sa}x{sb}->{out}" + (
+            " extreme scales" if atol == ATOL_EXTREME else "")
+        key = (sa, sb, out) if atol == ATOL else "extreme"
+        timed = (sa, sb, out) in ONE_PASS_TIMED
+        library = (_tf32_library(_conv2d_library(a32[None], b32, out), want,
+                                 atol) if timed else None)
+        plain = ops.conv2d_trunc_f32_reference(a32, b32, out, highest=False)
+        for name in single:
+            kernel = getattr(ops, name)
+            got = kernel(a32, b32, out, highest=False)
+            abs_err, rel_err = _one_pass_hold(
+                f"{name} one pass", got, plain, want, kernel(a32, b32, out),
+                atol, label)
+            if not torch.equal(kernel(a32, b32, out, highest=False), got):
+                fail(f"{name} one pass {label}: two calls differ")
+            row = {"max_abs_err": abs_err, "max_rel_err": rel_err}
+            if timed:
+                row.update(
+                    ms=_time(lambda k=kernel: k(a32, b32, out, highest=False)),
+                    plain_ms=_time(lambda: ops.conv2d_trunc_f32_reference(
+                        a32, b32, out, highest=False)),
+                    library_ms=library[0])
+            rows[name][(key, 1)] = row
+        if not torch.equal(ops.conv2d_trunc_f32(a32, b32, out, highest=False),
+                           ops.conv2d_trunc_f32_tile(a32, b32, out,
+                                                     highest=False)):
+            fail(f"conv2d_trunc_f32 one pass {label}: not the one-pass "
+                 "tile kernel's bits")
+        print(f"phase 17 {label}: K2, K4a, K4b one pass within rtol {RTOL} /"
+              f" atol {atol} of the plain version and the one-pass bound of "
+              f"f64 (max rel err " + ", ".join(
+                  f"{rows[n][(key, 1)]['max_rel_err']:.3e}" for n in single)
+              + "), not the three-pass result, the same bits twice, K2 the "
+              "tile kernel's bits" + ("; " + ", ".join(
+                  f"{n} {rows[n][(key, 1)]['ms']:.4f} ms" for n in single)
+                  + f", plain {rows[single[0]][(key, 1)]['plain_ms']:.4f} "
+                  f"ms, cuDNN TF32 {library[0]:.4f} ms (max rel err "
+                  f"{library[1]:.3e})" if timed else ""))
+        del want, plain
+        for batch in (BATCHES if max(out) <= MAX_ORDER_B32
+                      else BATCHES[:1]):
+            ab = rng.random((batch, *sa))
+            if atol == ATOL_EXTREME:
+                ab = ab * 10.0 ** np.linspace(-30, 30, sa[1])
+            ab = torch.from_numpy(ab).cuda()
+            ab32 = ab.float()
+            want_b = torch.stack([conv2d_trunc_f64_reference(x, b64, out)
+                                  for x in ab])
+            blabel = f"B={batch} {label}"
+            got_b = ops.conv2d_trunc_f32_batched(ab32, b32, out,
+                                                 highest=False)
+            abs_err, rel_err = _one_pass_hold(
+                "conv2d_trunc_f32_batched one pass", got_b,
+                ops.conv2d_trunc_f32_batched_reference(ab32, b32, out,
+                                                       highest=False),
+                want_b, ops.conv2d_trunc_f32_batched(ab32, b32, out), atol,
+                blabel)
+            if not torch.equal(ops.conv2d_trunc_f32_batched(
+                    ab32, b32, out, highest=False), got_b):
+                fail(f"conv2d_trunc_f32_batched one pass {blabel}: two "
+                     "calls differ")
+            for g in range(batch):
+                if not torch.equal(got_b[g], ops.conv2d_trunc_f32(
+                        ab32[g], b32, out, highest=False)):
+                    fail(f"conv2d_trunc_f32_batched one pass {blabel}: "
+                         f"entry {g} differs from the single-pair one pass")
+            row = {"max_abs_err": abs_err, "max_rel_err": rel_err}
+            if (key, batch) == ONE_PASS_KERNELS[
+                    "conv2d_trunc_f32_batched"][3]:
+                row.update(
+                    ms=_time(lambda: ops.conv2d_trunc_f32_batched(
+                        ab32, b32, out, highest=False)),
+                    plain_ms=_time(
+                        lambda: ops.conv2d_trunc_f32_batched_reference(
+                            ab32, b32, out, highest=False)),
+                    library_ms=_tf32_library(
+                        _conv2d_library(ab32, b32, out), want_b, atol)[0])
+            rows["conv2d_trunc_f32_batched"][(key, batch)] = row
+            print(f"phase 17 K3 one pass {blabel}: within the bars (max rel "
+                  f"err {rel_err:.3e}), not the three-pass result, the same "
+                  "bits twice, every entry the single-pair one pass's bits"
+                  + (f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+                     f", cuDNN TF32 {row['library_ms']:.4f} ms"
+                     if "ms" in row else ""))
+            del ab, ab32, want_b, got_b
+    return rows
+
+
+def _digit_twin(launches: dict) -> None:
+    """``examples/digit_serving_torch.py`` at its defaults (784 pixels,
+    batch 1024) on a seeded theta, the ``DIGIT_HOST_ROWS`` posteriors
+    held to the host interpreter at is_close."""
+    import re
+
+    from genfer_tpu_torch.printed import IS_CLOSE
+
+    digit = _example("digit_serving_torch")
+    rel, absolute = IS_CLOSE
+    with tempfile.TemporaryDirectory() as tmp:
+        theta = np.random.RandomState(0).uniform(0.05, 0.95,
+                                                 (10, DIGIT_PIXELS))
+        np.savetxt(Path(tmp) / "digitParams.csv", theta, delimiter=",")
+        digit.DATA = Path(tmp)
+        err = io.StringIO()
+        with _counted(launches, (), "phase 17 digit twin"):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                post = digit.main([])
+            wall = time.perf_counter() - t0
+        images = (np.random.RandomState(0).rand(DIGIT_BATCH, DIGIT_PIXELS)
+                  < 0.15).astype(np.float64)
+        ev = digit.evidence_params(images, theta, "cpu").numpy()
+        src, params = digit.model_source(DIGIT_PIXELS)
+        worst = 0.0
+        for i in DIGIT_HOST_ROWS:
+            values = dict(zip(params, ev[i]))
+            text = _host_text(re.sub(r"\$(e\d+_\d+)",
+                                     lambda m: repr(float(values[m[1]])),
+                                     src))
+            host = read_results(text)
+            for k in range(10):
+                want = host[f"p({k}) / Z"]
+                dev = abs(post[i, k] - want)
+                if not dev <= absolute + rel * abs(want):
+                    fail(f"digit twin row {i}: p({k}) = {post[i, k]} "
+                         f"against host {want}")
+                worst = max(worst, dev / max(abs(want), 1e-300))
+    if post.shape != (DIGIT_BATCH, 10):
+        fail(f"digit twin: posteriors of shape {post.shape}")
+    lines = [line for line in err.getvalue().splitlines() if "steady" in line]
+    print(f"phase 17 digit twin {DIGIT_PIXELS} pixels B={DIGIT_BATCH}: rows "
+          f"{list(DIGIT_HOST_ROWS)} at is_close of the host interpreter "
+          f"(max rel dev {worst:.3e}); {wall:.3f} s wall; "
+          + (lines[0].strip() if lines else "no steady line"))
+
+
+def _switchpoint_twin(launches: dict) -> None:
+    """``examples/switchpoint_serving_torch.py`` at its defaults (order
+    128, 200 datasets) on the generated coal-mining cascade, the
+    committed dataset's posterior held to the host interpreter."""
+    from genfer_tpu_torch.tools.generators import generate_switchpoint
+
+    twin = _example("switchpoint_serving_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "switchpoint.sgcl"
+        generate_switchpoint(path, continuous=True)
+        out = io.StringIO()
+        with _counted(launches, (), "phase 17 switchpoint twin"):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                (masses, z), posts = twin.main(["--file", str(path)])
+            wall = time.perf_counter() - t0
+        host = read_results(_host_text(path.read_text()))
+    # the posterior p(k) / Z at is_close; Z itself is printed, not held:
+    # the cascade at order 128 and the interpreter differ by ~1e-8 of it
+    want = {k: v for k, v in host.items() if k.startswith("p(")}
+    if not 0 < len(want) <= len(masses) or len(posts) != 200:
+        fail(f"switchpoint twin: {len(want)} host masses for "
+             f"{len(masses)}, {len(posts)} datasets served")
+    got = {k: masses[int(k[2:k.index(")")])] / z for k in want}
+    compared = _agree(got, want, "switchpoint twin")
+    for line in out.getvalue().strip().splitlines():
+        print(f"phase 17 switchpoint twin: {line}")
+    print(f"phase 17 switchpoint twin: the committed dataset's {compared} "
+          f"p(k) / Z at is_close of the host interpreter, Z {z!r} against "
+          f"{host['Z']!r} (rel {abs(z - host['Z']) / host['Z']:.3e}); "
+          f"{wall:.3f} s wall (the cascade is host numpy, as in genfer_tpu)")
+
+
+def _example(name: str):
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase17_main_path(launches: dict) -> dict:
+    """The one-pass mode's main path, counted: ``tune_port.py`` probe 19's
+    decomposition at 256 and 512 (every one-pass wrapper must launch);
+    then the two example twins."""
+    from tune_port import FLOOR_ORDERS, floor_decomposition
+
+    with _counted(launches, tuple(n for n, *_ in ONE_PASS_KERNELS.values()),
+                  "phase 17 floor decomposition"):
+        floor = floor_decomposition(FLOOR_ORDERS, label="phase 17")
+    _digit_twin(launches)
+    _switchpoint_twin(launches)
+    _check_no_jax()
+    return floor
+
+
 def print_shares(rows: dict, bench: dict) -> None:
     """The kernels' shares of their bounds (``bound_ms`` over the
     measured time): K2, K4a and K4b from phase 3's dense orders (K4a and
     K4b against the tensor cores' rate for their three TF32 passes, with
     K2's time in the same run beside theirs), K3 from phase 5's
-    batches."""
+    batches, K6, K1, and the one-pass K2, K4a and K4b from phase 17's
+    dense orders (one TF32 pass)."""
     from genfer_tpu_torch.bench import F64_MMA, SPLIT_PASSES, product_bound
 
     for name, passes in (("conv2d_trunc_f32", None),
@@ -2850,6 +3163,20 @@ def print_shares(rows: dict, bench: dict) -> None:
         parts.append(f"{n}: {ms:.4f} ms = {100 * bound / ms:.1f}%")
     print(f"share of bound ({by}, {F64_MMA}), conv2d_trunc_f64 "
           + ", ".join(parts))
+    for wrapper, (name, *_) in ONE_PASS_KERNELS.items():
+        if wrapper == "conv2d_trunc_f32_batched":
+            continue
+        parts = []
+        for order in DENSE_ORDERS:
+            shape = (order, order)
+            ms = rows[name][((shape,) * 3, 1)]["ms"]
+            bound, by = product_bound(shape, shape, shape, passes=1)
+            if not bound <= ms:
+                fail(f"{name} order {order}: {ms} ms is under its bound "
+                     f"{bound} ms")
+            parts.append(f"{order}: {ms:.4f} ms = {100 * bound / ms:.1f}%")
+        print(f"share of bound ({by}, tf32 mma x 1), {name} "
+              + ", ".join(parts))
 
 
 def _passes(name: str, shape) -> int | None:
@@ -2905,6 +3232,12 @@ def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
         table.append(_entry(name, source, replaces, launches.get(name, 0),
                             row, rows[name], bound, by,
                             "f32 fma" if passes is None else "tf32 mma x 3"))
+    for wrapper, (name, source, replaces, key) in ONE_PASS_KERNELS.items():
+        shape, batch = key
+        bound, by = product_bound(*shape, batch=batch, passes=1)
+        table.append(_entry(name, source, replaces, launches.get(name, 0),
+                            rows[name][key], rows[name], bound, by,
+                            "tf32 mma x 1"))
     split = rows["ozaki_split"]
     table.append({
         "name": "ozaki_split", "route": "cuda",
@@ -2956,6 +3289,10 @@ def main() -> None:
     rows.update(phase14_ozaki(launches))
     phase15_flags_and_bench(launches)
     windowed = phase16_mesh(launches)
+    one_pass = phase17_one_pass_kernels()
+    phase17_main_path(launches)
+    rows.update({ONE_PASS_KERNELS[name][0]: r for name, r in
+                 one_pass.items()})
     print_shares(rows, bench)
     print(json.dumps({"kernels": kernel_table(rows, launches, windowed)}))
     print(json.dumps({"ok": True, "device": {

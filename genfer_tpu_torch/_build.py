@@ -105,9 +105,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name, args in (
         *((name, [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr])
           for name in ("conv2d_trunc_f32", "conv2d_trunc_f32_tile",
-                       "conv2d_trunc_f32_grouped")),
-        ("conv2d_trunc_f32_batched",
-         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
+                       "conv2d_trunc_f32_grouped",
+                       "conv2d_trunc_f32_tile_1pass",
+                       "conv2d_trunc_f32_grouped_1pass")),
+        *((name, [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6
+           + [ptr])
+          for name in ("conv2d_trunc_f32_batched",
+                       "conv2d_trunc_f32_batched_1pass")),
         ("conv2d_trunc_f64_batched",
          [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 8
          + [ptr] * 2),

@@ -27,14 +27,20 @@
 // columns, the tensor-core body; fewer, conv2d_unit.cuh's FFMA body (CJ =
 // 1 for one column, else 8) with j0 ascending: a class of one thin row
 // has no fragment to carry.
+//
+// conv2d_trunc_f32_grouped_1pass is the same kernel at one pass:
+// _build2d_grouped at highest=False, one TF32 mma.sync pass (PASSES = 1 in
+// conv2d_mma.cuh), the FFMA body on TF32-rounded operands.
 
 #include "conv2d_mma.cuh"
 
 namespace {
 
 // CJ = 0: the tensor-core body; CJ = 1 or 8: conv2d_unit.cuh's FFMA body
-// with chunks of CJ columns of b
-template <int CJ, bool VEC>
+// with chunks of CJ columns of b.  PASSES: 3 (the split product), or 1
+// (the one-pass mode: hi*hi alone, and the FFMA body on TF32-rounded
+// operands)
+template <int CJ, bool VEC, int PASSES>
 __global__ void __launch_bounds__(NT, CJ == 0 ? 2 : 3)
 conv2d_trunc_f32_grouped_kernel(const float* __restrict__ a,
                                 const float* __restrict__ b,
@@ -43,24 +49,52 @@ conv2d_trunc_f32_grouped_kernel(const float* __restrict__ a,
                                 int b1, int c0, int c1) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (CJ == 0)
-    run_mma_unit<RESIDUE>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0,
-                         c1, smem);
+    run_mma_unit<RESIDUE, PASSES>(a, b, c, work, units, blockIdx.x, a0,
+                                  a1, b1, c0, c1, smem);
   else
-    run_unit<CJ, VEC>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0, c1,
-                      smem);
+    run_unit<CJ, VEC, PASSES == 1>(a, b, c, work, units, blockIdx.x, a0, a1,
+                                   b1, c0, c1, smem);
 }
 
-template <int CJ, bool VEC>
+template <int CJ, bool VEC, int PASSES>
 cudaError_t launch(const float* a, const float* b, float* c, float* work,
                    const int4* units, int n_units, int a0, int a1, int b1,
                    int c0, int c1, cudaStream_t st) {
   static bool allowed[64] = {};
   constexpr size_t smem = CJ == 0 ? MmaGeo::SMEM : Geo<CJ ? CJ : 1>::SMEM;
-  auto kernel = conv2d_trunc_f32_grouped_kernel<CJ, VEC>;
+  auto kernel = conv2d_trunc_f32_grouped_kernel<CJ, VEC, PASSES>;
   const cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   kernel<<<n_units, NT, smem, st>>>(a, b, c, work, units, a0, a1, b1, c0, c1);
   return cudaGetLastError();
+}
+
+// The launches of one call at PASSES passes: the body the shapes take,
+// then the slot sum
+template <int PASSES>
+int entry(const float* a, const float* b, float* c, float* work,
+          const void* units, int n_units, const void* sums, int n_sums,
+          int a0, int a1, int b1, int c0, int c1, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int4* u = static_cast<const int4*>(units);
+  const bool vec = aligned16(a) && a1 % 4 == 0;
+  cudaError_t err;
+  if (b1 >= MMA_MIN_COLS)
+    err = launch<0, false, PASSES>(a, b, c, work, u, n_units, a0, a1, b1,
+                                   c0, c1, st);
+  else if (b1 == 1)
+    err = vec ? launch<1, true, PASSES>(a, b, c, work, u, n_units, a0, a1,
+                                        b1, c0, c1, st)
+              : launch<1, false, PASSES>(a, b, c, work, u, n_units, a0, a1,
+                                         b1, c0, c1, st);
+  else
+    err = vec ? launch<8, true, PASSES>(a, b, c, work, u, n_units, a0, a1,
+                                        b1, c0, c1, st)
+              : launch<8, false, PASSES>(a, b, c, work, u, n_units, a0, a1,
+                                         b1, c0, c1, st);
+  if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
+  return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
+                                    n_sums, 0, 1, c0, c1, st));
 }
 
 }  // namespace
@@ -73,24 +107,15 @@ extern "C" int conv2d_trunc_f32_grouped(
     const float* a, const float* b, float* c, float* work, const void* units,
     int n_units, const void* sums, int n_sums, int a0, int a1, int b1, int c0,
     int c1, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int4* u = static_cast<const int4*>(units);
-  const bool vec = aligned16(a) && a1 % 4 == 0;
-  cudaError_t err;
-  if (b1 >= MMA_MIN_COLS)
-    err = launch<0, false>(a, b, c, work, u, n_units, a0, a1, b1, c0, c1,
-                           st);
-  else if (b1 == 1)
-    err = vec ? launch<1, true>(a, b, c, work, u, n_units, a0, a1, b1, c0,
-                                c1, st)
-              : launch<1, false>(a, b, c, work, u, n_units, a0, a1, b1, c0,
-                                 c1, st);
-  else
-    err = vec ? launch<8, true>(a, b, c, work, u, n_units, a0, a1, b1, c0,
-                                c1, st)
-              : launch<8, false>(a, b, c, work, u, n_units, a0, a1, b1, c0,
-                                 c1, st);
-  if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
-  return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
-                                    n_sums, 0, 1, c0, c1, st));
+  return entry<3>(a, b, c, work, units, n_units, sums, n_sums, a0, a1, b1,
+                  c0, c1, stream);
+}
+
+// The one-pass mode (highest=False): the same arguments and table.
+extern "C" int conv2d_trunc_f32_grouped_1pass(
+    const float* a, const float* b, float* c, float* work, const void* units,
+    int n_units, const void* sums, int n_sums, int a0, int a1, int b1, int c0,
+    int c1, void* stream) {
+  return entry<1>(a, b, c, work, units, n_units, sums, n_sums, a0, a1, b1,
+                  c0, c1, stream);
 }

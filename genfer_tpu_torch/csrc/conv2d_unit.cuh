@@ -66,6 +66,11 @@
 //   * 142-143 registers under __launch_bounds__(128, 3) and 71 KB of
 //     dynamic shared memory: three blocks, twelve warps, an SM.
 //
+// The tensor-core kernels (conv2d_mma.cuh) run this body where their b is
+// too thin for an mma tile; in their one-pass mode with TF32 set, which
+// rounds every operand word to TF32 as it leaves shared memory.  K2, K3
+// and the slot sum leave TF32 off and compile as they did without it.
+//
 // K2 and K3 run this same code on the same per-pair table, so a batch
 // entry equals the single pair bit for bit, and the result depends on
 // neither the SM count nor the order in which blocks run.  The compiled
@@ -134,12 +139,24 @@ __device__ __forceinline__ void wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// x rounded to TF32 (10 stored mantissa bits, to nearest, ties away from
+// zero: cvt.rna) as an f32 word, its 13 low bits cleared
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
 // One unit: the tile at (K0, K1) summed over j0 in [j0_lo, j0_hi) and j1
 // in [j1_lo, j1_hi) (both nonempty and inside b).  ``to_slot``: ``out`` is
 // a dense BM x BN workspace tile, written whole; otherwise it is c
 // (row-major c0 x c1), written where k < (c0, c1).  VEC: a is 16-byte
 // aligned and a1 a multiple of 4.  ``smem`` holds Geo<CJ>::SMEM bytes.
-template <int CJ, bool VEC>
+// TF32: every operand word is rounded to TF32 (cvt.rna, the low 13 bits
+// cleared) as it leaves shared memory, so that each FMA adds the exact
+// product of two TF32 values: the one-pass mode of the tensor-core
+// kernels (conv2d_mma.cuh) on a b too thin for an mma tile.
+template <int CJ, bool VEC, bool TF32 = false>
 __device__ __forceinline__ void product_unit(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ out, bool to_slot, int a0, int a1, int b1, int c0,
@@ -254,12 +271,20 @@ __device__ __forceinline__ void product_unit(
         win[4 * v + 2] = x.z;
         win[4 * v + 3] = x.w;
       }
+      if constexpr (TF32) {
+#pragma unroll
+        for (int w = 0; w < 4 * L::NV; ++w) win[w] = tf32_round(win[w]);
+      }
       if constexpr (CJ == 1) {
         // one b value per row, zero outside the unit's j0 range: no
         // branch, so the four loads issue with the window's
         float bv[TM];
 #pragma unroll
         for (int i = 0; i < TM; ++i) bv[i] = sB[ds + i];
+        if constexpr (TF32) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) bv[i] = tf32_round(bv[i]);
+        }
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -279,6 +304,10 @@ __device__ __forceinline__ void product_unit(
             bv[4 * v + 1] = x.y;
             bv[4 * v + 2] = x.z;
             bv[4 * v + 3] = x.w;
+          }
+          if constexpr (TF32) {
+#pragma unroll
+            for (int jj = 0; jj < CJ; ++jj) bv[jj] = tf32_round(bv[jj]);
           }
           // output column 8 tx + q at chunk offset jj reads window word
           // 8 tx + q + SH - jj
@@ -336,7 +365,7 @@ __device__ __forceinline__ void product_unit(
 // The unit table's row u (two int4): K0, K1, j0_lo, j0_hi | j1_lo, j1_hi,
 // slot (-1: the unit writes c), 0.  ``c`` and ``work`` are those of the
 // unit's batch entry.
-template <int CJ, bool VEC>
+template <int CJ, bool VEC, bool TF32 = false>
 __device__ __forceinline__ void run_unit(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ c, float* __restrict__ work,
@@ -346,8 +375,8 @@ __device__ __forceinline__ void run_unit(
   const int4 q = units[2 * u + 1];
   const bool to_slot = q.z >= 0;
   float* out = to_slot ? work + static_cast<size_t>(q.z) * TILE_WORDS : c;
-  product_unit<CJ, VEC>(a, b, out, to_slot, a0, a1, b1, c0, c1, p.x, p.y,
-                        p.z, p.w, q.x, q.y, smem);
+  product_unit<CJ, VEC, TF32>(a, b, out, to_slot, a0, a1, b1, c0, c1, p.x,
+                              p.y, p.z, p.w, q.x, q.y, smem);
 }
 
 // One block per (batch entry g, tile of several units m, quarter of the

@@ -18,7 +18,20 @@ On a CUDA tensor a wrapper launches its kernel (built by ``_build``) or
 raises; on a CPU tensor it runs the plain version
 (``conv2d_trunc_f32_reference``, or ``conv2d_trunc_f32_batched_reference``
 for the batch).  There is no other fallback.  Each wrapper counts its
-kernel launches in its ``launches`` attribute (CPU calls add nothing).
+kernel launches in its ``launches`` attribute, and those of its one-pass
+mode in ``launches_1pass`` (CPU calls add nothing).
+
+``highest`` has genfer_tpu's meaning.  True (the default) is the f32
+product above.  False is the one-pass mode: on the TPU one DEFAULT-
+precision matrix-unit pass (bf16 operands), here one TF32 ``mma.sync``
+pass, the hi*hi product of the tensor-core kernels alone
+(``csrc/conv2d_mma.cuh`` with one pass; K3's in
+``csrc/conv2d_trunc_f32_batched_1pass.cu``).  A TF32 x TF32 product is
+exact in f32, so that mode computes the f32 sums of the exact products of
+``tf32_round(a)`` and ``tf32_round(b)``, and its plain version is the f32
+one on rounded operands.  Its error against f64 is about 2^-10 of the
+product of the absolute values (TF32 keeps 10 stored mantissa bits, bf16
+7: the TPU's mode is about 8x looser).
 
 Every kernel runs the work units of ``unit_plan``, a table computed here
 from the shapes alone and read on the card.  ``conv2d_trunc_f32`` and
@@ -260,6 +273,43 @@ def issued_macs(plan: UnitPlan, a_shape, b_shape, block: int = 1) -> int:
     return int(((u[:, 3] - u[:, 2]) * cols).sum()) * TILE * TILE
 
 
+def _ffma_issued_macs(plan: UnitPlan, cj: int) -> int:
+    """Multiply-adds the FFMA body (``csrc/conv2d_unit.cuh``) issues for
+    ``plan`` in chunks of ``cj`` columns of b: every unit a full TILE x
+    TILE tile for each j0 of its range and each column of the chunks that
+    cover its j1 range from ``j1_lo`` rounded down to 4 (a one-column b,
+    ``cj`` = 1, runs every stream step of its window without a branch:
+    TM - 1 = 3 more than its j0 rows), before a warp skips the steps at
+    which its window lies outside a."""
+    u = plan.units.astype(np.int64)
+    steps = u[:, 3] - u[:, 2] + (3 if cj == 1 else 0)
+    chunks = -(-(u[:, 5] - (u[:, 4] & ~3)) // cj)
+    return int((steps * chunks).sum()) * cj * TILE * TILE
+
+
+def rowstrip_issued_flops(a_shape, b_shape, out_shape,
+                          highest: bool = True) -> float:
+    """Twice the multiply-adds ``conv2d_trunc_f32(..., highest=highest)``
+    issues on the card for these shapes (genfer_tpu's function of the
+    name counts its TPU kernel's (128, 128, 128) dots; this one counts
+    this card's kernels): K2's FFMA body on ``unit_plan``, or with
+    ``highest=False`` the one-pass tile kernel on the plan that cuts j0
+    only (``issued_macs``, one ``mma`` multiply-add each; its FFMA body
+    where the kernel's b has fewer than ``MMA_MIN_COLS`` columns).  Useful
+    FLOPs over this are the plan's issue efficiency."""
+    a_shape, b_shape = tuple(a_shape), tuple(b_shape)
+    out_shape = tuple(int(x) for x in out_shape)
+    plan = unit_plan(a_shape, b_shape, out_shape, highest)
+    kb1 = (a_shape if plan.swap else b_shape)[1]
+    if highest:
+        macs = _ffma_issued_macs(plan, 1 if kb1 == 1 else CHUNK)
+    elif kb1 < MMA_MIN_COLS:
+        macs = _ffma_issued_macs(plan, 1 if kb1 == 1 else 8)
+    else:
+        macs = issued_macs(plan, a_shape, b_shape)
+    return 2.0 * macs
+
+
 def batched_blocks(batch: int, plan: UnitPlan) -> int:
     """Blocks of ``conv2d_trunc_f32_batched``'s grid: one per (unit of the
     single-pair plan, batch entry), unit-major, on the grid's x axis."""
@@ -332,25 +382,47 @@ def _on_device(device):
     return torch.cuda.device(device)
 
 
-def conv2d_trunc_f32_reference(a, b, out_shape):
+def tf32_round(x):
+    """``x`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, 10 stored mantissa bits, by integer
+    operations on the f32 words (half a TF32 unit added to the magnitude,
+    the 13 low bits cleared).  Subnormals round on the same grid of
+    2^-136; a value within half a unit of f32's largest becomes infinite;
+    infinities and NaNs pass unchanged."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    words = x.contiguous().view(torch.int32)
+    mag = words & 0x7FFFFFFF
+    rounded = (mag + 0x1000) & ~0x1FFF
+    sign = words & torch.iinfo(torch.int32).min
+    finite = mag < 0x7F800000
+    return torch.where(finite, rounded | sign, words).view(torch.float32)
+
+
+def conv2d_trunc_f32_reference(a, b, out_shape, highest: bool = True):
     """Plain PyTorch version: Toeplitz einsum plus anti-diagonal sum, all
-    in f32.  On a card the einsum is a cuBLAS product, which must not run
-    in TF32 (10 mantissa bits): it raises if TF32 matmuls are enabled."""
+    in f32; ``highest=False``: the same on ``tf32_round`` of both operands
+    (the one-pass mode).  On a card the einsum is a cuBLAS product, which
+    must not run in TF32 (10 mantissa bits): it raises if TF32 matmuls are
+    enabled."""
     c0, c1 = _check(a, b, out_shape)
     if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the f32 reference needs TF32 matmuls disabled")
+    if not highest:
+        a, b = tf32_round(a), tf32_round(b)
     Ta = _toeplitz(a[:c0], c0, b.shape[0])  # [c0, b0, a1]
     H = torch.einsum("kji,jl->kil", Ta, b)  # [c0, a1, b1]
     return _antidiag_sum(H, c1)
 
 
-def _unit_kernel(wrapper, cut_j1, a, b, out_shape):
-    """Launch the single-pair kernel named like ``wrapper`` on its unit
+def _unit_kernel(wrapper, entry, cut_j1, a, b, out_shape, highest):
+    """Launch the single-pair kernel ``entry`` for ``wrapper`` on its unit
     plan: the table, the workspace its slots need, the smaller operand as
-    the kernel's b."""
+    the kernel's b; count it in ``launches``, or in ``launches_1pass``
+    where not ``highest``."""
     c0, c1 = _check(a, b, out_shape)
     if not _on_card(a):
-        return conv2d_trunc_f32_reference(a, b, (c0, c1))
+        return conv2d_trunc_f32_reference(a, b, (c0, c1), highest)
     lib = _build.load()
     plan, units, sums = _plan_on_card(tuple(a.shape), tuple(b.shape),
                                       (c0, c1), a.device, cut_j1)
@@ -361,64 +433,85 @@ def _unit_kernel(wrapper, cut_j1, a, b, out_shape):
     work = (torch.empty((plan.slots, TILE, TILE), dtype=torch.float32,
                         device=a.device) if plan.slots else None)
     with _on_device(a.device):
-        err = getattr(lib, wrapper.__name__)(
+        err = getattr(lib, entry)(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
             0 if work is None else work.data_ptr(),
             units.data_ptr(), len(plan.units), sums.data_ptr(),
             len(plan.sums), a.shape[0], a.shape[1], b.shape[1], c0, c1,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, wrapper.__name__, err)
-    wrapper.launches += 1
+    _build.check(lib, entry, err)
+    if highest:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_1pass += 1
     return out
 
 
-def conv2d_trunc_f32(a, b, out_shape):
+def conv2d_trunc_f32(a, b, out_shape, highest: bool = True):
     """Truncated 2-D Cauchy product of f32 matrices ``a`` (a0, a1) and
-    ``b`` (b0, b1) to ``out_shape`` (c0, c1); any sizes >= 1."""
-    return _unit_kernel(conv2d_trunc_f32, True, a, b, out_shape)
+    ``b`` (b0, b1) to ``out_shape`` (c0, c1); any sizes >= 1.
+
+    ``highest=False`` launches the one-pass tile kernel
+    (``conv2d_trunc_f32_tile(..., highest=False)``, bit for bit): this
+    kernel runs IEEE f32 FMAs and has no pass to drop, and on the TPU the
+    row strip and the tile kernel give the same bits in either mode."""
+    if highest:
+        return _unit_kernel(conv2d_trunc_f32, "conv2d_trunc_f32", True, a,
+                            b, out_shape, True)
+    return _unit_kernel(conv2d_trunc_f32, "conv2d_trunc_f32_tile_1pass",
+                        False, a, b, out_shape, False)
 
 
-def conv2d_trunc_f32_tile(a, b, out_shape):
+def conv2d_trunc_f32_tile(a, b, out_shape, highest: bool = True):
     """``conv2d_trunc_f32`` on the tensor cores: every (tile, j0) a product
     of an a window with the Toeplitz tile of one b row, in three TF32
     passes over operands split into a high and a scaled low part, j0
     ascending, on the plan that cuts j0 only.  Equal to
     ``conv2d_trunc_f32`` to f32 rounding, and the same bits from call to
-    call and card to card."""
-    return _unit_kernel(conv2d_trunc_f32_tile, False, a, b, out_shape)
+    call and card to card.  ``highest=False``: the high parts' pass
+    alone."""
+    entry = "conv2d_trunc_f32_tile" + ("" if highest else "_1pass")
+    return _unit_kernel(conv2d_trunc_f32_tile, entry, False, a, b,
+                        out_shape, highest)
 
 
-def conv2d_trunc_f32_grouped(a, b, out_shape):
+def conv2d_trunc_f32_grouped(a, b, out_shape, highest: bool = True):
     """``conv2d_trunc_f32_tile`` with j0 in residue-major order inside a
     staged group (j0 mod 8 outer), which lets the kernel carry its a
     operand in registers from one j0 of a class to the next: equal to it
-    to f32 rounding."""
-    return _unit_kernel(conv2d_trunc_f32_grouped, False, a, b, out_shape)
+    to f32 rounding, in either mode."""
+    entry = "conv2d_trunc_f32_grouped" + ("" if highest else "_1pass")
+    return _unit_kernel(conv2d_trunc_f32_grouped, entry, False, a, b,
+                        out_shape, highest)
 
 
-def conv2d_trunc_f32_batched_reference(a_batch, b, out_shape):
+def conv2d_trunc_f32_batched_reference(a_batch, b, out_shape,
+                                       highest: bool = True):
     """Plain PyTorch version of the batch: ``conv2d_trunc_f32_reference``
     for every entry (one entry's Toeplitz tensor at a time: at order 512
     it is 0.5 GB)."""
     c0, c1 = _check(a_batch, b, out_shape, a_ndim=3)
-    return torch.stack([conv2d_trunc_f32_reference(x, b, (c0, c1))
+    return torch.stack([conv2d_trunc_f32_reference(x, b, (c0, c1), highest)
                         for x in a_batch])
 
 
-def conv2d_trunc_f32_batched(a_batch, b, out_shape):
+def conv2d_trunc_f32_batched(a_batch, b, out_shape, highest: bool = True):
     """Truncated 2-D Cauchy products of every ``a_batch[g]`` (B, a0, a1)
     with one shared ``b`` (b0, b1), to (B, c0, c1).  A shared-LHS batch
     (one a, a batch of b) is this call with the operands swapped.  Every
-    entry equals ``conv2d_trunc_f32(a_batch[g], b, out_shape)`` bit for
-    bit on the card."""
+    entry equals ``conv2d_trunc_f32(a_batch[g], b, out_shape, highest)``
+    bit for bit on the card: ``highest=False`` runs the one-pass tile
+    kernel's units (``csrc/conv2d_trunc_f32_batched_1pass.cu``) on its
+    plan."""
     c0, c1 = _check(a_batch, b, out_shape, a_ndim=3)
     if not _on_card(a_batch):
-        return conv2d_trunc_f32_batched_reference(a_batch, b, (c0, c1))
+        return conv2d_trunc_f32_batched_reference(a_batch, b, (c0, c1),
+                                                  highest)
     lib = _build.load()
     batch, a0, a1 = a_batch.shape
     plan, units, sums = _plan_on_card((a0, a1), tuple(b.shape), (c0, c1),
-                                      a_batch.device)
+                                      a_batch.device, cut_j1=highest)
     batched_blocks(batch, plan)
     # the kernel's operand b is the smaller one, as in conv2d_trunc_f32;
     # the shared operand has stride 0
@@ -428,8 +521,9 @@ def conv2d_trunc_f32_batched(a_batch, b, out_shape):
     out = alloc((batch, c0, c1), dtype=torch.float32, device=a_batch.device)
     work = (torch.empty((batch, plan.slots, TILE, TILE), dtype=torch.float32,
                         device=a_batch.device) if plan.slots else None)
+    entry = "conv2d_trunc_f32_batched" + ("" if highest else "_1pass")
     with _on_device(a_batch.device):
-        err = lib.conv2d_trunc_f32_batched(
+        err = getattr(lib, entry)(
             ka.data_ptr(), kb.data_ptr(), out.data_ptr(),
             0 if work is None else work.data_ptr(),
             units.data_ptr(), len(plan.units), sums.data_ptr(),
@@ -437,11 +531,15 @@ def conv2d_trunc_f32_batched(a_batch, b, out_shape):
             ka.shape[-2], ka.shape[-1], kb.shape[-1], c0, c1,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(lib, "conv2d_trunc_f32_batched", err)
-    conv2d_trunc_f32_batched.launches += 1
+    _build.check(lib, entry, err)
+    if highest:
+        conv2d_trunc_f32_batched.launches += 1
+    else:
+        conv2d_trunc_f32_batched.launches_1pass += 1
     return out
 
 
 for _wrapper in (conv2d_trunc_f32, conv2d_trunc_f32_tile,
                  conv2d_trunc_f32_grouped, conv2d_trunc_f32_batched):
     _wrapper.launches = 0
+    _wrapper.launches_1pass = 0

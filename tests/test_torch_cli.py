@@ -335,7 +335,9 @@ def test_port_never_imports_jax(tmp_path):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_port.py",
-                                    "tune_port.py"])
+                                    "tune_port.py",
+                                    "examples/digit_serving_torch.py",
+                                    "examples/switchpoint_serving_torch.py"])
 def test_scripts_import_neither_jax_nor_genfer_tpu(script):
     tree = ast.parse((REPO / script).read_text())
     names = set()

@@ -18,11 +18,17 @@ Pallas tests' bar (rtol 5e-5 / atol 1e-6):
   from the offsets the kernel computes names the a window times the
   Toeplitz tile of one b row;
 * the residue carry of K4b: shifting the A halves down and loading the
-  top one names the same window rows as loading all of them.
+  top one names the same window rows as loading all of them;
+* the one-pass mode (``highest=False``): the hi*hi chains alone
+  (``emulate(..., passes=1)``), and on a b of fewer than 8 columns the
+  FFMA body on TF32-rounded operands (``emulate_ffma``), both within the
+  one-pass bound of f64: 2^-10 of the product of the absolute values
+  plus the three-pass bar.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from genfer_tpu.taylor.backend import NumpyF64Backend
 from genfer_tpu_torch import bench
@@ -52,9 +58,13 @@ def tf32_rn(x):
     return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def split(x, scale):
+def split(x, scale, passes=3):
+    """The two planes the kernel stages; one pass stages hi alone (lo
+    zero: its products add nothing)."""
     x = np.asarray(x, dtype=np.float32)
     hi = tf32_rn(x)
+    if passes == 1:
+        return hi, np.zeros_like(hi)
     return hi, tf32_rn((x - hi) * np.float32(scale))
 
 
@@ -70,11 +80,12 @@ def chain_step(acc, part):
 
 
 def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
-            plan=None, tiles=None):
+            plan=None, tiles=None, passes=3):
     """The f32 result of the kernel's arithmetic for f64 operands ``a``,
     ``b`` (cast to f32 first, as the wrapper's caller does).  ``tiles``
     restricts the work to those output tiles; the rest of the result is
-    NaN."""
+    NaN.  ``passes=1``: the one-pass mode, hi*hi alone (a chain's end adds
+    hh: 0 * 2^-11 + hh is hh)."""
     plan = plan or C.unit_plan(a.shape, b.shape, out, cut_j1=False)
     ka, kb = (b, a) if plan.swap else (a, b)
     ka = np.asarray(ka, dtype=np.float32)
@@ -84,7 +95,7 @@ def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
     # a and b with zeros around, so that every window is a plain slice
     pad0, pad1 = TILE + G, KB + TILE
     ah, al = split(np.pad(ka, ((pad0, pad0 + out[0]), (0, pad1 + out[1]))),
-                   scale)
+                   scale, passes)
     c = np.full(out, np.nan, dtype=np.float32)
     work = np.zeros((max(plan.slots, 1), TILE, TILE), dtype=np.float32)
     wanted = {}
@@ -105,7 +116,7 @@ def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
                 ok = (col0 + x >= lo1) & (col0 + x < hi1)
                 n = min(G, hi0 - g0)
                 rows[:n, ok] = kb[g0:g0 + n, (col0 + x)[ok]]
-                bh, bl = split(rows, scale)
+                bh, bl = split(rows, scale, passes)
                 # T[dj, k, n] = row[dj, n - k + KB - 1]
                 view = np.lib.stride_tricks.sliding_window_view
                 th, tl = (view(r, TILE, axis=1)[:, ::-1, :] for r in (bh, bl))
@@ -173,6 +184,77 @@ def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
     return c
 
 
+def emulate_ffma(a, b, out, passes=1):
+    """The f32 result of the FFMA body (``csrc/conv2d_unit.cuh``) that the
+    tensor-core kernels run where their b has fewer than 8 columns, on
+    their plan (CJ = 1 for one column, else 8), each operand word rounded
+    to TF32 as it leaves shared memory where ``passes`` is 1.  Output row
+    m of a tile takes stream step s at j0 = s + m % 4; grp collects FMAs
+    (exact products, one rounding) and is added to acc every 8 stream
+    steps and at a stage's end; a tile's units are added in slot order.
+    Steps at which a warp's window lies outside a add zeros here."""
+    plan = C.unit_plan(a.shape, b.shape, out, cut_j1=False)
+    ka, kb = (b, a) if plan.swap else (a, b)
+    rnd = tf32_rn if passes == 1 else (lambda x: x)
+    ka = rnd(np.asarray(ka, dtype=np.float32)).astype(np.float64)
+    kb = rnd(np.asarray(kb, dtype=np.float32)).astype(np.float64)
+    a0, a1 = ka.shape
+    cj = 1 if kb.shape[1] == 1 else 8
+    stage = 64 if cj == 1 else 24  # Geo<CJ>::G
+    tm = 4
+    c = np.zeros(out, dtype=np.float32)
+    work = np.zeros((max(plan.slots, 1), TILE, TILE), dtype=np.float32)
+    m = np.arange(TILE)
+    n = np.arange(TILE)
+    for K0, K1, lo0, hi0, lo1, hi1, slot, _ in plan.units.tolist():
+        acc = np.zeros((TILE, TILE), dtype=np.float32)
+        grp = np.zeros((TILE, TILE), dtype=np.float32)
+        s_lo = lo0 - (tm - 1)
+        for jb in range(lo1 & ~3, hi1, cj):
+            for s0 in range(s_lo, hi0, stage):
+                for ds in range(min(stage, hi0 - s0)):
+                    for i in range(tm):
+                        t = s0 + ds + i
+                        if not lo0 <= t < hi0:
+                            continue
+                        rows = K0 + m[i::tm] - t
+                        for j1 in range(jb, min(jb + cj, hi1)):
+                            if j1 < lo1:
+                                continue
+                            cols = K1 + n - j1
+                            ok = ((rows[:, None] >= 0) & (rows[:, None] < a0)
+                                  & (cols[None] >= 0) & (cols[None] < a1))
+                            win = np.where(ok, ka[np.clip(rows, 0, a0 - 1)][
+                                :, np.clip(cols, 0, a1 - 1)], 0.0)
+                            grp[i::tm] = (grp[i::tm] + win * kb[t, j1]
+                                          ).astype(np.float32)
+                    if ds % 8 == 7:
+                        acc += grp
+                        grp[:] = 0
+                acc += grp
+                grp[:] = 0
+        if slot < 0:
+            r, q = min(TILE, out[0] - K0), min(TILE, out[1] - K1)
+            c[K0:K0 + r, K1:K1 + q] = acc[:r, :q]
+        else:
+            work[slot] = acc
+    for K0, K1, first, count in plan.sums.tolist():
+        total = np.zeros((TILE, TILE), dtype=np.float32)
+        for z in range(first, first + count):
+            total += work[z]
+        r, q = min(TILE, out[0] - K0), min(TILE, out[1] - K1)
+        c[K0:K0 + r, K1:K1 + q] = total[:r, :q]
+    return c
+
+
+def one_pass_bound(a, b, out):
+    """The one-pass mode's bar against f64, elementwise: 2^-10 (two TF32
+    roundings, 2u + u^2 with u = 2^-11) of the truncated product of the
+    absolute values, plus the three-pass bar for the f32 sums."""
+    absprod = NumpyF64Backend().conv_trunc(np.abs(a), np.abs(b), out)
+    return (2.0 ** -10 + RTOL) * absprod + ATOL
+
+
 def _rowstrip_operands(i):
     rng = np.random.RandomState(13)
     for sa, sb, _ in ROWSTRIP_SHAPES[: i + 1]:
@@ -200,6 +282,39 @@ def test_split_arithmetic_holds_the_gate(order, i):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     # well inside it: the kernels are held to 2e-6 on the card
     assert (np.abs(got - want) <= 2e-6 * np.abs(want) + ATOL).all()
+
+
+@pytest.mark.parametrize("order,i", [
+    ("ascending", 0), ("ascending", 1), ("residue", 0), ("residue", 1),
+])
+def test_one_pass_arithmetic_holds_its_bound(order, i):
+    """The one-pass mode's design at the one-pass bound: shape 0 has a b
+    of 6 columns (the FFMA body on rounded operands), shape 1 runs the
+    hi*hi chains.  Each differs from the three-pass result somewhere, and
+    the FFMA body without the rounding would be a three-pass-like f32
+    product that differs from the rounded one by more than f32's sums
+    can."""
+    sa, sb, out = ROWSTRIP_SHAPES[i]
+    a, b = _rowstrip_operands(i)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    if C.tile_body(sa, sb) == "ffma":
+        got = emulate_ffma(a, b, out)
+        unrounded = emulate_ffma(a, b, out, passes=3)
+        assert (np.abs(unrounded - want) <= 2e-6 * np.abs(want) + ATOL).all()
+        # the rounding moves the result far beyond f32's sums
+        assert (np.abs(got - unrounded) > 1e-4 * np.abs(want)).any()
+    else:
+        got = emulate(a, b, out, order, passes=1)
+        three = emulate(a, b, out, order)
+        assert (np.abs(got - three) > 1e-5 * np.abs(three)).any()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert (np.abs(got - want) <= one_pass_bound(a, b, out)).all()
+    # the plain one-pass version (f32 sums of the rounded operands'
+    # products) differs from the design by f32's sums only
+    plain = C.conv2d_trunc_f32_reference(
+        torch.from_numpy(a).float(), torch.from_numpy(b).float(), out,
+        highest=False).numpy()
+    assert (np.abs(got - plain) <= 2e-6 * np.abs(plain) + ATOL).all()
 
 
 @pytest.mark.parametrize("order", ["ascending", "residue"])

@@ -8,7 +8,7 @@ CUDA card.
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Eighteen probes (all, or the numbered ones), each printed with the card's
+Nineteen probes (all, or the numbered ones), each printed with the card's
 name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
 unpacked parent commit, say), whose kernels are built there: probe 8 of
@@ -151,7 +151,26 @@ two trees run in turns compares their K6.
    and 4 at order 1024 on phase 16's operands, the ms per block (CUDA
    events, ``chip_smoke._time``) in one process: fresh, again, after the
    plain version of every window, again, and after
-   ``torch.cuda.empty_cache()``, with the SM clock and power drawn.
+   ``torch.cuda.empty_cache()``, with the SM clock and power drawn;
+19. the twin of ``scripts/ozaki_diag.py::pallas_floor_decomposition``:
+   at ``FLOOR_ORDERS`` (256, 512), on ``np.random.RandomState(1)``
+   operands, ``FLOOR_ITERS`` = 8 calls of a product to (order, order),
+   each output normalized by its max and fed back with the other operand
+   as in the script's scan, timed with CUDA events at three passes
+   (``highest_ms``) and at one (``default_ms``), for K4a and for K4b.
+   The TPU compares six bf16 passes with one (mxu = (t_H - t_D) x 6/5);
+   here it is three TF32 passes against one: ``derived_mma_ms`` = (t3 -
+   t1) x 3/2 and ``derived_floor_ms`` = t3 - that.  The one-pass
+   instance keeps the three-pass stage layout and shared memory
+   (``csrc/conv2d_mma.cuh``), so t3 - t1 is the two dropped passes with
+   what feeds them only (the lo planes' split, stores and fragment
+   loads).  Beside them K2's FFMA time and its one-pass time, and K3's
+   (``FLOOR_BATCH`` entries sharing b): different kernels in each mode,
+   so not a decomposition.  Each order's one-pass calls are first held
+   to their plain version at rtol 5e-5 / atol 1e-6; issued over useful
+   multiply-adds of ``conv2d_trunc_f32`` in both modes
+   (``ops.conv2d.rowstrip_issued_flops``).  ``chip_smoke.py`` phase 17
+   drives it as the one-pass mode's main path.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -1583,6 +1602,122 @@ def window_timing_state() -> None:
     blocks("after empty_cache")
 
 
+FLOOR_ORDERS = (256, 512)
+FLOOR_ITERS = 8
+FLOOR_BATCH = 4  # entries of K3's pair, one b shared
+FLOOR_RTOL, FLOOR_ATOL = 5e-5, 1e-6  # one pass against its plain version
+
+
+def _scan_ms(step, carry, iters: int) -> float:
+    """Milliseconds a step of ``iters`` steps ``carry = step(*carry)``
+    (CUDA events), after one untimed run of them."""
+    import torch
+
+    def run():
+        c = carry
+        for _ in range(iters):
+            c = step(*c)
+        return c
+
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def floor_decomposition(orders=FLOOR_ORDERS, iters: int = FLOOR_ITERS,
+                        label: str = "probe 19") -> dict:
+    """Probe 19: per order, the decomposition of K4a and K4b and the
+    pairs of K2 and K3, printed one line each under ``label``."""
+    import numpy as np
+    import torch
+
+    from genfer_tpu_torch.bench import _conv_pair_flops
+    from genfer_tpu_torch.ops import conv2d as C
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {}
+    for order in orders:
+        rng = np.random.RandomState(1)
+        shape = (order, order)
+        a = torch.from_numpy(rng.rand(*shape)).float().cuda()
+        b = torch.from_numpy(rng.rand(*shape)).float().cuda()
+        ab = torch.from_numpy(rng.rand(FLOOR_BATCH, *shape)).float().cuda()
+        plain = C.conv2d_trunc_f32_reference(a, b, shape, highest=False)
+        plain_b = C.conv2d_trunc_f32_batched_reference(ab, b, shape,
+                                                       highest=False)
+        for name, got, want in (
+                ("K4a", C.conv2d_trunc_f32_tile(a, b, shape, False), plain),
+                ("K4b", C.conv2d_trunc_f32_grouped(a, b, shape, False),
+                 plain),
+                ("K2", C.conv2d_trunc_f32(a, b, shape, False), plain),
+                ("K3", C.conv2d_trunc_f32_batched(ab, b, shape, False),
+                 plain_b)):
+            bar = FLOOR_ATOL + FLOOR_RTOL * want.abs()
+            if not bool(((got - want).abs() <= bar).all()):
+                raise RuntimeError(
+                    f"{label} {name} order {order}: one pass off its plain "
+                    f"version by {float(((got - want).abs() / bar).max()):.3g}"
+                    " x the bar")
+        del plain, plain_b
+
+        def pair(kernel, highest):
+            def step(x, y):
+                r = kernel(x, y, shape, highest)
+                return r / r.abs().max(), x
+            return _scan_ms(step, (a, b), iters)
+
+        def batched(highest):
+            def step(x):
+                r = C.conv2d_trunc_f32_batched(x, b, shape, highest)
+                return (r / r.abs().amax(dim=(1, 2), keepdim=True),)
+            return _scan_ms(step, (ab,), iters)
+
+        row: dict = {}
+        for name, kernel in (("K4a", C.conv2d_trunc_f32_tile),
+                             ("K4b", C.conv2d_trunc_f32_grouped)):
+            # in turns, three passes first and last; the least of each
+            t3 = pair(kernel, True)
+            t1 = min(pair(kernel, False), pair(kernel, False))
+            t3 = min(t3, pair(kernel, True))
+            mma = (t3 - t1) * 3.0 / 2.0
+            row[name] = {"highest_ms": t3, "default_ms": t1,
+                         "derived_mma_ms": mma, "derived_floor_ms": t3 - mma}
+        row["K2"] = {"ffma_ms": pair(C.conv2d_trunc_f32, True),
+                     "one_pass_ms": pair(C.conv2d_trunc_f32, False)}
+        row["K3"] = {"ffma_ms": batched(True), "one_pass_ms": batched(False)}
+        useful = 2.0 * _conv_pair_flops(shape, shape, shape)
+        row["issued_over_useful"] = {
+            mode: C.rowstrip_issued_flops(shape, shape, shape, highest)
+            / useful for mode, highest in (("ffma", True), ("one_pass",
+                                                            False))}
+        for name in ("K4a", "K4b"):
+            print(f"{label} floor {order} {name}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in row[name].items())
+                  + " (t3 - t1 holds the two dropped passes and the lo "
+                  "planes' split, stores and loads: the one-pass instance "
+                  "keeps the three-pass staging)")
+        for name, what in (("K2", "conv2d_trunc_f32"),
+                           ("K3", f"conv2d_trunc_f32_batched B="
+                                  f"{FLOOR_BATCH}")):
+            print(f"{label} floor {order} {name} ({what}): FFMA "
+                  f"{row[name]['ffma_ms']:.4f} ms, one pass "
+                  f"{row[name]['one_pass_ms']:.4f} ms (the one-pass tile "
+                  "kernel: another kernel, not a decomposition)")
+        print(f"{label} floor {order} issued / useful multiply-adds of "
+              "conv2d_trunc_f32: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in row["issued_over_useful"].items()
+              ) + f"; one-pass calls within rtol {FLOOR_RTOL} / atol "
+              f"{FLOOR_ATOL} of their plain version")
+        out[order] = row
+    return out
+
+
 def main(argv) -> None:
     if "--tree" in argv:  # before the first import of the package
         i = argv.index("--tree")
@@ -1603,6 +1738,7 @@ def main(argv) -> None:
         12: serving_batch, 13: scan_capture_against_eager,
         14: ozaki_layout, 15: ozaki_against_k1, 16: fullblock_ab,
         17: window_blocks, 18: window_timing_state,
+        19: floor_decomposition,
     }
     print(card())
     _build.load()
