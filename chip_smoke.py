@@ -202,20 +202,33 @@ result):
    ``K1_TOL``; (c) ``--backend sharded`` in-process on phase 8's
    two_populations and population (a group of one rank: no route
    shards) against ``--backend jax`` at is_close, with the walls.
-17. the one-pass mode (``highest=False``: one TF32 ``mma`` pass, the
-   TPU kernels' DEFAULT precision) of K2, K4a, K4b (``SHAPES`` and
+17. the one-pass mode (``highest=False``: one TF32 pass, the TPU
+   kernels' DEFAULT precision; K2's, K4a's and K3's the ``wgmma`` body
+   on operands that its C entry rounds once a call, K4b's one
+   ``mma.sync`` pass of its split) of K2, K4a, K4b (``SHAPES`` and
    ``EXTREME``) and K3 (at ``BATCHES``, order 768 at B = 3 only): each
    within phase 3's rtol / atol of its one-pass plain version (the f32
    product of ``tf32_round`` of both operands), within the one-pass bound
    of f64 (``ONE_PASS`` = 2^-10 plus ``RTOL`` of the product, the
    operands being >= 0, plus the atol), never equal to the three-pass
    result, the same bits twice; K2's one pass the one-pass tile kernel's
-   bits, every K3 entry the single-pair one pass's; times of the kernel,
-   its plain version and one cuDNN f32 ``conv2d`` with TF32 on (the
-   same one-pass function) at ``ONE_PASS_TIMED``.  Then the mode's main
-   path, counted: ``tune_port.py`` probe 19 (the twin of
+   bits, every K3 entry the single-pair one pass's; times of the kernel
+   (K2, K4a and K4b in turns, the least of two each), its plain version
+   and one cuDNN f32 ``conv2d`` with TF32 on (the same one-pass
+   function) at ``ONE_PASS_TIMED``, and at its dense
+   orders and K3's 256 x B32 a line of device microseconds a call
+   (``device_us_queued``: CUDA events around calls queued behind a spin,
+   so no host time is in them) of the ``wgmma`` body's call (its rounding
+   launch and slot sum included) beside K4b's unchanged one pass, with
+   the share of the issued bound (the line fails above 100%), and
+   torch.profiler's split by kernel where its events cover the calls and
+   sum to within 25% of the events' time.  The rounding
+   kernel at order 512: bit for bit ``tf32_round`` (the pad columns
+   zero), its time, its plain version's and its device time.  Then the
+   mode's main path, counted: ``tune_port.py`` probe 19 (the twin of
    ``scripts/ozaki_diag.py::pallas_floor_decomposition``) at 256 and 512,
-   which must launch all four one-pass kernels; the example twins at
+   which must launch all four one-pass kernels and the rounding kernel;
+   the example twins at
    their defaults: ``examples/digit_serving_torch.py`` (784 pixels,
    batch 1024, a ``digitParams.csv`` written from ``RandomState(0)``),
    rows ``DIGIT_HOST_ROWS`` at is_close of the host interpreter, and
@@ -235,8 +248,9 @@ beside K4a's and K4b's, of K1 (against the FP64 tensor rate) and of the
 one-pass K2, K4a and K4b (one TF32 pass).  The second-to-last line is
 the kernel table as JSON, with one entry for each of K1's bodies (and its
 launches with a row window in phase 16, ``window_launches``), each of
-K5's impls, one for the split and one for each one-pass kernel
-(``[1pass]``); the last line is ``{"ok": true, "device": {...}}``.
+K5's impls, one for the split, one for each one-pass kernel
+(``[1pass]``) and one for the rounding kernel; the last line is
+``{"ok": true, "device": {...}}``.
 Everything is reached through ``genfer_tpu_torch``; nothing here imports
 jax or genfer_tpu.
 
@@ -557,6 +571,12 @@ ONE_PASS_KERNELS = {
 #: the shapes at which phase 17 times each one-pass wrapper (the others it
 #: checks only): the end-to-end run's largest product and the dense orders
 ONE_PASS_TIMED = [MAIN_PATH, *(((n, n),) * 3 for n in DENSE_ORDERS)]
+#: the one-pass rounding kernel (the one-pass C entries launch it; alone,
+#: ``ops.conv2d.tf32_round_operands``): its table name, source, the TPU
+#: kernel whose one pass it is part of, shape
+ROUND_KERNEL = ("tf32_round_operands",
+                "genfer_tpu_torch/csrc/conv2d_wgmma.cuh",
+                "genfer_tpu/ops/pallas_conv2d.py:99", DENSE_512)
 #: the example twins: the digit model's rows held to the host interpreter
 DIGIT_HOST_ROWS = (0, DIGIT_BATCH - 1)
 
@@ -934,6 +954,7 @@ def _counted(launches: dict, must: tuple, what: str):
     """Set every kernel's launch count (and K1's by body, and the one-pass
     modes') to 0, run the block, then add the counts to ``launches``; fail
     if a kernel of ``must`` was not launched."""
+    from genfer_tpu_torch.ops.conv2d import tf32_round_operands
     from genfer_tpu_torch.ops.conv2d_f64 import reset_launches
 
     wrappers = _wrappers()
@@ -941,12 +962,14 @@ def _counted(launches: dict, must: tuple, what: str):
         w.launches = 0
         if name in ONE_PASS_KERNELS:
             w.launches_1pass = 0
+    tf32_round_operands.launches = 0
     reset_launches()
     yield
     counts = {name: w.launches for name, w in wrappers.items()}
     counts.update({ONE_PASS_KERNELS[name][0]: w.launches_1pass
                    for name, w in wrappers.items()
                    if name in ONE_PASS_KERNELS})
+    counts[ROUND_KERNEL[0]] = tf32_round_operands.launches
     counts.update(_k1_by_body())
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
@@ -2898,6 +2921,145 @@ def _tf32_library(library, want, atol) -> tuple[float, float]:
         torch.backends.cudnn.allow_tf32 = before
 
 
+def device_us_queued(call, calls: int = 20) -> float:
+    """The card's microseconds a ``call()``, the host's time kept out:
+    the stream is held by a spin (``torch.cuda._sleep``) three times as
+    long as the host takes to queue ``calls`` calls (at least 5 ms), and
+    CUDA events bracket the calls queued behind it.  Fails if the host
+    had not queued them all when the spin ended."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    held, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    held.record()
+    torch.cuda._sleep(int(max(5.0, 3.0 * host_ms) * 2e6))  # <= 2 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    if queued_ms >= held.elapsed_time(start):
+        fail(f"device_us_queued: the host took {queued_ms:.3f} ms to queue "
+             f"{calls} calls, longer than the {held.elapsed_time(start):.3f}"
+             " ms spin")
+    return start.elapsed_time(end) * 1e3 / calls
+
+
+def _profiler_split(call, device_us: float, calls: int = 20) -> str:
+    """torch.profiler's device microseconds a ``call()`` by kernel, where
+    every kernel's events number a multiple of ``calls`` and sum to within
+    25% of ``device_us`` (the events' time); otherwise that the split is
+    not kept, with the events' counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    us: dict = {}
+    count: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = _kernel_name(e.name)
+            us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / calls
+            count[name] = count.get(name, 0) + 1
+    total = sum(us.values())
+    if (count and all(n % calls == 0 for n in count.values())
+            and abs(total - device_us) <= 0.25 * device_us):
+        return "torch.profiler: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in us.items())
+    return ("torch.profiler's split not kept: its events (" + ", ".join(
+        f"{k} x{n}" for k, n in count.items()) + f" over {calls} calls) sum "
+        f"to {total:.2f} us a call")
+
+
+def _one_pass_macs(sa, sb, out) -> tuple[float, float]:
+    """The multiply-adds the one-pass tile kernel issues for one product
+    of these shapes (``ops.conv2d.rowstrip_issued_flops``), and the useful
+    ones."""
+    from genfer_tpu_torch.bench import _conv_pair_flops
+    from genfer_tpu_torch.ops.conv2d import rowstrip_issued_flops
+
+    return (rowstrip_issued_flops(sa, sb, out, highest=False) / 2.0,
+            float(_conv_pair_flops(sa, sb, out)))
+
+
+def _one_pass_device_line(label, call, k4b_call, issued_macs: float,
+                          useful_macs: float, k4b_calls: int = 20) -> dict:
+    """The card's microseconds a call (``device_us_queued``) of the
+    ``wgmma`` body's ``call`` and, in the same process, of K4b's unchanged
+    one pass on the same operands (``k4b_call``), each with the split by
+    kernel that torch.profiler gives where it agrees.  Fails where a time
+    is under the TF32 rate's bound for the multiply-adds the call issues
+    (``issued_macs`` for the ``wgmma`` body; ``useful_macs`` for K4b).
+    ``k4b_calls``: the calls of ``k4b_call`` queued at once (a loop of
+    wrappers fills the card's launch queue, and a full queue holds the
+    host back)."""
+    from genfer_tpu_torch.bench import TF32_MMA_PER_S
+
+    new = device_us_queued(call)
+    old = device_us_queued(k4b_call, k4b_calls)
+    for what, us, macs in (("the wgmma body", new, issued_macs),
+                           ("K4b's one pass", old, useful_macs)):
+        if us < macs / TF32_MMA_PER_S * 1e6:
+            fail(f"phase 17 {label}: {what} {us:.2f} us a call is under "
+                 f"the TF32 rate's {macs / TF32_MMA_PER_S * 1e6:.2f} us for "
+                 f"its {macs:.4g} multiply-adds: not a real time")
+    share = issued_macs / TF32_MMA_PER_S * 1e6 / new
+    print(f"phase 17 {label} device us a call (CUDA events, calls queued "
+          f"behind a spin): the wgmma body {new:.2f} ({share:.1%} of the "
+          f"TF32 rate at its {issued_macs / useful_macs:.4f} x issued "
+          f"multiply-adds; {_profiler_split(call, new)}); K4b's one pass in "
+          f"the same call {old:.2f} "
+          f"({_profiler_split(k4b_call, old, k4b_calls)})")
+    return {"device_us": new, "k4b_device_us": old}
+
+
+def _round_kernel_row(a, b) -> dict:
+    """The rounding kernel on the one-pass operands ``a``, ``b``: bit for
+    bit ``tf32_round`` (the pad columns zero), its time, its plain
+    version's and its device time."""
+    from genfer_tpu_torch.ops.conv2d import tf32_round, tf32_round_operands
+
+    def plain():
+        return tuple(F.pad(tf32_round(x), (0, -x.shape[1] % 4))
+                     for x in (a, b))
+
+    (ra, rb), (pa, pb) = tf32_round_operands(a, b), plain()
+    torch.cuda.synchronize()
+    if not (torch.equal(ra.view(torch.int32), pa.view(torch.int32))
+            and torch.equal(rb.view(torch.int32), pb.view(torch.int32))):
+        fail("tf32_round_operands: not tf32_round's bits")
+    call = lambda: tf32_round_operands(a, b)  # noqa: E731
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    row = {"max_abs_err": 0.0, "ms": _time(call), "plain_ms": _time(plain),
+           "library_ms": None, "device_us": device_us_queued(call)}
+    print(f"phase 17 {ROUND_KERNEL[0]} {tuple(a.shape)}, {tuple(b.shape)}: "
+          f"tf32_round's bits, pads zero; {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms; host {host_us:.2f} us a call (wrapper "
+          f"and launch, not waiting), device {row['device_us']:.2f} us a "
+          "call (CUDA events, calls queued behind a spin)")
+    return row
+
+
 def phase17_one_pass_kernels() -> dict:
     """The one-pass wrappers against their plain versions and f64 on
     ``SHAPES`` and ``EXTREME``, K3's at ``BATCHES`` (module docstring)."""
@@ -2932,19 +3094,36 @@ def phase17_one_pass_kernels() -> dict:
                 atol, label)
             if not torch.equal(kernel(a32, b32, out, highest=False), got):
                 fail(f"{name} one pass {label}: two calls differ")
-            row = {"max_abs_err": abs_err, "max_rel_err": rel_err}
-            if timed:
-                row.update(
-                    ms=_time(lambda k=kernel: k(a32, b32, out, highest=False)),
-                    plain_ms=_time(lambda: ops.conv2d_trunc_f32_reference(
-                        a32, b32, out, highest=False)),
-                    library_ms=library[0])
-            rows[name][(key, 1)] = row
+            rows[name][(key, 1)] = {"max_abs_err": abs_err,
+                                    "max_rel_err": rel_err}
+        if timed:
+            # in turns (K2, K4a, K4b, K4b, K4a, K2), the least of each: a
+            # host-bound call's mean moves with the host between runs
+            ms: dict = {}
+            for name in single + single[::-1]:
+                kernel = getattr(ops, name)
+                ms[name] = min(ms.get(name, math.inf), _time(
+                    lambda k=kernel: k(a32, b32, out, highest=False)))
+            plain_ms = _time(lambda: ops.conv2d_trunc_f32_reference(
+                a32, b32, out, highest=False))
+            for name in single:
+                rows[name][(key, 1)].update(ms=ms[name], plain_ms=plain_ms,
+                                            library_ms=library[0])
         if not torch.equal(ops.conv2d_trunc_f32(a32, b32, out, highest=False),
                            ops.conv2d_trunc_f32_tile(a32, b32, out,
                                                      highest=False)):
             fail(f"conv2d_trunc_f32 one pass {label}: not the one-pass "
                  "tile kernel's bits")
+        if timed and sa == sb == out and len(set(sa)) == 1:
+            rows["conv2d_trunc_f32_tile"][(key, 1)].update(
+                _one_pass_device_line(
+                    label, lambda: ops.conv2d_trunc_f32_tile(
+                        a32, b32, out, highest=False),
+                    lambda: ops.conv2d_trunc_f32_grouped(
+                        a32, b32, out, highest=False),
+                    *_one_pass_macs(sa, sb, out)))
+        if (sa, sb, out) == ROUND_KERNEL[3]:
+            rows[ROUND_KERNEL[0]] = {(key, 1): _round_kernel_row(a32, b32)}
         print(f"phase 17 {label}: K2, K4a, K4b one pass within rtol {RTOL} /"
               f" atol {atol} of the plain version and the one-pass bound of "
               f"f64 (max rel err " + ", ".join(
@@ -2994,6 +3173,13 @@ def phase17_one_pass_kernels() -> dict:
                             ab32, b32, out, highest=False)),
                     library_ms=_tf32_library(
                         _conv2d_library(ab32, b32, out), want_b, atol)[0])
+                row.update(_one_pass_device_line(
+                    blabel, lambda: ops.conv2d_trunc_f32_batched(
+                        ab32, b32, out, highest=False),
+                    lambda: [ops.conv2d_trunc_f32_grouped(
+                        x, b32, out, highest=False) for x in ab32],
+                    *(batch * m for m in _one_pass_macs(sa, sb, out)),
+                    k4b_calls=2))
             rows["conv2d_trunc_f32_batched"][(key, batch)] = row
             print(f"phase 17 K3 one pass {blabel}: within the bars (max rel "
                   f"err {rel_err:.3e}), not the three-pass result, the same "
@@ -3102,7 +3288,8 @@ def phase17_main_path(launches: dict) -> dict:
     then the two example twins."""
     from tune_port import FLOOR_ORDERS, floor_decomposition
 
-    with _counted(launches, tuple(n for n, *_ in ONE_PASS_KERNELS.values()),
+    with _counted(launches, (*(n for n, *_ in ONE_PASS_KERNELS.values()),
+                             ROUND_KERNEL[0]),
                   "phase 17 floor decomposition"):
         floor = floor_decomposition(FLOOR_ORDERS, label="phase 17")
     _digit_twin(launches)
@@ -3214,7 +3401,7 @@ def _entry(name, source, replaces, launches, row, rows, bound, by,
 
 
 def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
-    from genfer_tpu_torch.bench import F64_MMA, product_bound
+    from genfer_tpu_torch.bench import BYTES_PER_S, F64_MMA, product_bound
 
     table = []
     for name, spec in KERNELS.items():
@@ -3238,6 +3425,20 @@ def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
         table.append(_entry(name, source, replaces, launches.get(name, 0),
                             rows[name][key], rows[name], bound, by,
                             "tf32 mma x 1"))
+    name, source, replaces, shape = ROUND_KERNEL
+    (row,) = rows[name].values()
+    (a0, a1), (b0, b1) = shape[0], shape[1]
+    # each operand word read once, each rounded word (rows padded to 4)
+    # written once
+    moved = 4 * (a0 * a1 + b0 * b1 + a0 * -(-a1 // 4) * 4
+                 + b0 * -(-b1 // 4) * 4)
+    table.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches.get(name, 0),
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": moved / BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "device_us": row["device_us"]})
     split = rows["ozaki_split"]
     table.append({
         "name": "ozaki_split", "route": "cuda",
@@ -3291,8 +3492,8 @@ def main() -> None:
     windowed = phase16_mesh(launches)
     one_pass = phase17_one_pass_kernels()
     phase17_main_path(launches)
-    rows.update({ONE_PASS_KERNELS[name][0]: r for name, r in
-                 one_pass.items()})
+    rows.update({ONE_PASS_KERNELS[name][0] if name in ONE_PASS_KERNELS
+                 else name: r for name, r in one_pass.items()})
     print_shares(rows, bench)
     print(json.dumps({"kernels": kernel_table(rows, launches, windowed)}))
     print(json.dumps({"ok": True, "device": {

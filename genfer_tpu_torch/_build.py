@@ -102,19 +102,24 @@ def _compile(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    i64 = ctypes.c_longlong
     for name, args in (
         *((name, [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr])
           for name in ("conv2d_trunc_f32", "conv2d_trunc_f32_tile",
                        "conv2d_trunc_f32_grouped",
-                       "conv2d_trunc_f32_tile_1pass",
                        "conv2d_trunc_f32_grouped_1pass")),
-        *((name, [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6
-           + [ptr])
-          for name in ("conv2d_trunc_f32_batched",
-                       "conv2d_trunc_f32_batched_1pass")),
+        ("conv2d_trunc_f32_tile_1pass",
+         [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr, i32, ptr]),
+        ("conv2d_trunc_f32_batched",
+         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
+        ("conv2d_trunc_f32_batched_1pass",
+         [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6
+         + [ptr, i32, ptr]),
         ("conv2d_trunc_f64_batched",
          [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 8
          + [ptr] * 2),
+        ("tf32_round_operands",
+         [ptr, ptr, i64, i32, i32, ptr, ptr, i64, i32, i32, ptr]),
         ("conv1d_trunc_f32", [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]),
         ("conv2d_small_f64", [ptr] * 3 + [i32] * 9 + [ptr] * 2),
         ("ozaki_split", [ptr] * 2 + [i32] * 7 + [ptr] * 6),

@@ -78,14 +78,17 @@
 //
 // PASSES (a template parameter) is 3 (the split product above) or 1: the
 // one-pass mode (the TPU kernels' highest=False), hi*hi alone, one TF32
-// mma.sync per multiply-add.  It stages only the hi planes and runs only
-// the hh chains; the stage layout, the shared memory, the eight-step
-// chains and the three sum levels are the three-pass instance's, so the
-// two differ in their pass count only (tune_port.py probe 19 subtracts
-// one from the other on that premise).  A TF32 x TF32 product is exact in
-// f32, so the one-pass result is the f32 sum of the exact products of the
-// rounded operands.  Its thin-b FFMA body rounds its operands the same way
-// (conv2d_unit.cuh, TF32).
+// mma.sync per multiply-add.  Only K4b's one pass (RESIDUE, PASSES = 1)
+// runs it: the one-pass tile kernel (K4a's and K2's one pass) and K3's run
+// conv2d_wgmma.cuh's body instead, which shares neither this staging nor
+// its fragment loads.  K4b's one-pass instance stages only the hi planes
+// and runs only the hh chains; the stage layout, the shared memory, the
+// eight-step chains and the three sum levels are the three-pass
+// instance's, so the two differ in their pass count only (tune_port.py
+// probe 19 subtracts one from the other on that premise, for K4b alone).
+// A TF32 x TF32 product is exact in f32, so the one-pass result is the
+// f32 sum of the exact products of the rounded operands.  Its thin-b FFMA
+// body rounds its operands the same way (conv2d_unit.cuh, TF32).
 
 #pragma once
 

@@ -13,7 +13,9 @@
 // unit; one TF32 pass here, 10 stored mantissa bits to bf16's 7).  K3
 // (conv2d_trunc_f32_batched.cu) runs IEEE f32 FMAs; its one-pass mode has
 // no FMA to drop, so it runs the one-pass tile kernel's unit code instead
-// (conv2d_mma.cuh, ASCENDING, PASSES = 1; conv2d_unit.cuh's FFMA body on
+// (conv2d_wgmma.cuh: wgmma on operands that the entry rounds once a call,
+// the batched operand and the shared one in one launch of
+// tf32_round_operands_kernel; conv2d_unit.cuh's FFMA body on
 // TF32-rounded operands for a b of fewer than 8 columns) on that kernel's
 // table (ops/conv2d.py::unit_plan(cut_j1=False)), with K3's grid: one
 // block per (unit, entry), unit-major, so the card works through every
@@ -26,11 +28,13 @@
 #include <climits>
 
 #include "conv2d_mma.cuh"
+#include "conv2d_wgmma.cuh"
 
 namespace {
 
-// CJ = 0: the tensor-core body; CJ = 1 or 8: conv2d_unit.cuh's FFMA body
-// on TF32-rounded operands, with chunks of CJ columns of b
+// CJ = 0: the wgmma body on rounded operands; CJ = 1 or 8:
+// conv2d_unit.cuh's FFMA body on TF32-rounded operands, with chunks of CJ
+// columns of b
 template <int CJ, bool VEC>
 __global__ void __launch_bounds__(NT, CJ == 0 ? 2 : 3)
 conv2d_trunc_f32_batched_1pass_kernel(const float* __restrict__ a,
@@ -41,7 +45,7 @@ conv2d_trunc_f32_batched_1pass_kernel(const float* __restrict__ a,
                                       int batch, int slots, size_t a_stride,
                                       size_t b_stride, int a0, int a1, int b1,
                                       int c0, int c1) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int u = blockIdx.x / batch;
   const size_t g = blockIdx.x - u * batch;
   const float* ag = a + g * a_stride;
@@ -49,11 +53,10 @@ conv2d_trunc_f32_batched_1pass_kernel(const float* __restrict__ a,
   float* cg = c + g * c0 * c1;
   float* wg = work + g * slots * TILE_WORDS;
   if constexpr (CJ == 0)
-    run_mma_unit<ASCENDING, 1>(ag, bg, cg, wg, units, u, a0, a1, b1, c0, c1,
-                               smem);
+    run_wgmma_unit(ag, bg, cg, wg, units, u, a0, a1, b1, c0, c1, smem);
   else
     run_unit<CJ, VEC, true>(ag, bg, cg, wg, units, u, a0, a1, b1, c0, c1,
-                            smem);
+                            reinterpret_cast<float*>(smem));
 }
 
 template <int CJ, bool VEC>
@@ -62,7 +65,7 @@ cudaError_t launch(const float* a, const float* b, float* c, float* work,
                    size_t a_stride, size_t b_stride, int a0, int a1, int b1,
                    int c0, int c1, cudaStream_t st) {
   static bool allowed[64] = {};
-  constexpr size_t smem = CJ == 0 ? MmaGeo::SMEM : Geo<CJ ? CJ : 1>::SMEM;
+  constexpr size_t smem = CJ == 0 ? WgGeo::SMEM : Geo<CJ ? CJ : 1>::SMEM;
   auto kernel = conv2d_trunc_f32_batched_1pass_kernel<CJ, VEC>;
   const cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
@@ -77,12 +80,16 @@ cudaError_t launch(const float* a, const float* b, float* c, float* work,
 // Launches on ``stream``; returns the first non-zero CUDA error.  The
 // arguments are those of conv2d_trunc_f32_batched
 // (conv2d_trunc_f32_batched.cu), with ``units`` and ``sums`` from
-// ops/conv2d.py::unit_plan(cut_j1=False) for one pair.
+// ops/conv2d.py::unit_plan(cut_j1=False) for one pair, then b's row count
+// ``b0`` and ``scratch``.  For b1 >= 8 the entry first rounds both operands
+// into scratch (one launch: the rows of a, a0 of them or batch x a0 where
+// a is the batched one, (a1 + 3) / 4 * 4 words apart; then b's the same
+// way), which the wgmma body reads; for a thinner b scratch is unused.
 extern "C" int conv2d_trunc_f32_batched_1pass(
     const float* a, const float* b, float* c, float* work, const void* units,
     int n_units, const void* sums, int n_sums, int slots, size_t a_stride,
     size_t b_stride, int batch, int a0, int a1, int b1, int c0, int c1,
-    void* stream) {
+    void* stream, int b0, float* scratch) {
   if (static_cast<long long>(batch) * n_units > INT_MAX)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -90,10 +97,24 @@ extern "C" int conv2d_trunc_f32_batched_1pass(
   // every entry's rows are 16-byte aligned when the first one's are
   const bool vec = aligned16(a) && a1 % 4 == 0;
   cudaError_t err;
-  if (b1 >= MMA_MIN_COLS)
-    err = launch<0, false>(a, b, c, work, u, n_units, batch, slots,
-                           a_stride, b_stride, a0, a1, b1, c0, c1, st);
-  else if (b1 == 1)
+  if (b1 >= MMA_MIN_COLS) {
+    const long long a_rows = a_stride ? static_cast<long long>(batch) * a0
+                                      : a0;
+    const long long b_rows = b_stride ? static_cast<long long>(batch) * b0
+                                      : b0;
+    const Rounded r = round_into(a, a_rows, a1, b, b_rows, b1, scratch, st);
+    const size_t ra_stride = a_stride ? static_cast<size_t>(a0) *
+                                            ((a1 + 3) & ~3)
+                                      : 0;
+    const size_t rb_stride = b_stride ? static_cast<size_t>(b0) *
+                                            ((b1 + 3) & ~3)
+                                      : 0;
+    err = r.err != cudaSuccess
+              ? r.err
+              : launch<0, false>(r.a, r.b, c, work, u, n_units, batch, slots,
+                                 ra_stride, rb_stride, a0, a1, b1, c0, c1,
+                                 st);
+  } else if (b1 == 1)
     err = vec ? launch<1, true>(a, b, c, work, u, n_units, batch, slots,
                                 a_stride, b_stride, a0, a1, b1, c0, c1, st)
               : launch<1, false>(a, b, c, work, u, n_units, batch, slots,

@@ -27,20 +27,24 @@
 // conv2d_unit.cuh's FFMA body with CJ = 1; 2 to 7 columns, the same with
 // CJ = 8 (a band narrower than one mma tile would be mostly zeros).
 //
-// conv2d_trunc_f32_tile_1pass is the same kernel at one pass: _build2d at
+// conv2d_trunc_f32_tile_1pass is the one-pass mode: _build2d at
 // highest=False (Precision.DEFAULT, one bf16 pass on the TPU), here one
-// TF32 mma.sync pass, hi*hi alone (conv2d_mma.cuh, PASSES = 1), and the
-// FFMA body on TF32-rounded operands.  ops/conv2d.py also launches it for
-// conv2d_trunc_f32(..., highest=False): the row strip's one-pass mode.
+// TF32 pass.  For b of at least 8 columns the entry rounds both operands
+// once into scratch (conv2d_wgmma.cuh's tf32_round_operands_kernel) and
+// runs conv2d_wgmma.cuh's body on them (wgmma m64n64k8, the tile product
+// transposed, the a window read from shared memory); for a thinner b, the
+// FFMA body on operands it rounds itself (conv2d_unit.cuh, TF32).
+// ops/conv2d.py also launches it for conv2d_trunc_f32(..., highest=False):
+// the row strip's one-pass mode.
 
 #include "conv2d_mma.cuh"
+#include "conv2d_wgmma.cuh"
 
 namespace {
 
-// CJ = 0: the tensor-core body; CJ = 1 or 8: conv2d_unit.cuh's FFMA body
-// with chunks of CJ columns of b.  PASSES: 3 (the split product), or 1
-// (the one-pass mode: hi*hi alone, and the FFMA body on TF32-rounded
-// operands)
+// CJ = 0: the split-TF32 body (three passes); CJ = 1 or 8: conv2d_unit.cuh's
+// FFMA body with chunks of CJ columns of b.  PASSES: 3 (the split
+// product), or 1 (the one-pass mode's FFMA body, on TF32-rounded operands)
 template <int CJ, bool VEC, int PASSES>
 __global__ void __launch_bounds__(NT, CJ == 0 ? 2 : 3)
 conv2d_trunc_f32_tile_kernel(const float* __restrict__ a,
@@ -57,6 +61,31 @@ conv2d_trunc_f32_tile_kernel(const float* __restrict__ a,
                                    b1, c0, c1, smem);
 }
 
+// the one-pass body for b of at least 8 columns, on rounded operands
+__global__ void __launch_bounds__(NT, 2)
+conv2d_trunc_f32_tile_wgmma_kernel(const float* __restrict__ a,
+                                   const float* __restrict__ b,
+                                   float* __restrict__ c,
+                                   float* __restrict__ work,
+                                   const int4* __restrict__ units, int a0,
+                                   int a1, int b1, int c0, int c1) {
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  run_wgmma_unit(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0, c1,
+                 wg_smem);
+}
+
+cudaError_t launch_wgmma(const float* a, const float* b, float* c,
+                         float* work, const int4* units, int n_units, int a0,
+                         int a1, int b1, int c0, int c1, cudaStream_t st) {
+  static bool allowed[64] = {};
+  const cudaError_t err = allow_smem(conv2d_trunc_f32_tile_wgmma_kernel,
+                                     WgGeo::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  conv2d_trunc_f32_tile_wgmma_kernel<<<n_units, NT, WgGeo::SMEM, st>>>(
+      a, b, c, work, units, a0, a1, b1, c0, c1);
+  return cudaGetLastError();
+}
+
 template <int CJ, bool VEC, int PASSES>
 cudaError_t launch(const float* a, const float* b, float* c, float* work,
                    const int4* units, int n_units, int a0, int a1, int b1,
@@ -71,19 +100,29 @@ cudaError_t launch(const float* a, const float* b, float* c, float* work,
 }
 
 // The launches of one call at PASSES passes: the body the shapes take,
-// then the slot sum
+// then the slot sum.  At one pass with b1 >= 8, first the rounding of both
+// operands into ``scratch`` (b0 rows of b), which the wgmma body reads.
 template <int PASSES>
 int entry(const float* a, const float* b, float* c, float* work,
           const void* units, int n_units, const void* sums, int n_sums,
-          int a0, int a1, int b1, int c0, int c1, void* stream) {
+          int a0, int a1, int b1, int c0, int c1, void* stream, int b0 = 0,
+          float* scratch = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int4* u = static_cast<const int4*>(units);
   const bool vec = aligned16(a) && a1 % 4 == 0;
   cudaError_t err;
-  if (b1 >= MMA_MIN_COLS)
-    err = launch<0, false, PASSES>(a, b, c, work, u, n_units, a0, a1, b1,
-                                   c0, c1, st);
-  else if (b1 == 1)
+  if (b1 >= MMA_MIN_COLS) {
+    if constexpr (PASSES == 1) {
+      const Rounded r = round_into(a, a0, a1, b, b0, b1, scratch, st);
+      err = r.err != cudaSuccess
+                ? r.err
+                : launch_wgmma(r.a, r.b, c, work, u, n_units, a0, a1, b1, c0,
+                               c1, st);
+    } else {
+      err = launch<0, false, PASSES>(a, b, c, work, u, n_units, a0, a1, b1,
+                                     c0, c1, st);
+    }
+  } else if (b1 == 1)
     err = vec ? launch<1, true, PASSES>(a, b, c, work, u, n_units, a0, a1,
                                         b1, c0, c1, st)
               : launch<1, false, PASSES>(a, b, c, work, u, n_units, a0, a1,
@@ -112,11 +151,29 @@ extern "C" int conv2d_trunc_f32_tile(
                   c0, c1, stream);
 }
 
-// The one-pass mode (highest=False): the same arguments and table.
+// The one-pass mode (highest=False): the same arguments and table, then
+// b's row count ``b0`` and ``scratch``.  For b1 >= 8 the entry rounds both
+// operands into scratch first (one launch: a0 x (a1 + 3) / 4 * 4 words,
+// then b0 x (b1 + 3) / 4 * 4, 16-byte aligned); for a thinner b scratch
+// is unused and may be null.
 extern "C" int conv2d_trunc_f32_tile_1pass(
     const float* a, const float* b, float* c, float* work, const void* units,
     int n_units, const void* sums, int n_sums, int a0, int a1, int b1, int c0,
-    int c1, void* stream) {
+    int c1, void* stream, int b0, float* scratch) {
   return entry<1>(a, b, c, work, units, n_units, sums, n_sums, a0, a1, b1,
-                  c0, c1, stream);
+                  c0, c1, stream, b0, scratch);
+}
+
+// The rounding kernel alone (tf32_round_operands_kernel, as the one-pass
+// entries launch it) on ``stream``: a (a_rows x a_cols) into ra (a_rows x
+// a_pitch), b (b_rows x b_cols) into rb (b_rows x b_pitch); returns the
+// CUDA error of the launch.
+extern "C" int tf32_round_operands(const float* a, float* ra,
+                                   long long a_rows, int a_cols, int a_pitch,
+                                   const float* b, float* rb,
+                                   long long b_rows, int b_cols, int b_pitch,
+                                   void* stream) {
+  return static_cast<int>(round_operands(a, ra, a_rows, a_cols, a_pitch, b,
+                                         rb, b_rows, b_cols, b_pitch,
+                                         static_cast<cudaStream_t>(stream)));
 }

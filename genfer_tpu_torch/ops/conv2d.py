@@ -23,13 +23,17 @@ mode in ``launches_1pass`` (CPU calls add nothing).
 
 ``highest`` has genfer_tpu's meaning.  True (the default) is the f32
 product above.  False is the one-pass mode: on the TPU one DEFAULT-
-precision matrix-unit pass (bf16 operands), here one TF32 ``mma.sync``
-pass, the hi*hi product of the tensor-core kernels alone
-(``csrc/conv2d_mma.cuh`` with one pass; K3's in
-``csrc/conv2d_trunc_f32_batched_1pass.cu``).  A TF32 x TF32 product is
-exact in f32, so that mode computes the f32 sums of the exact products of
-``tf32_round(a)`` and ``tf32_round(b)``, and its plain version is the f32
-one on rounded operands.  Its error against f64 is about 2^-10 of the
+precision matrix-unit pass (bf16 operands), here one TF32 pass.  The tile
+kernel's (K4a's and K2's) and K3's run ``wgmma`` on operands that their
+C entry rounds once a call into scratch that comes with the workspace
+(``csrc/conv2d_wgmma.cuh``; K3's in
+``csrc/conv2d_trunc_f32_batched_1pass.cu``), counted in
+``tf32_round_operands.launches``; the grouped kernel's
+(K4b's) is the hi*hi product of its split alone (``csrc/conv2d_mma.cuh``
+with one pass).  A TF32 x TF32 product is exact in f32, so that mode
+computes the f32 sums of the exact products of ``tf32_round(a)`` and
+``tf32_round(b)``, and its plain version is the f32 one on rounded
+operands.  Its error against f64 is about 2^-10 of the
 product of the absolute values (TF32 keeps 10 stored mantissa bits, bf16
 7: the TPU's mode is about 8x looser).
 
@@ -258,17 +262,19 @@ def tile_body(a_shape, b_shape) -> str:
     return "ffma" if kb[1] < MMA_MIN_COLS else "mma"
 
 
-def issued_macs(plan: UnitPlan, a_shape, b_shape, block: int = 1) -> int:
+def issued_macs(plan: UnitPlan, a_shape, b_shape, block: int = 1,
+                align: int = 1) -> int:
     """Multiply-adds the tensor-core kernels issue for ``plan`` (one
     pass): every unit a full TILE x TILE tile for each of its j0 and each
     column of a it contracts over (those whose band meets the unit's j1
-    range, rounded up to whole blocks of ``block`` columns where the
-    kernel's loop runs over such blocks, as K1's does), before a warp
-    skips what lies wholly outside a or b."""
+    range, the first rounded down to a multiple of ``align`` where the
+    kernel stages from there, and their count rounded up to whole blocks
+    of ``block`` columns where the kernel's loop runs over such blocks, as
+    K1's does), before a warp skips what lies wholly outside a or b."""
     a1 = (b_shape if plan.swap else a_shape)[1]
     u = plan.units.astype(np.int64)
-    cols = (np.minimum(a1, u[:, 1] + TILE - u[:, 4])
-            - np.maximum(0, u[:, 1] - u[:, 5] + 1))
+    first = np.maximum(0, u[:, 1] - u[:, 5] + 1)
+    cols = np.minimum(a1, u[:, 1] + TILE - u[:, 4]) - first // align * align
     cols = -(-cols // block) * block
     return int(((u[:, 3] - u[:, 2]) * cols).sum()) * TILE * TILE
 
@@ -294,9 +300,13 @@ def rowstrip_issued_flops(a_shape, b_shape, out_shape,
     name counts its TPU kernel's (128, 128, 128) dots; this one counts
     this card's kernels): K2's FFMA body on ``unit_plan``, or with
     ``highest=False`` the one-pass tile kernel on the plan that cuts j0
-    only (``issued_macs``, one ``mma`` multiply-add each; its FFMA body
-    where the kernel's b has fewer than ``MMA_MIN_COLS`` columns).  Useful
-    FLOPs over this are the plan's issue efficiency."""
+    only: its ``wgmma`` body (``csrc/conv2d_wgmma.cuh``) issues, for each
+    j0 of a unit, k-steps of 8 of a's columns from the first one the band
+    meets rounded down to 4 through the last one (``issued_macs`` with
+    ``block=8, align=4``; the plan clips j0 to where the window meets a,
+    so no j0 is skipped); its FFMA body where the kernel's b has fewer
+    than ``MMA_MIN_COLS`` columns.  Useful FLOPs over this are the plan's
+    issue efficiency."""
     a_shape, b_shape = tuple(a_shape), tuple(b_shape)
     out_shape = tuple(int(x) for x in out_shape)
     plan = unit_plan(a_shape, b_shape, out_shape, highest)
@@ -306,7 +316,7 @@ def rowstrip_issued_flops(a_shape, b_shape, out_shape,
     elif kb1 < MMA_MIN_COLS:
         macs = _ffma_issued_macs(plan, 1 if kb1 == 1 else 8)
     else:
-        macs = issued_macs(plan, a_shape, b_shape)
+        macs = issued_macs(plan, a_shape, b_shape, block=8, align=4)
     return 2.0 * macs
 
 
@@ -399,6 +409,50 @@ def tf32_round(x):
     return torch.where(finite, rounded | sign, words).view(torch.float32)
 
 
+def tf32_round_operands(a, b):
+    """``tf32_round`` of both operands of a one-pass ``wgmma`` product, in
+    one launch of the rounding kernel that the one-pass tile and batched
+    entries launch themselves (``csrc/conv2d_wgmma.cuh``): each (..., n)
+    to (..., n rounded up to 4), its pad columns zero.  Both results are
+    views of one scratch tensor.  On a CPU tensor the plain version
+    (``tf32_round`` and a pad).  ``launches`` counts the kernel's launches,
+    these and the one-pass wrappers' alike."""
+    pa, pb = (_cdiv(x.shape[-1], 4) * 4 for x in (a, b))
+    if not _on_card(a):
+        return tuple(torch.nn.functional.pad(tf32_round(x),
+                                             (0, p - x.shape[-1]))
+                     for x, p in ((a, pa), (b, pb)))
+    a_rows, b_rows = a.numel() // a.shape[-1], b.numel() // b.shape[-1]
+    scratch = torch.empty(a_rows * pa + b_rows * pb, dtype=torch.float32,
+                          device=a.device)
+    ra = scratch[:a_rows * pa].view(*a.shape[:-1], pa)
+    rb = scratch[a_rows * pa:].view(*b.shape[:-1], pb)
+    lib = _build.load()
+    with _on_device(a.device):
+        err = lib.tf32_round_operands(
+            a.data_ptr(), ra.data_ptr(), a_rows, a.shape[-1], pa,
+            b.data_ptr(), rb.data_ptr(), b_rows, b.shape[-1], pb,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "tf32_round_operands", err)
+    tf32_round_operands.launches += 1
+    return ra, rb
+
+
+tf32_round_operands.launches = 0
+
+
+def _rounding_words(a_rows: int, a1: int, b_rows: int, b1: int) -> int:
+    """Words of the scratch into which a one-pass tile or batched entry
+    rounds its operands (the kernel's: a of ``a_rows`` rows of ``a1``
+    words, b, the smaller, of ``b_rows`` x ``b1``): each operand's rows
+    padded to a multiple of 4 words where b has ``MMA_MIN_COLS`` or more
+    columns (the entries run their ``wgmma`` body then, on rounded
+    operands); 0 for a thinner b."""
+    if b1 < MMA_MIN_COLS:
+        return 0
+    return a_rows * ((a1 + 3) & ~3) + b_rows * ((b1 + 3) & ~3)
+
+
 def conv2d_trunc_f32_reference(a, b, out_shape, highest: bool = True):
     """Plain PyTorch version: Toeplitz einsum plus anti-diagonal sum, all
     in f32; ``highest=False``: the same on ``tf32_round`` of both operands
@@ -415,11 +469,14 @@ def conv2d_trunc_f32_reference(a, b, out_shape, highest: bool = True):
     return _antidiag_sum(H, c1)
 
 
-def _unit_kernel(wrapper, entry, cut_j1, a, b, out_shape, highest):
+def _unit_kernel(wrapper, entry, cut_j1, a, b, out_shape, highest,
+                 rounds=False):
     """Launch the single-pair kernel ``entry`` for ``wrapper`` on its unit
     plan: the table, the workspace its slots need, the smaller operand as
     the kernel's b; count it in ``launches``, or in ``launches_1pass``
-    where not ``highest``."""
+    where not ``highest``.  ``rounds``: the one-pass tile entry, which
+    also takes b's row count and the scratch it rounds the operands into
+    (``_rounding_words``, allocated with the workspace)."""
     c0, c1 = _check(a, b, out_shape)
     if not _on_card(a):
         return conv2d_trunc_f32_reference(a, b, (c0, c1), highest)
@@ -428,23 +485,32 @@ def _unit_kernel(wrapper, entry, cut_j1, a, b, out_shape, highest):
                                       (c0, c1), a.device, cut_j1)
     if plan.swap:
         a, b = b, a
+    (a0, a1), (b0, b1) = a.shape, b.shape
+    slot_words = plan.slots * TILE * TILE
+    scratch_words = _rounding_words(a0, a1, b0, b1) if rounds else 0
     alloc = torch.empty if plan.covers else torch.zeros
     out = alloc((c0, c1), dtype=torch.float32, device=a.device)
-    work = (torch.empty((plan.slots, TILE, TILE), dtype=torch.float32,
-                        device=a.device) if plan.slots else None)
+    work = (torch.empty(slot_words + scratch_words, dtype=torch.float32,
+                        device=a.device)
+            if slot_words + scratch_words else None)
+    tail = ()
+    if rounds:
+        tail = (b0, work.data_ptr() + 4 * slot_words if scratch_words else 0)
     with _on_device(a.device):
         err = getattr(lib, entry)(
             a.data_ptr(), b.data_ptr(), out.data_ptr(),
             0 if work is None else work.data_ptr(),
             units.data_ptr(), len(plan.units), sums.data_ptr(),
-            len(plan.sums), a.shape[0], a.shape[1], b.shape[1], c0, c1,
-            torch.cuda.current_stream().cuda_stream,
+            len(plan.sums), a0, a1, b1, c0, c1,
+            torch.cuda.current_stream().cuda_stream, *tail,
         )
     _build.check(lib, entry, err)
     if highest:
         wrapper.launches += 1
     else:
         wrapper.launches_1pass += 1
+    if scratch_words:
+        tf32_round_operands.launches += 1
     return out
 
 
@@ -460,7 +526,7 @@ def conv2d_trunc_f32(a, b, out_shape, highest: bool = True):
         return _unit_kernel(conv2d_trunc_f32, "conv2d_trunc_f32", True, a,
                             b, out_shape, True)
     return _unit_kernel(conv2d_trunc_f32, "conv2d_trunc_f32_tile_1pass",
-                        False, a, b, out_shape, False)
+                        False, a, b, out_shape, False, rounds=True)
 
 
 def conv2d_trunc_f32_tile(a, b, out_shape, highest: bool = True):
@@ -473,7 +539,7 @@ def conv2d_trunc_f32_tile(a, b, out_shape, highest: bool = True):
     alone."""
     entry = "conv2d_trunc_f32_tile" + ("" if highest else "_1pass")
     return _unit_kernel(conv2d_trunc_f32_tile, entry, False, a, b,
-                        out_shape, highest)
+                        out_shape, highest, rounds=not highest)
 
 
 def conv2d_trunc_f32_grouped(a, b, out_shape, highest: bool = True):
@@ -516,11 +582,20 @@ def conv2d_trunc_f32_batched(a_batch, b, out_shape, highest: bool = True):
     # the kernel's operand b is the smaller one, as in conv2d_trunc_f32;
     # the shared operand has stride 0
     ka, kb = (b, a_batch) if plan.swap else (a_batch, b)
-    ka_stride, kb_stride = (0, a0 * a1) if plan.swap else (a0 * a1, 0)
+    (ka0, ka1), (kb0, kb1) = ka.shape[-2:], kb.shape[-2:]
+    ka_stride, kb_stride = ((0, kb0 * kb1) if plan.swap
+                            else (ka0 * ka1, 0))
+    slot_words = batch * plan.slots * TILE * TILE
+    scratch_words = 0 if highest else _rounding_words(
+        ka0 * (batch if ka.ndim == 3 else 1), ka1,
+        kb0 * (batch if kb.ndim == 3 else 1), kb1)
     alloc = torch.empty if plan.covers else torch.zeros
     out = alloc((batch, c0, c1), dtype=torch.float32, device=a_batch.device)
-    work = (torch.empty((batch, plan.slots, TILE, TILE), dtype=torch.float32,
-                        device=a_batch.device) if plan.slots else None)
+    work = (torch.empty(slot_words + scratch_words, dtype=torch.float32,
+                        device=a_batch.device)
+            if slot_words + scratch_words else None)
+    tail = () if highest else (
+        kb0, work.data_ptr() + 4 * slot_words if scratch_words else 0)
     entry = "conv2d_trunc_f32_batched" + ("" if highest else "_1pass")
     with _on_device(a_batch.device):
         err = getattr(lib, entry)(
@@ -528,14 +603,16 @@ def conv2d_trunc_f32_batched(a_batch, b, out_shape, highest: bool = True):
             0 if work is None else work.data_ptr(),
             units.data_ptr(), len(plan.units), sums.data_ptr(),
             len(plan.sums), plan.slots, ka_stride, kb_stride, batch,
-            ka.shape[-2], ka.shape[-1], kb.shape[-1], c0, c1,
-            torch.cuda.current_stream().cuda_stream,
+            ka0, ka1, kb1, c0, c1,
+            torch.cuda.current_stream().cuda_stream, *tail,
         )
     _build.check(lib, entry, err)
     if highest:
         conv2d_trunc_f32_batched.launches += 1
     else:
         conv2d_trunc_f32_batched.launches_1pass += 1
+    if scratch_words:
+        tf32_round_operands.launches += 1
     return out
 
 

@@ -19,11 +19,18 @@ Pallas tests' bar (rtol 5e-5 / atol 1e-6):
   Toeplitz tile of one b row;
 * the residue carry of K4b: shifting the A halves down and loading the
   top one names the same window rows as loading all of them;
-* the one-pass mode (``highest=False``): the hi*hi chains alone
-  (``emulate(..., passes=1)``), and on a b of fewer than 8 columns the
-  FFMA body on TF32-rounded operands (``emulate_ffma``), both within the
-  one-pass bound of f64: 2^-10 of the product of the absolute values
-  plus the three-pass bar.
+* the one-pass mode (``highest=False``): K4b's hi*hi chains alone
+  (``emulate(..., passes=1)``), the ``wgmma`` body of the one-pass tile
+  kernel and K3 (``csrc/conv2d_wgmma.cuh``, ``emulate_wgmma``: the tile
+  product transposed, the Toeplitz from registers at the kernel's
+  addresses, the a window staged in 4-column chunks and read through the
+  kernel's descriptor, which steps 16 bytes a j0, chains of eight k-steps
+  from zero added to their group in j0 order), and on a b of fewer than 8
+  columns
+  the FFMA body on TF32-rounded operands (``emulate_ffma``), each within
+  the one-pass bound of f64: 2^-10 of the product of the absolute values
+  plus the three-pass bar.  The same ``wgmma`` emulation with the
+  descriptor's two strides swapped fails the bar.
 """
 
 import numpy as np
@@ -247,6 +254,182 @@ def emulate_ffma(a, b, out, passes=1):
     return c
 
 
+# the wgmma body (WgGeo in conv2d_wgmma.cuh)
+WG_CHUNK_ROWS = TILE + G - 1 + 2  # window rows a chunk, 2 of them pad
+WG_CHUNK_BYTES = 16 * WG_CHUNK_ROWS
+WG_W_BYTES = (KB // 4) * WG_CHUNK_BYTES
+WG_B_PITCH = KB + TILE
+WG_STAGE_WORDS = WG_W_BYTES // 4 + G * WG_B_PITCH
+WG_SBO = 128
+
+
+def window_desc(addr, lbo=WG_CHUNK_BYTES, sbo=WG_SBO):
+    """The kernel's descriptor of the window at shared byte ``addr``."""
+    return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16) | ((sbo >> 4) << 32)
+
+
+def desc_words(desc):
+    """The words (4-byte units of shared memory) that a K-major, unswizzled
+    wgmma descriptor names for B[k, n] of an m64n64k8 TF32 product (8 x
+    64): core matrices of 8 rows of n x 16 bytes of k, rows 16 bytes
+    apart; the next 8 rows of n ``SBO`` bytes on, the next 4 of k ``LBO``
+    bytes on; the start in 16-byte units."""
+    desc = np.asarray(desc, dtype=np.int64)[..., None, None]
+    start = (desc & 0x3FFF) << 4
+    lbo = ((desc >> 16) & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    k = np.arange(8)[:, None]
+    n = np.arange(TILE)[None, :]
+    return (start + n // 8 * sbo + n % 8 * 16 + k // 4 * lbo + k % 4 * 4) // 4
+
+
+def _wgmma_a_words():
+    """Per k-step ks, the b-row word each element A[n, k] of the wgmma's A
+    (64 x 8) comes from, assembled lane by lane from the kernel's
+    registers: warp w, lane 4 g + t loads u[i] = word x0 + 8 - 4 i, x0 =
+    16 w + g - t + KB, and k-step ks takes (a0, a1, a2, a3) = (u[2 ks +
+    2], u[2 ks], u[2 ks + 3], u[2 ks + 1]), in the m16n8k8 A layout of the
+    warp's 16 rows: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)."""
+    words = np.full((SLICES, TILE, 8), -1)
+    for w in range(4):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            x0 = 16 * w + g - t + KB
+            u = [x0 + 8 - 4 * i for i in range(2 * SLICES + 2)]
+            for ks in range(SLICES):
+                regs = (u[2 * ks + 2], u[2 * ks], u[2 * ks + 3], u[2 * ks + 1])
+                for (dr, dc), word in zip(((0, 0), (8, 0), (0, 4), (8, 4)),
+                                          regs):
+                    words[ks, 16 * w + g + dr, t + dc] = word
+    assert (words >= 0).all()
+    return words
+
+
+def _wgmma_c_cells():
+    """(tile row, tile column) of accumulator register 4 j + 2 h + e of
+    lane 4 g + t in warp w, for every (thread, register), and the (n, m)
+    of C^T = D it holds: D's layout for m64nNk8 (row 16 w + 8 h + g,
+    column 8 j + 2 t + e)."""
+    cells, d_index = [], []
+    for w in range(4):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for j in range(8):
+                for h in range(2):
+                    for e in range(2):
+                        n, m = 16 * w + 8 * h + g, 8 * j + 2 * t + e
+                        cells.append((m, n))
+                        d_index.append((n, m))
+    return np.array(cells), np.array(d_index)
+
+
+WG_A_WORDS = _wgmma_a_words()
+WG_C_CELLS, WG_D_INDEX = _wgmma_c_cells()
+
+
+def wgmma_stage(kb, apad, a0, a1, K0, K1, g0, i1_0, j0_hi, j1_lo, j1_hi):
+    """One ring slot as the kernel's ``issue`` fills it: float32 words,
+    NaN where nothing is staged (stale words a read would carry).  Window
+    row r, chunk ch (16-byte units at ch * CHUNK_BYTES + 16 r):
+    A[K0 - (g0 + G - 1) + r][i1_0 + 4 ch ..], zero outside the padded A;
+    rows r < G - n_dj unstaged.  b row dj, word x: B[g0 + dj][K1 - i1_0 -
+    KB + x] (a 16-byte aligned start), zero outside [j1_lo, j1_hi) (the
+    kernel's 16-byte pieces, copied whole inside, zero whole outside and
+    word by word across an end, give these words)."""
+    smem = np.full(WG_STAGE_WORDS, np.nan, dtype=np.float32)
+    n_dj = min(G, j0_hi - g0)
+    # A with zeros around: every (row, chunk) the window names is in range
+    big = np.pad(apad, ((TILE + G, TILE + G), (0, KB + 4)))
+    r = np.arange(G - n_dj, TILE + G - 1)[:, None, None]
+    ch = np.arange(KB // 4)[None, :, None]
+    k = np.arange(4)[None, None, :]
+    ar = K0 - (g0 + G - 1) + r
+    smem[(ch * WG_CHUNK_BYTES + 16 * r) // 4 + k] = big[ar + TILE + G,
+                                                         i1_0 + 4 * ch + k]
+    col0 = K1 - i1_0 - KB
+    assert col0 % 4 == 0
+    j1 = col0 + np.arange(WG_B_PITCH)
+    ok = (j1 >= j1_lo) & (j1 < j1_hi)
+    rows = np.zeros((n_dj, WG_B_PITCH), dtype=np.float32)
+    rows[:, ok] = kb[g0:g0 + n_dj, j1[ok]]
+    base = WG_W_BYTES // 4
+    smem[base:base + n_dj * WG_B_PITCH] = rows.ravel()
+    return smem
+
+
+def emulate_wgmma(a, b, out, lbo=WG_CHUNK_BYTES, sbo=WG_SBO, plan=None):
+    """The f32 result of the one-pass ``wgmma`` body
+    (``csrc/conv2d_wgmma.cuh``) for f64 operands ``a``, ``b`` (cast to f32
+    first): both rounded to TF32 once (A's rows padded with zeros to 4
+    words); per unit, per stage (16 rows of j0 x 64 of a's columns from
+    the band's first column rounded down to 4), the slot as the kernel
+    stages it; per j0 (its window rows meeting A) a chain over the
+    stage's k-steps that meet A's columns: C^T += A_ks B_ks, A_ks from
+    the b row at the register words, B_ks at the descriptor's words (k-step
+    0's start row G - 1 - dj, each k-step two chunks on), one
+    ``chain_step`` each from zero; grp += chain in j0 order, acc += grp a
+    stage; accumulator registers to tile cells; units added in slot
+    order.  ``lbo`` / ``sbo``: the descriptor's strides."""
+    plan = plan or C.unit_plan(a.shape, b.shape, out, cut_j1=False)
+    ka, kb = (b, a) if plan.swap else (a, b)
+    ka = tf32_rn(np.asarray(ka, dtype=np.float32))
+    kb = tf32_rn(np.asarray(kb, dtype=np.float32))
+    a0, a1 = ka.shape
+    pitch = -(-a1 // 4) * 4
+    apad = np.zeros((a0, pitch), dtype=np.float32)
+    apad[:, :a1] = ka
+    c = np.zeros(out, dtype=np.float32)
+    work = np.zeros((max(plan.slots, 1), TILE, TILE), dtype=np.float32)
+    wanted = {}
+    for K0, K1, lo0, hi0, lo1, hi1, slot, _ in plan.units.tolist():
+        i1_lo = max(0, K1 - hi1 + 1) // 4 * 4
+        i1_hi = min(a1, K1 + TILE - lo1)
+        w_lo, w_hi = max(lo0, K0 - a0 + 1), min(hi0, K0 + TILE)
+        acc = np.zeros(TILE * TILE, dtype=np.float32)
+        for g0 in range(lo0, hi0, G):
+            for i1_0 in range(i1_lo, i1_hi, KB):
+                dj_lo, dj_hi = max(0, w_lo - g0), min(G, w_hi - g0)
+                ks_hi = min(SLICES, -(-(i1_hi - i1_0) // 8))
+                if dj_lo >= dj_hi:
+                    continue
+                smem = wgmma_stage(kb, apad, a0, a1, K0, K1, g0, i1_0, hi0,
+                                   lo1, hi1)
+                desc0 = window_desc(0, lbo, sbo) + (G - 1)
+                dj = np.arange(dj_lo, dj_hi)
+                brow = WG_W_BYTES // 4 + dj * WG_B_PITCH
+                # [dj, ks, n, k] and [dj, ks, k, m]
+                A = smem[brow[:, None, None, None]
+                         + WG_A_WORDS[None, :ks_hi]].astype(np.float64)
+                B = smem[desc_words(desc0 - dj[:, None] + 2 * WG_CHUNK_ROWS
+                                    * np.arange(ks_hi)[None, :])
+                         ].astype(np.float64)
+                parts = np.matmul(A, B)
+                grp = np.zeros((TILE, TILE), dtype=np.float32)
+                for chain_parts in parts:  # j0 order
+                    d = chain_step(np.zeros((TILE, TILE), np.float32),
+                                   chain_parts[0])  # scale-d 0
+                    for part in chain_parts[1:]:
+                        d = chain_step(d, part)
+                    grp += d
+                # registers to cells: cell (m, n) holds D[n, m]
+                acc += grp[WG_D_INDEX[:, 0], WG_D_INDEX[:, 1]][
+                    np.argsort(WG_C_CELLS[:, 0] * TILE + WG_C_CELLS[:, 1])]
+        acc = acc.reshape(TILE, TILE)
+        if slot < 0:
+            wanted[(K0, K1)] = acc
+        else:
+            work[slot] = acc
+    for K0, K1, first, n in plan.sums.tolist():
+        total = np.zeros((TILE, TILE), dtype=np.float32)
+        for z in range(first, first + n):
+            total += work[z]
+        wanted[(K0, K1)] = total
+    for (K0, K1), tile in wanted.items():
+        r, q = min(TILE, out[0] - K0), min(TILE, out[1] - K1)
+        c[K0:K0 + r, K1:K1 + q] = tile[:r, :q]
+    return c
+
+
 def one_pass_bound(a, b, out):
     """The one-pass mode's bar against f64, elementwise: 2^-10 (two TF32
     roundings, 2u + u^2 with u = 2^-11) of the truncated product of the
@@ -290,7 +473,8 @@ def test_split_arithmetic_holds_the_gate(order, i):
 def test_one_pass_arithmetic_holds_its_bound(order, i):
     """The one-pass mode's design at the one-pass bound: shape 0 has a b
     of 6 columns (the FFMA body on rounded operands), shape 1 runs the
-    hi*hi chains.  Each differs from the three-pass result somewhere, and
+    wgmma body (ascending: the tile kernel's) or the hi*hi chains
+    (residue: K4b's).  Each differs from the three-pass result somewhere, and
     the FFMA body without the rounding would be a three-pass-like f32
     product that differs from the rounded one by more than f32's sums
     can."""
@@ -304,7 +488,10 @@ def test_one_pass_arithmetic_holds_its_bound(order, i):
         # the rounding moves the result far beyond f32's sums
         assert (np.abs(got - unrounded) > 1e-4 * np.abs(want)).any()
     else:
-        got = emulate(a, b, out, order, passes=1)
+        # K4a's (and K2's) one pass is the wgmma body; K4b's the hi*hi
+        # chains of its split
+        got = (emulate_wgmma(a, b, out) if order == "ascending"
+               else emulate(a, b, out, order, passes=1))
         three = emulate(a, b, out, order)
         assert (np.abs(got - three) > 1e-5 * np.abs(three)).any()
     assert got.dtype == np.float32 and np.isfinite(got).all()
@@ -315,6 +502,112 @@ def test_one_pass_arithmetic_holds_its_bound(order, i):
         torch.from_numpy(a).float(), torch.from_numpy(b).float(), out,
         highest=False).numpy()
     assert (np.abs(got - plain) <= 2e-6 * np.abs(plain) + ATOL).all()
+
+
+# ragged shapes of the wgmma body: a1 % 4 != 0 (a's pad columns), b of
+# 8, 9 and 64 columns, orders 70 and 130
+WGMMA_SHAPES = [
+    ((70, 67), (64, 8), (70, 70)),
+    ((70, 81), (70, 9), (70, 70)),
+    ((130, 133), (120, 9), (130, 130)),
+    ((130, 130), (130, 64), (130, 130)),
+]
+
+
+def _plain_one_pass(a, b, out):
+    return C.conv2d_trunc_f32_reference(
+        torch.from_numpy(a).float(), torch.from_numpy(b).float(), out,
+        highest=False).numpy()
+
+
+@pytest.mark.parametrize("sa,sb,out", WGMMA_SHAPES)
+def test_wgmma_arithmetic_holds_the_one_pass_bound(sa, sb, out):
+    """The wgmma body against f64 at the one-pass bound, and against its
+    plain version (f32 sums of the rounded operands' exact products) at
+    phase 3's bar and well inside it: the two differ by f32 sums only."""
+    rng = np.random.default_rng(sum(sa) + sb[1])
+    a, b = rng.random(sa), rng.random(sb)
+    assert C.tile_body(sa, sb) == "mma"
+    got = emulate_wgmma(a, b, out)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    assert (np.abs(got - want) <= one_pass_bound(a, b, out)).all()
+    plain = _plain_one_pass(a, b, out)
+    np.testing.assert_allclose(got, plain, rtol=RTOL, atol=ATOL)
+    assert (np.abs(got - plain) <= 2e-6 * np.abs(plain) + ATOL).all()
+
+
+def test_wgmma_arithmetic_holds_every_column_scale():
+    """Column scales from 1e-30 to 1e30 (a) and 1e-6 to 1e6 (b): every
+    output column holds the one-pass bound at its own scale."""
+    a, b = _extreme_operands(13)
+    out = (130, 140)
+    got = emulate_wgmma(a, b, out).astype(np.float64)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    absprod = NumpyF64Backend().conv_trunc(np.abs(a), np.abs(b), out)
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want)
+            <= (2.0 ** -10 + RTOL) * absprod + ATOL_EXTREME).all()
+
+
+@pytest.mark.parametrize("sa,sb,out", WGMMA_SHAPES[1:3])
+def test_swapped_descriptor_strides_fail_the_gate(sa, sb, out):
+    """LBO and SBO swapped (the 8-row stride taken for the k stride and
+    back): the descriptor names other words, stale ones among them, and
+    the emulation leaves phase 3's bar."""
+    rng = np.random.default_rng(sum(sa) + sb[1])
+    a, b = rng.random(sa), rng.random(sb)
+    plain = _plain_one_pass(a, b, out)
+    bad = emulate_wgmma(a, b, out, lbo=WG_SBO, sbo=WG_CHUNK_BYTES)
+    off = ~(np.abs(bad - plain) <= RTOL * np.abs(plain) + ATOL)
+    assert off.mean() > 0.5
+
+
+@pytest.mark.parametrize("dj,ks", [(0, 0), (15, 7), (5, 3), (9, 1), (1, 6)])
+def test_wgmma_operands_name_the_window_and_the_toeplitz_tile(dj, ks):
+    """One stage staged as the kernel stages it (integer operands: exact),
+    the A registers read at the kernel's words and B at the descriptor's:
+    the k-step's product is C^T[n, m] = sum over its 8 columns i1 of
+    a[K0 + m - j0, i1] * b[j0, K1 + n - i1], and the accumulator
+    registers put it at tile cell (m, n)."""
+    rng = np.random.default_rng(10 * dj + ks)
+    K0, K1, g0, i1_0 = 128, 192, 40, 96
+    a = rng.integers(-4, 5, (400, 400)).astype(np.float32)
+    b = rng.integers(-4, 5, (200, 400)).astype(np.float32)
+    smem = wgmma_stage(b, a, 400, 400, K0, K1, g0, i1_0, 200, 0, 400)
+    brow = WG_W_BYTES // 4 + dj * WG_B_PITCH
+    A = smem[brow + WG_A_WORDS[ks]].astype(np.float64)
+    desc = window_desc(0) + (G - 1) - dj + 2 * ks * WG_CHUNK_ROWS
+    B = smem[desc_words(desc)].astype(np.float64)
+    D = A @ B
+    tile = np.full((TILE, TILE), np.nan)
+    tile[WG_C_CELLS[:, 0], WG_C_CELLS[:, 1]] = D[WG_D_INDEX[:, 0],
+                                                 WG_D_INDEX[:, 1]]
+    j0 = g0 + dj
+    m = np.arange(TILE)[:, None]
+    n = np.arange(TILE)[None, :]
+    want = sum(a[K0 + m - j0, i1] * b[j0, K1 + n - i1]
+               for i1 in range(i1_0 + 8 * ks, i1_0 + 8 * ks + 8))
+    assert np.array_equal(tile, want)
+
+
+def test_window_core_matrices_step_16_bytes_a_j0():
+    """The window's layout: rows r .. r + 7 of a chunk are one 128-byte
+    core matrix for any r, so the descriptor of j0 = g0 + dj is k-step
+    0's start minus dj 16-byte units, and names window row m + G - 1 - dj
+    for B column m: no copy per j0.  Chunks lie 16 bytes off a multiple of
+    128, so the copies of one window row's 8 chunks of a quarter warp land
+    on 8 distinct 16-byte bank groups."""
+    assert WG_CHUNK_BYTES % 128 == 16
+    groups = {(ch * WG_CHUNK_BYTES + 16 * 5) // 16 % 8 for ch in range(8)}
+    assert groups == set(range(8))
+    for dj in range(G):
+        words = desc_words(window_desc(0) + (G - 1) - dj)
+        m = np.arange(TILE)
+        for k in range(8):
+            row = m + G - 1 - dj
+            assert np.array_equal(words[k], (k // 4 * WG_CHUNK_BYTES
+                                             + 16 * row) // 4 + k % 4)
 
 
 @pytest.mark.parametrize("order", ["ascending", "residue"])

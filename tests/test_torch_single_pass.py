@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from genfer_tpu.taylor.backend import NumpyF64Backend
 from genfer_tpu_torch import ops
 from genfer_tpu_torch.ops import conv2d as C
 
@@ -80,6 +79,8 @@ def _f32(x):
 def _exact(a, b, out):
     """The f64 product of the f32 operands, and that of their absolute
     values."""
+    from genfer_tpu.taylor.backend import NumpyF64Backend
+
     a32 = np.asarray(a, dtype=np.float32).astype(np.float64)
     b32 = np.asarray(b, dtype=np.float32).astype(np.float64)
     nb = NumpyF64Backend()
@@ -149,6 +150,22 @@ def test_tf32_round_is_cvt_rna(kind):
     assert not (got.view(np.uint32) & np.uint32(0x1FFF)).any()
     if kind == "ties":
         assert (np.abs(got) > np.abs(x)).all()  # away from zero
+
+
+@pytest.mark.parametrize("sa,sb", [((5, 7), (4, 6)), ((3, 70, 67), (64, 8)),
+                                   ((64, 8), (2, 70, 80)), ((9, 12), (1, 9))])
+def test_round_operands_on_cpu_is_the_plain_rounding(monkeypatch, sa, sb):
+    """``tf32_round_operands`` on the CPU: ``tf32_round`` of each operand,
+    its rows padded with zeros to a multiple of 4 words; no launch."""
+    monkeypatch.setattr(C.tf32_round_operands, "launches", 0)
+    rng = np.random.default_rng(len(sa) + sa[-1])
+    a, b = _f32(rng.standard_normal(sa)), _f32(rng.standard_normal(sb))
+    for x, rx in zip((a, b), C.tf32_round_operands(a, b)):
+        n = x.shape[-1]
+        assert rx.shape == (*x.shape[:-1], -(-n // 4) * 4)
+        assert torch.equal(rx[..., :n], C.tf32_round(x))
+        assert not rx[..., n:].any()
+    assert C.tf32_round_operands.launches == 0
 
 
 def test_tf32_round_passes_infinities_and_nans():
@@ -302,15 +319,27 @@ def _brute_ffma(plan, cj):
 
 
 def _brute_mma(plan, a_shape, b_shape):
-    """Every (unit, j0, column of a) whose band meets the unit's j1 range
-    (some output column n < TILE and j1 in range with K1 + n - i1 = j1)
-    issues a tile of multiply-adds."""
-    a1 = (b_shape if plan.swap else a_shape)[1]
+    """The one-pass wgmma body's loops (``csrc/conv2d_wgmma.cuh``),
+    counted: its stages stage 64 of a's columns at a time from the first
+    one whose band meets the unit's j1 range (some output column n < TILE
+    and j1 in range with K1 + n - i1 = j1) rounded down to 4, up to the
+    last such column; every j0 of the unit at which some of the tile's 64
+    window rows lies in a issues, in each stage, a tile of multiply-adds
+    for each of the 8 columns of every k-step that holds such a column."""
+    (a0, a1) = b_shape if plan.swap else a_shape
     total = 0
     for K0, K1, lo0, hi0, lo1, hi1, *_ in plan.units.tolist():
-        cols = sum(1 for i1 in range(a1)
-                   if any(lo1 <= K1 + n - i1 < hi1 for n in range(C.TILE)))
-        total += (hi0 - lo0) * cols * C.TILE * C.TILE
+        band = [i1 for i1 in range(a1)
+                if any(lo1 <= K1 + n - i1 < hi1 for n in range(C.TILE))]
+        live_j0 = sum(1 for j0 in range(lo0, hi0)
+                      if any(0 <= K0 + m - j0 < a0 for m in range(C.TILE)))
+        first = band[0] // 4 * 4
+        steps = 0
+        for i1_0 in range(first, band[-1] + 1, 64):
+            steps += sum(1 for ks in range(8)
+                         if any(i1_0 + 8 * ks <= i1 < i1_0 + 8 * ks + 8
+                                for i1 in band))
+        total += live_j0 * steps * 8 * C.TILE * C.TILE
     return total
 
 
@@ -321,6 +350,8 @@ def _brute_mma(plan, a_shape, b_shape):
     ((95, 1), (95, 87), (95, 87)),
     ((16, 5), (3, 40), (10, 12)),
     ((200, 150), (150, 100), (280, 200)),
+    ((130, 133), (120, 9), (130, 130)),
+    ((70, 67), (64, 8), (70, 70)),
 ])
 @pytest.mark.parametrize("highest", [True, False])
 def test_rowstrip_issued_flops_counts_the_kernels(sa, sb, out, highest):
@@ -334,8 +365,107 @@ def test_rowstrip_issued_flops_counts_the_kernels(sa, sb, out, highest):
         macs = _brute_mma(plan, sa, sb)
     assert C.rowstrip_issued_flops(sa, sb, out, highest) == 2.0 * macs
     # never fewer than the useful multiply-adds
+    from genfer_tpu.taylor.backend import NumpyF64Backend
+
     useful = NumpyF64Backend().conv_trunc(np.ones(sa), np.ones(sb), out).sum()
     assert 2.0 * macs >= 2.0 * useful
+
+
+class _Entries:
+    """A stand-in for the kernel library that records each entry's
+    arguments and accepts every launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def _fake_card(monkeypatch):
+    """Run the wrappers' card path on CPU tensors against ``_Entries``."""
+    lib = _Entries()
+    monkeypatch.setattr(C, "_on_card", lambda t: True)
+    monkeypatch.setattr(C._build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 0})())
+    return lib
+
+
+@pytest.mark.parametrize("wrapper,sa,sb,scratch", [
+    # (a0, a1), (b0, b1): the kernel's b is the smaller operand
+    (ops.conv2d_trunc_f32_tile, (70, 67), (64, 9), 70 * 68 + 64 * 12),
+    (ops.conv2d_trunc_f32, (60, 50), (70, 81), 60 * 52 + 70 * 84),
+    (ops.conv2d_trunc_f32_tile, (95, 87), (95, 1), 0),
+    (ops.conv2d_trunc_f32, (16, 5), (3, 40), 0),
+])
+def test_one_pass_tile_entry_gets_its_scratch(monkeypatch, wrapper, sa, sb,
+                                              scratch):
+    """The one-pass tile entry's arguments: b's row count and a pointer
+    into the call's one workspace allocation, past its slot tiles, with
+    room for both operands' rows padded to 4 words where the kernel's b
+    has 8 or more columns (the entry rounds them there: one rounding
+    launch counted); a null pointer for a thinner b, and no count."""
+    lib = _fake_card(monkeypatch)
+    monkeypatch.setattr(C.tf32_round_operands, "launches", 0)
+    sizes = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *s, **k: sizes.append(s)
+                        or real_empty(*s, **k))
+    out = (max(sa[0], sb[0]), max(sa[1], sb[1]))
+    wrapper(torch.rand(*sa), torch.rand(*sb), out, highest=False)
+    (name, args), = lib.calls
+    assert name == "conv2d_trunc_f32_tile_1pass"
+    plan = C.unit_plan(sa, sb, out, False)
+    kb = sa if plan.swap else sb
+    assert args[9:11] == ((sb if plan.swap else sa)[1], kb[1])
+    b0, ptr = args[-2:]
+    assert b0 == kb[0]
+    slot_words = plan.slots * C.TILE * C.TILE
+    if scratch:
+        assert ptr == args[3] + 4 * slot_words
+        assert (slot_words + scratch,) in sizes
+    else:
+        assert ptr == 0
+    assert C.tf32_round_operands.launches == (1 if scratch else 0)
+
+
+@pytest.mark.parametrize("swap", [False, True])
+def test_one_pass_batched_entry_gets_its_scratch(monkeypatch, swap):
+    """K3's one-pass entry: the operands' own strides (the entry derives
+    the rounded ones), b's row count, and a scratch pointer past the
+    batch's slot tiles with room for the batched operand's rows and the
+    shared one's, padded to 4 words; one rounding launch counted."""
+    lib = _fake_card(monkeypatch)
+    monkeypatch.setattr(C.tf32_round_operands, "launches", 0)
+    sizes = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *s, **k: sizes.append(s)
+                        or real_empty(*s, **k))
+    batch, sa, sb, out = 3, (70, 67), (64, 9), (70, 70)
+    if swap:  # the batch as the kernel's b
+        sa, sb = sb, sa
+    a, b = torch.rand(batch, *sa), torch.rand(*sb)
+    ops.conv2d_trunc_f32_batched(a, b, out, highest=False)
+    (name, args), = lib.calls
+    assert name == "conv2d_trunc_f32_batched_1pass"
+    plan = C.unit_plan(sa, sb, out, False)
+    assert plan.swap == swap
+    ka, kb = (b, a) if swap else (a, b)
+    strides = args[9:11]
+    assert strides == ((0, 64 * 9) if swap else (70 * 67, 0))
+    assert args[12:15] == (70, 67, 9)
+    b0, ptr = args[-2:]
+    assert b0 == 64
+    slot_words = batch * plan.slots * C.TILE * C.TILE
+    assert ptr == args[3] + 4 * slot_words
+    assert ka.shape[-2:] == (70, 67) and kb.shape[-2:] == (64, 9)
+    assert (slot_words + (1 if swap else batch) * 70 * 68
+            + (batch if swap else 1) * 64 * 12,) in sizes
+    assert C.tf32_round_operands.launches == 1
 
 
 # ------------------------------------------------------------------ card
@@ -371,6 +501,10 @@ CARD_SHAPES = ROWSTRIP_SHAPES + [
     # a's rows not 16-byte aligned
     ((130, 141), (120, 100), (130, 140)),
     ((512, 512), (512, 512), (512, 512)),
+    # the wgmma body's ragged shapes: a1 % 4 != 0, b of 8, 9, 64 columns
+    ((70, 67), (64, 8), (70, 70)),
+    ((130, 133), (120, 9), (130, 130)),
+    ((130, 130), (130, 64), (130, 130)),
 ]
 
 
@@ -401,6 +535,62 @@ def test_one_pass_on_card(kernel, sa, sb, out):
     if kernel is ops.conv2d_trunc_f32:
         assert torch.equal(ops.conv2d_trunc_f32_tile(a, b, out,
                                                      highest=False), got)
+
+
+@pytest.mark.cuda
+def test_round_kernel_is_tf32_round_on_card():
+    """The rounding kernel against ``tf32_round`` bit for bit: random
+    words of every exponent, ties, subnormals, zeros, infinities and NaNs
+    with payloads, in both operands; the pad columns zero; one launch."""
+    _card()
+    rng = np.random.default_rng(29)
+    special = np.array([0x7F800000, 0xFF800000, 0x7FC00000, 0x7FC00001,
+                        0xFFFFFFFF, 0x7F7FFFFF, 0x7F7FF000, 0x00000000,
+                        0x80000000, 0x00001000, 0x80001000],
+                       dtype=np.uint32).view(np.float32)
+    sub = rng.integers(1, 1 << 23, 2048, dtype=np.uint64).astype(np.uint32)
+    x = np.concatenate([_words(1 << 15, rng), _ties(rng), special,
+                        sub.view(np.float32), -sub.view(np.float32)])
+    n = x.size // 37 * 37
+    a = torch.from_numpy(x[:n].reshape(-1, 37)).cuda()
+    b = torch.from_numpy(np.ascontiguousarray(x[-999:]).reshape(-1, 27)
+                         ).cuda()
+    before = C.tf32_round_operands.launches
+    ra, rb = C.tf32_round_operands(a, b)
+    torch.cuda.synchronize()
+    assert C.tf32_round_operands.launches == before + 1
+    assert ra.shape == (a.shape[0], 40) and rb.shape == (b.shape[0], 28)
+    words = lambda t: t.cpu().contiguous().view(torch.int32)
+    assert torch.equal(words(ra[:, :37]), words(C.tf32_round(a.cpu())))
+    assert torch.equal(words(rb[:, :27]), words(C.tf32_round(b.cpu())))
+    assert not ra[:, 37:].any() and not rb[:, 27:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa,sb,out,rounds", [
+    ((130, 133), (120, 9), (130, 130), 1),
+    ((512, 512), (512, 512), (512, 512), 1),
+    ((95, 1), (95, 87), (95, 87), 0),
+    ((16, 5), (3, 40), (10, 12), 0),
+])
+def test_one_pass_rounds_once_a_call(sa, sb, out, rounds):
+    """The one-pass tile kernel, K2's one pass and K3's launch the rounding
+    kernel once a call where they run the wgmma body, and not on a thin b
+    (the FFMA body rounds in registers); K4b's one pass never does."""
+    _card()
+    rng = np.random.default_rng(31)
+    a = torch.from_numpy(rng.random(sa)).float().cuda()
+    b = torch.from_numpy(rng.random(sb)).float().cuda()
+    for wrapper, args, n in (
+            (ops.conv2d_trunc_f32_tile, (a, b), rounds),
+            (ops.conv2d_trunc_f32, (a, b), rounds),
+            (ops.conv2d_trunc_f32_grouped, (a, b), 0),
+            (ops.conv2d_trunc_f32_batched, (a[None].repeat(3, 1, 1), b),
+             rounds)):
+        before = C.tf32_round_operands.launches
+        wrapper(*args, out, highest=False)
+        torch.cuda.synchronize()
+        assert C.tf32_round_operands.launches == before + n, wrapper.__name__
 
 
 @pytest.mark.cuda
@@ -435,6 +625,9 @@ def test_one_pass_on_card_extreme_scales(kernel):
     (3, (130, 141), (120, 100), (130, 140)),
     (3, (95, 1), (95, 87), (95, 87)),
     (4, (5, 7), (70, 80), (70, 80)),
+    (3, (70, 67), (64, 8), (70, 70)),
+    (4, (130, 133), (120, 9), (130, 130)),
+    (4, (120, 9), (130, 133), (130, 130)),
 ])
 def test_batched_one_pass_on_card(nbatch, sa, sb, out):
     """Every entry equals ``conv2d_trunc_f32(..., highest=False)`` bit for

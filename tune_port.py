@@ -157,18 +157,22 @@ two trees run in turns compares their K6.
    operands, ``FLOOR_ITERS`` = 8 calls of a product to (order, order),
    each output normalized by its max and fed back with the other operand
    as in the script's scan, timed with CUDA events at three passes
-   (``highest_ms``) and at one (``default_ms``), for K4a and for K4b.
+   (``highest_ms``) and at one (``default_ms``), for K4b.
    The TPU compares six bf16 passes with one (mxu = (t_H - t_D) x 6/5);
    here it is three TF32 passes against one: ``derived_mma_ms`` = (t3 -
-   t1) x 3/2 and ``derived_floor_ms`` = t3 - that.  The one-pass
+   t1) x 3/2 and ``derived_floor_ms`` = t3 - that.  K4b's one-pass
    instance keeps the three-pass stage layout and shared memory
    (``csrc/conv2d_mma.cuh``), so t3 - t1 is the two dropped passes with
    what feeds them only (the lo planes' split, stores and fragment
-   loads).  Beside them K2's FFMA time and its one-pass time, and K3's
-   (``FLOOR_BATCH`` entries sharing b): different kernels in each mode,
-   so not a decomposition.  Each order's one-pass calls are first held
-   to their plain version at rtol 5e-5 / atol 1e-6; issued over useful
-   multiply-adds of ``conv2d_trunc_f32`` in both modes
+   loads).  Beside it, timed in the same turns, the pairs of K4a (three
+   passes, and the one-pass tile kernel's ``wgmma`` body,
+   ``csrc/conv2d_wgmma.cuh``, with its rounding launch), of K2 (FFMA,
+   and the same one-pass tile kernel) and of K3 (``FLOOR_BATCH`` entries
+   sharing b; FFMA, and the ``wgmma`` body): different kernels in each
+   mode, so not a decomposition.  Each
+   order's one-pass calls are first held to their plain version at rtol
+   5e-5 / atol 1e-6; issued over useful multiply-adds of
+   ``conv2d_trunc_f32`` in both modes
    (``ops.conv2d.rowstrip_issued_flops``).  ``chip_smoke.py`` phase 17
    drives it as the one-pass mode's main path.
 
@@ -1678,37 +1682,44 @@ def floor_decomposition(orders=FLOOR_ORDERS, iters: int = FLOOR_ITERS,
                 return (r / r.abs().amax(dim=(1, 2), keepdim=True),)
             return _scan_ms(step, (ab,), iters)
 
+        def in_turns(timed):
+            # highest first and last, the one pass twice between; the
+            # least of each
+            t3 = timed(True)
+            t1 = min(timed(False), timed(False))
+            return min(t3, timed(True)), t1
+
         row: dict = {}
-        for name, kernel in (("K4a", C.conv2d_trunc_f32_tile),
-                             ("K4b", C.conv2d_trunc_f32_grouped)):
-            # in turns, three passes first and last; the least of each
-            t3 = pair(kernel, True)
-            t1 = min(pair(kernel, False), pair(kernel, False))
-            t3 = min(t3, pair(kernel, True))
-            mma = (t3 - t1) * 3.0 / 2.0
-            row[name] = {"highest_ms": t3, "default_ms": t1,
-                         "derived_mma_ms": mma, "derived_floor_ms": t3 - mma}
-        row["K2"] = {"ffma_ms": pair(C.conv2d_trunc_f32, True),
-                     "one_pass_ms": pair(C.conv2d_trunc_f32, False)}
-        row["K3"] = {"ffma_ms": batched(True), "one_pass_ms": batched(False)}
+        t3, t1 = in_turns(lambda h: pair(C.conv2d_trunc_f32_grouped, h))
+        mma = (t3 - t1) * 3.0 / 2.0
+        row["K4b"] = {"highest_ms": t3, "default_ms": t1,
+                      "derived_mma_ms": mma, "derived_floor_ms": t3 - mma}
+        for name, first, timed in (
+                ("K4a", "three_pass_ms",
+                 lambda h: pair(C.conv2d_trunc_f32_tile, h)),
+                ("K2", "ffma_ms", lambda h: pair(C.conv2d_trunc_f32, h)),
+                ("K3", "ffma_ms", batched)):
+            t3, t1 = in_turns(timed)
+            row[name] = {first: t3, "one_pass_ms": t1}
         useful = 2.0 * _conv_pair_flops(shape, shape, shape)
         row["issued_over_useful"] = {
             mode: C.rowstrip_issued_flops(shape, shape, shape, highest)
             / useful for mode, highest in (("ffma", True), ("one_pass",
                                                             False))}
-        for name in ("K4a", "K4b"):
-            print(f"{label} floor {order} {name}: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in row[name].items())
-                  + " (t3 - t1 holds the two dropped passes and the lo "
-                  "planes' split, stores and loads: the one-pass instance "
-                  "keeps the three-pass staging)")
-        for name, what in (("K2", "conv2d_trunc_f32"),
-                           ("K3", f"conv2d_trunc_f32_batched B="
-                                  f"{FLOOR_BATCH}")):
-            print(f"{label} floor {order} {name} ({what}): FFMA "
-                  f"{row[name]['ffma_ms']:.4f} ms, one pass "
-                  f"{row[name]['one_pass_ms']:.4f} ms (the one-pass tile "
-                  "kernel: another kernel, not a decomposition)")
+        print(f"{label} floor {order} K4b: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row["K4b"].items())
+              + " (t3 - t1 holds the two dropped passes and the lo "
+              "planes' split, stores and loads: K4b's one-pass instance "
+              "keeps the three-pass staging)")
+        for name, what, first in (
+                ("K4a", "conv2d_trunc_f32_tile", "three_pass"),
+                ("K2", "conv2d_trunc_f32", "ffma"),
+                ("K3", f"conv2d_trunc_f32_batched B={FLOOR_BATCH}", "ffma")):
+            print(f"{label} floor {order} {name} ({what}): "
+                  f"{first.replace('_', ' ')} {row[name][first + '_ms']:.4f}"
+                  f" ms, one pass {row[name]['one_pass_ms']:.4f} ms (the "
+                  "one-pass wgmma body: another kernel, not a "
+                  "decomposition)")
         print(f"{label} floor {order} issued / useful multiply-adds of "
               "conv2d_trunc_f32: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in row["issued_over_useful"].items()
