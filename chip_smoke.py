@@ -203,28 +203,30 @@ result):
    two_populations and population (a group of one rank: no route
    shards) against ``--backend jax`` at is_close, with the walls.
 17. the one-pass mode (``highest=False``: one TF32 pass, the TPU
-   kernels' DEFAULT precision; K2's, K4a's and K3's the ``wgmma`` body
-   on operands that its C entry rounds once a call, K4b's one
-   ``mma.sync`` pass of its split) of K2, K4a, K4b (``SHAPES`` and
+   kernels' DEFAULT precision; each the ``wgmma`` body on operands that
+   its C entry rounds once a call, K4b's in residue-major order, a chain
+   per class) of K2, K4a, K4b (``SHAPES`` and
    ``EXTREME``) and K3 (at ``BATCHES``, order 768 at B = 3 only): each
    within phase 3's rtol / atol of its one-pass plain version (the f32
    product of ``tf32_round`` of both operands), within the one-pass bound
    of f64 (``ONE_PASS`` = 2^-10 plus ``RTOL`` of the product, the
    operands being >= 0, plus the atol), never equal to the three-pass
    result, the same bits twice; K2's one pass the one-pass tile kernel's
-   bits, every K3 entry the single-pair one pass's; times of the kernel
+   bits, K4b's within 2e-6 relative (plus the atol) of them, every K3
+   entry the single-pair one pass's; times of the kernel
    (K2, K4a and K4b in turns, the least of two each), its plain version
    and one cuDNN f32 ``conv2d`` with TF32 on (the same one-pass
    function) at ``ONE_PASS_TIMED``, and at its dense
    orders and K3's 256 x B32 a line of device microseconds a call
    (``device_us_queued``: CUDA events around calls queued behind a spin,
-   so no host time is in them) of the ``wgmma`` body's call (its rounding
-   launch and slot sum included) beside K4b's unchanged one pass, with
-   the share of the issued bound (the line fails above 100%), and
+   so no host time is in them) of the tile kernel's call (its rounding
+   launch and slot sum included) beside K4b's, each with the share of
+   the issued bound (the line fails above 100%), and
    torch.profiler's split by kernel where its events cover the calls and
-   sum to within 25% of the events' time.  The rounding
-   kernel at order 512: bit for bit ``tf32_round`` (the pad columns
-   zero), its time, its plain version's and its device time.  Then the
+   sum to within 25% of the events' time.  The rounding kernel at every
+   shape of ``SHAPES``: bit for bit ``tf32_round`` (the pad columns
+   zero) and its device time beside its bytes bound; at order 512 also
+   its time and its plain version's.  Then the
    mode's main path, counted: ``tune_port.py`` probe 19 (the twin of
    ``scripts/ozaki_diag.py::pallas_floor_decomposition``) at 256 and 512,
    which must launch all four one-pass kernels and the rounding kernel;
@@ -2997,50 +2999,80 @@ def _one_pass_macs(sa, sb, out) -> tuple[float, float]:
 
 def _one_pass_device_line(label, call, k4b_call, issued_macs: float,
                           useful_macs: float, k4b_calls: int = 20) -> dict:
-    """The card's microseconds a call (``device_us_queued``) of the
-    ``wgmma`` body's ``call`` and, in the same process, of K4b's unchanged
-    one pass on the same operands (``k4b_call``), each with the split by
-    kernel that torch.profiler gives where it agrees.  Fails where a time
-    is under the TF32 rate's bound for the multiply-adds the call issues
-    (``issued_macs`` for the ``wgmma`` body; ``useful_macs`` for K4b).
-    ``k4b_calls``: the calls of ``k4b_call`` queued at once (a loop of
-    wrappers fills the card's launch queue, and a full queue holds the
-    host back)."""
+    """The card's microseconds a call (``device_us_queued``) of the tile
+    kernel's (or K3's) one pass ``call`` and, in the same process, of
+    K4b's one pass on the same operands (``k4b_call``: the same ``wgmma``
+    body in residue-major order, issuing the same ``issued_macs``), each
+    with the split by kernel that torch.profiler gives where it agrees.
+    Fails where a time is under the TF32 rate's bound for the
+    multiply-adds the call issues.  ``k4b_calls``: the calls of
+    ``k4b_call`` queued at once (a loop of wrappers fills the card's
+    launch queue, and a full queue holds the host back)."""
     from genfer_tpu_torch.bench import TF32_MMA_PER_S
 
+    issued_us = issued_macs / TF32_MMA_PER_S * 1e6
     new = device_us_queued(call)
-    old = device_us_queued(k4b_call, k4b_calls)
-    for what, us, macs in (("the wgmma body", new, issued_macs),
-                           ("K4b's one pass", old, useful_macs)):
-        if us < macs / TF32_MMA_PER_S * 1e6:
+    k4b = device_us_queued(k4b_call, k4b_calls)
+    for what, us in (("the tile kernel's one pass", new),
+                     ("K4b's one pass", k4b)):
+        if us < issued_us:
             fail(f"phase 17 {label}: {what} {us:.2f} us a call is under "
-                 f"the TF32 rate's {macs / TF32_MMA_PER_S * 1e6:.2f} us for "
-                 f"its {macs:.4g} multiply-adds: not a real time")
-    share = issued_macs / TF32_MMA_PER_S * 1e6 / new
+                 f"the TF32 rate's {issued_us:.2f} us for its "
+                 f"{issued_macs:.4g} multiply-adds: not a real time")
     print(f"phase 17 {label} device us a call (CUDA events, calls queued "
-          f"behind a spin): the wgmma body {new:.2f} ({share:.1%} of the "
-          f"TF32 rate at its {issued_macs / useful_macs:.4f} x issued "
-          f"multiply-adds; {_profiler_split(call, new)}); K4b's one pass in "
-          f"the same call {old:.2f} "
-          f"({_profiler_split(k4b_call, old, k4b_calls)})")
-    return {"device_us": new, "k4b_device_us": old}
+          f"behind a spin; shares of the TF32 rate at the "
+          f"{issued_macs / useful_macs:.4f} x issued multiply-adds): the "
+          f"tile kernel's one pass {new:.2f} ({issued_us / new:.1%}; "
+          f"{_profiler_split(call, new)}); K4b's one pass in the same call "
+          f"{k4b:.2f} ({issued_us / k4b:.1%}; "
+          f"{_profiler_split(k4b_call, k4b, k4b_calls)})")
+    return {"device_us": new, "k4b_device_us": k4b}
+
+
+def _round_bound_ms(a_shape, b_shape) -> float:
+    """The rounding kernel's bytes bound: each operand word read once,
+    each rounded word (rows padded to 4) written once."""
+    from genfer_tpu_torch.bench import BYTES_PER_S
+
+    (a0, a1), (b0, b1) = a_shape, b_shape
+    moved = 4 * (a0 * a1 + b0 * b1 + a0 * -(-a1 // 4) * 4
+                 + b0 * -(-b1 // 4) * 4)
+    return moved / BYTES_PER_S * 1e3
+
+
+def _round_kernel_line(a, b, label) -> float:
+    """The rounding kernel on the one-pass operands ``a``, ``b``: fail
+    unless it gives ``tf32_round``'s bits with zero pads; print its device
+    time (``device_us_queued``) beside its bytes bound, and return it."""
+    from genfer_tpu_torch.ops.conv2d import tf32_round, tf32_round_operands
+
+    (ra, rb) = tf32_round_operands(a, b)
+    torch.cuda.synchronize()
+    for x, rx in ((a, ra), (b, rb)):
+        want = F.pad(tf32_round(x), (0, -x.shape[1] % 4))
+        if not torch.equal(rx.view(torch.int32), want.view(torch.int32)):
+            fail(f"tf32_round_operands {label}: not tf32_round's bits")
+    us = device_us_queued(lambda: tf32_round_operands(a, b))
+    bound_us = _round_bound_ms(tuple(a.shape), tuple(b.shape)) * 1e3
+    print(f"phase 17 {ROUND_KERNEL[0]} {label}: tf32_round's bits, pads "
+          f"zero; device {us:.2f} us a call (CUDA events, calls queued "
+          f"behind a spin) against its bytes bound {bound_us:.3f} us "
+          f"({bound_us / us:.1%})")
+    return us
 
 
 def _round_kernel_row(a, b) -> dict:
-    """The rounding kernel on the one-pass operands ``a``, ``b``: bit for
-    bit ``tf32_round`` (the pad columns zero), its time, its plain
-    version's and its device time."""
+    """The rounding kernel on the one-pass operands ``a``, ``b`` for the
+    kernel table: its time, its plain version's and its device time
+    (``_round_kernel_line``, which holds its bits)."""
     from genfer_tpu_torch.ops.conv2d import tf32_round, tf32_round_operands
 
     def plain():
         return tuple(F.pad(tf32_round(x), (0, -x.shape[1] % 4))
                      for x in (a, b))
 
-    (ra, rb), (pa, pb) = tf32_round_operands(a, b), plain()
-    torch.cuda.synchronize()
-    if not (torch.equal(ra.view(torch.int32), pa.view(torch.int32))
-            and torch.equal(rb.view(torch.int32), pb.view(torch.int32))):
-        fail("tf32_round_operands: not tf32_round's bits")
+    device_us = _round_kernel_line(a, b, f"{tuple(a.shape)}, "
+                                   f"{tuple(b.shape)}")
     call = lambda: tf32_round_operands(a, b)  # noqa: E731
     for _ in range(20):
         call()
@@ -3051,12 +3083,10 @@ def _round_kernel_row(a, b) -> dict:
     host_us = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
     row = {"max_abs_err": 0.0, "ms": _time(call), "plain_ms": _time(plain),
-           "library_ms": None, "device_us": device_us_queued(call)}
+           "library_ms": None, "device_us": device_us}
     print(f"phase 17 {ROUND_KERNEL[0]} {tuple(a.shape)}, {tuple(b.shape)}: "
-          f"tf32_round's bits, pads zero; {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms; host {host_us:.2f} us a call (wrapper "
-          f"and launch, not waiting), device {row['device_us']:.2f} us a "
-          "call (CUDA events, calls queued behind a spin)")
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; host "
+          f"{host_us:.2f} us a call (wrapper and launch, not waiting)")
     return row
 
 
@@ -3124,6 +3154,15 @@ def phase17_one_pass_kernels() -> dict:
                     *_one_pass_macs(sa, sb, out)))
         if (sa, sb, out) == ROUND_KERNEL[3]:
             rows[ROUND_KERNEL[0]] = {(key, 1): _round_kernel_row(a32, b32)}
+        elif atol == ATOL:
+            _round_kernel_line(a32, b32, label)
+        grouped = ops.conv2d_trunc_f32_grouped(a32, b32, out, highest=False)
+        tile = ops.conv2d_trunc_f32_tile(a32, b32, out, highest=False)
+        if not bool(((grouped - tile).abs()
+                     <= 2e-6 * tile.abs() + atol).all()):
+            fail(f"conv2d_trunc_f32_grouped one pass {label}: not the "
+                 "one-pass tile kernel's result to f32 rounding")
+        del grouped, tile
         print(f"phase 17 {label}: K2, K4a, K4b one pass within rtol {RTOL} /"
               f" atol {atol} of the plain version and the one-pass bound of "
               f"f64 (max rel err " + ", ".join(
@@ -3401,7 +3440,7 @@ def _entry(name, source, replaces, launches, row, rows, bound, by,
 
 
 def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
-    from genfer_tpu_torch.bench import BYTES_PER_S, F64_MMA, product_bound
+    from genfer_tpu_torch.bench import F64_MMA, product_bound
 
     table = []
     for name, spec in KERNELS.items():
@@ -3427,17 +3466,12 @@ def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
                             "tf32 mma x 1"))
     name, source, replaces, shape = ROUND_KERNEL
     (row,) = rows[name].values()
-    (a0, a1), (b0, b1) = shape[0], shape[1]
-    # each operand word read once, each rounded word (rows padded to 4)
-    # written once
-    moved = 4 * (a0 * a1 + b0 * b1 + a0 * -(-a1 // 4) * 4
-                 + b0 * -(-b1 // 4) * 4)
     table.append({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches.get(name, 0),
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"],
-        "bound_ms": moved / BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bound_ms": _round_bound_ms(shape[0], shape[1]), "bound_by": "bytes",
         "library_ms": None, "device_us": row["device_us"]})
     split = rows["ozaki_split"]
     table.append({

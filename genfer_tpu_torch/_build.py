@@ -106,10 +106,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name, args in (
         *((name, [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr])
           for name in ("conv2d_trunc_f32", "conv2d_trunc_f32_tile",
-                       "conv2d_trunc_f32_grouped",
+                       "conv2d_trunc_f32_grouped")),
+        *((name, [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr, i32, ptr])
+          for name in ("conv2d_trunc_f32_tile_1pass",
                        "conv2d_trunc_f32_grouped_1pass")),
-        ("conv2d_trunc_f32_tile_1pass",
-         [ptr] * 5 + [i32, ptr] + [i32] * 6 + [ptr, i32, ptr]),
         ("conv2d_trunc_f32_batched",
          [ptr] * 5 + [i32, ptr, i32, i32] + [size] * 2 + [i32] * 6 + [ptr]),
         ("conv2d_trunc_f32_batched_1pass",

@@ -76,19 +76,10 @@
 // shapes run conv2d_unit.cuh's FFMA body on the same table (CJ = 1 for a
 // one-column b, CJ = 8 otherwise), in both kernels: see the .cu files.
 //
-// PASSES (a template parameter) is 3 (the split product above) or 1: the
-// one-pass mode (the TPU kernels' highest=False), hi*hi alone, one TF32
-// mma.sync per multiply-add.  Only K4b's one pass (RESIDUE, PASSES = 1)
-// runs it: the one-pass tile kernel (K4a's and K2's one pass) and K3's run
-// conv2d_wgmma.cuh's body instead, which shares neither this staging nor
-// its fragment loads.  K4b's one-pass instance stages only the hi planes
-// and runs only the hh chains; the stage layout, the shared memory, the
-// eight-step chains and the three sum levels are the three-pass
-// instance's, so the two differ in their pass count only (tune_port.py
-// probe 19 subtracts one from the other on that premise, for K4b alone).
-// A TF32 x TF32 product is exact in f32, so the one-pass result is the
-// f32 sum of the exact products of the rounded operands.  Its thin-b FFMA
-// body rounds its operands the same way (conv2d_unit.cuh, TF32).
+// This is the three-pass product (highest=True) only.  The one-pass mode
+// of both kernels (the TPU kernels' highest=False) runs conv2d_wgmma.cuh's
+// body in the same two orders, which shares neither this staging nor its
+// fragment loads.
 
 #pragma once
 
@@ -105,8 +96,6 @@ constexpr int MT = WM / 16;      // mma tiles down a warp tile
 constexpr int NTL = WN / 8;      // mma tiles across a warp tile
 constexpr float LO_SCALE = 2048.f;          // 2^11
 constexpr float LO_UNSCALE = 1.f / 2048.f;  // 2^-11
-
-enum Order { ASCENDING, RESIDUE };
 
 struct MmaGeo {
   static constexpr int G = 16;      // j0 rows a stage
@@ -151,14 +140,12 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // a dense BM x BN workspace tile, written whole; otherwise it is c
 // (row-major c0 x c1), written where k < (c0, c1).  ``smem`` holds
 // MmaGeo::SMEM bytes.
-template <Order ORDER, int PASSES>
+template <Order ORDER>
 __device__ __forceinline__ void mma_unit(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ out, bool to_slot, int a0, int a1, int b1, int c0,
     int c1, int K0, int K1, int j0_lo, int j0_hi, int j1_lo, int j1_hi,
     float* __restrict__ smem) {
-  static_assert(PASSES == 1 || PASSES == 3, "one pass, or the split's three");
-  constexpr bool SPLIT = PASSES == 3;
   using L = MmaGeo;
   constexpr int G = L::G;
   constexpr int KB = L::KB;
@@ -240,8 +227,7 @@ __device__ __forceinline__ void mma_unit(
         cr[M][N][i] = 0.f;
       }
 
-  // chain end: grp += hh + 2^-11 cr (one pass: grp += hh), and the chain
-  // starts again from zero
+  // chain end: grp += hh + 2^-11 cr, and the chain starts again from zero
   auto flush = [&]() {
 #pragma unroll
     for (int M = 0; M < MT; ++M)
@@ -249,19 +235,14 @@ __device__ __forceinline__ void mma_unit(
       for (int N = 0; N < NTL; ++N)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          if constexpr (SPLIT) {
-            grp[M][N][i] += fmaf(cr[M][N][i], LO_UNSCALE, hh[M][N][i]);
-            cr[M][N][i] = 0.f;
-          } else {
-            grp[M][N][i] += hh[M][N][i];
-          }
+          grp[M][N][i] += fmaf(cr[M][N][i], LO_UNSCALE, hh[M][N][i]);
+          cr[M][N][i] = 0.f;
           hh[M][N][i] = 0.f;
         }
   };
 
   // B fragments of the k-slice at kk, row dj: T[t][g], T[t + 4][g] of
-  // every 8-column tile, both planes (one pass: hi); then the 24 mma of
-  // the slice (one pass: 8)
+  // every 8-column tile, both planes; then the 24 mma of the slice
   auto slice = [&](int dj, int kk, const uint32_t (&ah)[MT][4],
                    const uint32_t (&al)[MT][4]) {
     const int x = dj * B_PITCH + nb + g - kk - t + KB - 1;
@@ -271,20 +252,16 @@ __device__ __forceinline__ void mma_unit(
     for (int N = 0; N < NTL; ++N) {
       bh[N][0] = sBh[x + 8 * N];
       bh[N][1] = sBh[x + 8 * N - 4];
-      if constexpr (SPLIT) {
-        bl[N][0] = sBl[x + 8 * N];
-        bl[N][1] = sBl[x + 8 * N - 4];
-      }
+      bl[N][0] = sBl[x + 8 * N];
+      bl[N][1] = sBl[x + 8 * N - 4];
     }
 #pragma unroll
     for (int M = 0; M < MT; ++M)
 #pragma unroll
       for (int N = 0; N < NTL; ++N) {
         mma_tf32(hh[M][N], ah[M], bh[N][0], bh[N][1]);
-        if constexpr (SPLIT) {
-          mma_tf32(cr[M][N], ah[M], bl[N][0], bl[N][1]);
-          mma_tf32(cr[M][N], al[M], bh[N][0], bh[N][1]);
-        }
+        mma_tf32(cr[M][N], ah[M], bl[N][0], bl[N][1]);
+        mma_tf32(cr[M][N], al[M], bh[N][0], bh[N][1]);
       }
   };
 
@@ -301,12 +278,10 @@ __device__ __forceinline__ void mma_unit(
       ah[M][1] = sAh[wm + 8 * A_PITCH];
       ah[M][2] = sAh[wm + 4];
       ah[M][3] = sAh[wm + 8 * A_PITCH + 4];
-      if constexpr (SPLIT) {
-        al[M][0] = sAl[wm];
-        al[M][1] = sAl[wm + 8 * A_PITCH];
-        al[M][2] = sAl[wm + 4];
-        al[M][3] = sAl[wm + 8 * A_PITCH + 4];
-      }
+      al[M][0] = sAl[wm];
+      al[M][1] = sAl[wm + 8 * A_PITCH];
+      al[M][2] = sAl[wm + 4];
+      al[M][3] = sAl[wm + 8 * A_PITCH + 4];
     }
     slice(dj, kk, ah, al);
   };
@@ -323,10 +298,8 @@ __device__ __forceinline__ void mma_unit(
     for (int h = 0; h < 2 * MT; ++h) {
       hi[h][0] = sAh[w + 8 * h * A_PITCH];
       hi[h][1] = sAh[w + 8 * h * A_PITCH + 4];
-      if constexpr (SPLIT) {
-        lo[h][0] = sAl[w + 8 * h * A_PITCH];
-        lo[h][1] = sAl[w + 8 * h * A_PITCH + 4];
-      }
+      lo[h][0] = sAl[w + 8 * h * A_PITCH];
+      lo[h][1] = sAl[w + 8 * h * A_PITCH + 4];
     }
 #pragma unroll
     for (int q = 0; q < G / 8; ++q) {
@@ -338,18 +311,14 @@ __device__ __forceinline__ void mma_unit(
         for (int h = 2 * MT - 1; h > 0; --h) {
           hi[h][0] = hi[h - 1][0];
           hi[h][1] = hi[h - 1][1];
-          if constexpr (SPLIT) {
-            lo[h][0] = lo[h - 1][0];
-            lo[h][1] = lo[h - 1][1];
-          }
+          lo[h][0] = lo[h - 1][0];
+          lo[h][1] = lo[h - 1][1];
         }
         const int wq = w - 8 * q * A_PITCH;
         hi[0][0] = sAh[wq];
         hi[0][1] = sAh[wq + 4];
-        if constexpr (SPLIT) {
-          lo[0][0] = sAl[wq];
-          lo[0][1] = sAl[wq + 4];
-        }
+        lo[0][0] = sAl[wq];
+        lo[0][1] = sAl[wq + 4];
       }
       if constexpr (!decltype(all)::value)
         if (dj < dj_lo || dj >= dj_hi) continue;  // uniform over the warp
@@ -361,12 +330,10 @@ __device__ __forceinline__ void mma_unit(
         ah[M][1] = hi[2 * M + 1][0];
         ah[M][2] = hi[2 * M][1];
         ah[M][3] = hi[2 * M + 1][1];
-        if constexpr (SPLIT) {
-          al[M][0] = lo[2 * M][0];
-          al[M][1] = lo[2 * M + 1][0];
-          al[M][2] = lo[2 * M][1];
-          al[M][3] = lo[2 * M + 1][1];
-        }
+        al[M][0] = lo[2 * M][0];
+        al[M][1] = lo[2 * M + 1][0];
+        al[M][2] = lo[2 * M][1];
+        al[M][3] = lo[2 * M + 1][1];
       }
       slice(dj, kk, ah, al);
     }
@@ -395,24 +362,16 @@ __device__ __forceinline__ void mma_unit(
     __syncthreads();
     for (int e = (G - n_dj) * KB + tid; e < L::A_RAW; e += NT) {
       const int w = e / KB * A_PITCH + e % KB;
-      if constexpr (SPLIT) {
-        uint32_t hi, lo;
-        split_tf32(rawA[e], hi, lo);
-        sAh[w] = hi;
-        sAl[w] = lo;
-      } else {
-        sAh[w] = tf32_rn(rawA[e]);
-      }
+      uint32_t hi, lo;
+      split_tf32(rawA[e], hi, lo);
+      sAh[w] = hi;
+      sAl[w] = lo;
     }
     for (int e = tid; e < n_dj * B_PITCH; e += NT) {
-      if constexpr (SPLIT) {
-        uint32_t hi, lo;
-        split_tf32(rawB[e], hi, lo);
-        sBh[e] = hi;
-        sBl[e] = lo;
-      } else {
-        sBh[e] = tf32_rn(rawB[e]);
-      }
+      uint32_t hi, lo;
+      split_tf32(rawB[e], hi, lo);
+      sBh[e] = hi;
+      sBl[e] = lo;
     }
     __syncthreads();  // the planes are whole, the raw buffers free
     if (stage + 1 < n_stages) issue_next();  // in flight under the products
@@ -501,7 +460,7 @@ __device__ __forceinline__ void mma_unit(
 }
 
 // The unit table's row u, as conv2d_unit.cuh::run_unit reads it.
-template <Order ORDER, int PASSES>
+template <Order ORDER>
 __device__ __forceinline__ void run_mma_unit(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ c, float* __restrict__ work,
@@ -511,8 +470,8 @@ __device__ __forceinline__ void run_mma_unit(
   const int4 q = units[2 * u + 1];
   const bool to_slot = q.z >= 0;
   float* out = to_slot ? work + static_cast<size_t>(q.z) * TILE_WORDS : c;
-  mma_unit<ORDER, PASSES>(a, b, out, to_slot, a0, a1, b1, c0, c1, p.x, p.y,
-                          p.z, p.w, q.x, q.y, smem);
+  mma_unit<ORDER>(a, b, out, to_slot, a0, a1, b1, c0, c1, p.x, p.y, p.z,
+                  p.w, q.x, q.y, smem);
 }
 
 }  // namespace

@@ -53,7 +53,8 @@ conv2d_trunc_f32_batched_1pass_kernel(const float* __restrict__ a,
   float* cg = c + g * c0 * c1;
   float* wg = work + g * slots * TILE_WORDS;
   if constexpr (CJ == 0)
-    run_wgmma_unit(ag, bg, cg, wg, units, u, a0, a1, b1, c0, c1, smem);
+    run_wgmma_unit<ASCENDING>(ag, bg, cg, wg, units, u, a0, a1, b1, c0, c1,
+                              smem);
   else
     run_unit<CJ, VEC, true>(ag, bg, cg, wg, units, u, a0, a1, b1, c0, c1,
                             reinterpret_cast<float*>(smem));

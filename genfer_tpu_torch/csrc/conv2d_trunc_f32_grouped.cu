@@ -29,18 +29,23 @@
 // has no fragment to carry.
 //
 // conv2d_trunc_f32_grouped_1pass is the same kernel at one pass:
-// _build2d_grouped at highest=False, one TF32 mma.sync pass (PASSES = 1 in
-// conv2d_mma.cuh), the FFMA body on TF32-rounded operands.
+// _build2d_grouped at highest=False.  For b of at least 8 columns the entry
+// rounds both operands once into scratch, as the one-pass tile entry does,
+// and runs conv2d_wgmma.cuh's body on them in residue-major order (RESIDUE:
+// a chain per class over both its j0 of a stage, dj = r then r + 8; the
+// descriptor's start steps with dj, so the order needs no copy); for a
+// thinner b, the FFMA body on operands it rounds itself (conv2d_unit.cuh,
+// TF32).  It equals the one-pass tile kernel to f32 rounding.
 
 #include "conv2d_mma.cuh"
+#include "conv2d_wgmma.cuh"
 
 namespace {
 
-// CJ = 0: the tensor-core body; CJ = 1 or 8: conv2d_unit.cuh's FFMA body
-// with chunks of CJ columns of b.  PASSES: 3 (the split product), or 1
-// (the one-pass mode: hi*hi alone, and the FFMA body on TF32-rounded
-// operands)
-template <int CJ, bool VEC, int PASSES>
+// CJ = 0: the split-TF32 body (three passes); CJ = 1 or 8: conv2d_unit.cuh's
+// FFMA body with chunks of CJ columns of b, on TF32-rounded operands where
+// TF32 (the one-pass mode)
+template <int CJ, bool VEC, bool TF32>
 __global__ void __launch_bounds__(NT, CJ == 0 ? 2 : 3)
 conv2d_trunc_f32_grouped_kernel(const float* __restrict__ a,
                                 const float* __restrict__ b,
@@ -49,20 +54,20 @@ conv2d_trunc_f32_grouped_kernel(const float* __restrict__ a,
                                 int b1, int c0, int c1) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (CJ == 0)
-    run_mma_unit<RESIDUE, PASSES>(a, b, c, work, units, blockIdx.x, a0,
-                                  a1, b1, c0, c1, smem);
+    run_mma_unit<RESIDUE>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0,
+                          c1, smem);
   else
-    run_unit<CJ, VEC, PASSES == 1>(a, b, c, work, units, blockIdx.x, a0, a1,
-                                   b1, c0, c1, smem);
+    run_unit<CJ, VEC, TF32>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0,
+                            c1, smem);
 }
 
-template <int CJ, bool VEC, int PASSES>
+template <int CJ, bool VEC, bool TF32>
 cudaError_t launch(const float* a, const float* b, float* c, float* work,
                    const int4* units, int n_units, int a0, int a1, int b1,
                    int c0, int c1, cudaStream_t st) {
   static bool allowed[64] = {};
   constexpr size_t smem = CJ == 0 ? MmaGeo::SMEM : Geo<CJ ? CJ : 1>::SMEM;
-  auto kernel = conv2d_trunc_f32_grouped_kernel<CJ, VEC, PASSES>;
+  auto kernel = conv2d_trunc_f32_grouped_kernel<CJ, VEC, TF32>;
   const cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   kernel<<<n_units, NT, smem, st>>>(a, b, c, work, units, a0, a1, b1, c0, c1);
@@ -70,28 +75,35 @@ cudaError_t launch(const float* a, const float* b, float* c, float* work,
 }
 
 // The launches of one call at PASSES passes: the body the shapes take,
-// then the slot sum
+// then the slot sum.  At one pass with b1 >= 8, first the rounding of both
+// operands into ``scratch`` (b0 rows of b), which the wgmma body reads.
 template <int PASSES>
 int entry(const float* a, const float* b, float* c, float* work,
           const void* units, int n_units, const void* sums, int n_sums,
-          int a0, int a1, int b1, int c0, int c1, void* stream) {
+          int a0, int a1, int b1, int c0, int c1, void* stream, int b0 = 0,
+          float* scratch = nullptr) {
+  constexpr bool TF32 = PASSES == 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int4* u = static_cast<const int4*>(units);
   const bool vec = aligned16(a) && a1 % 4 == 0;
   cudaError_t err;
-  if (b1 >= MMA_MIN_COLS)
-    err = launch<0, false, PASSES>(a, b, c, work, u, n_units, a0, a1, b1,
-                                   c0, c1, st);
-  else if (b1 == 1)
-    err = vec ? launch<1, true, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                        b1, c0, c1, st)
-              : launch<1, false, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                         b1, c0, c1, st);
+  if (b1 >= MMA_MIN_COLS) {
+    if constexpr (TF32)
+      err = round_and_run_wgmma<RESIDUE>(a, b, c, work, u, n_units, a0, a1,
+                                         b0, b1, c0, c1, scratch, st);
+    else
+      err = launch<0, false, false>(a, b, c, work, u, n_units, a0, a1, b1,
+                                    c0, c1, st);
+  } else if (b1 == 1)
+    err = vec ? launch<1, true, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                      c0, c1, st)
+              : launch<1, false, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                       c0, c1, st);
   else
-    err = vec ? launch<8, true, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                        b1, c0, c1, st)
-              : launch<8, false, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                         b1, c0, c1, st);
+    err = vec ? launch<8, true, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                      c0, c1, st)
+              : launch<8, false, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                       c0, c1, st);
   if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
   return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
                                     n_sums, 0, 1, c0, c1, st));
@@ -111,11 +123,13 @@ extern "C" int conv2d_trunc_f32_grouped(
                   c0, c1, stream);
 }
 
-// The one-pass mode (highest=False): the same arguments and table.
+// The one-pass mode (highest=False): the same arguments and table, then
+// b's row count ``b0`` and ``scratch``, as conv2d_trunc_f32_tile_1pass
+// takes them (scratch unused, and may be null, for b1 < 8).
 extern "C" int conv2d_trunc_f32_grouped_1pass(
     const float* a, const float* b, float* c, float* work, const void* units,
     int n_units, const void* sums, int n_sums, int a0, int a1, int b1, int c0,
-    int c1, void* stream) {
+    int c1, void* stream, int b0, float* scratch) {
   return entry<1>(a, b, c, work, units, n_units, sums, n_sums, a0, a1, b1,
-                  c0, c1, stream);
+                  c0, c1, stream, b0, scratch);
 }

@@ -43,9 +43,9 @@
 namespace {
 
 // CJ = 0: the split-TF32 body (three passes); CJ = 1 or 8: conv2d_unit.cuh's
-// FFMA body with chunks of CJ columns of b.  PASSES: 3 (the split
-// product), or 1 (the one-pass mode's FFMA body, on TF32-rounded operands)
-template <int CJ, bool VEC, int PASSES>
+// FFMA body with chunks of CJ columns of b, on TF32-rounded operands where
+// TF32 (the one-pass mode)
+template <int CJ, bool VEC, bool TF32>
 __global__ void __launch_bounds__(NT, CJ == 0 ? 2 : 3)
 conv2d_trunc_f32_tile_kernel(const float* __restrict__ a,
                              const float* __restrict__ b,
@@ -54,45 +54,20 @@ conv2d_trunc_f32_tile_kernel(const float* __restrict__ a,
                              int b1, int c0, int c1) {
   extern __shared__ __align__(16) float smem[];
   if constexpr (CJ == 0)
-    run_mma_unit<ASCENDING, PASSES>(a, b, c, work, units, blockIdx.x, a0,
-                                    a1, b1, c0, c1, smem);
+    run_mma_unit<ASCENDING>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0,
+                            c1, smem);
   else
-    run_unit<CJ, VEC, PASSES == 1>(a, b, c, work, units, blockIdx.x, a0, a1,
-                                   b1, c0, c1, smem);
+    run_unit<CJ, VEC, TF32>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0,
+                            c1, smem);
 }
 
-// the one-pass body for b of at least 8 columns, on rounded operands
-__global__ void __launch_bounds__(NT, 2)
-conv2d_trunc_f32_tile_wgmma_kernel(const float* __restrict__ a,
-                                   const float* __restrict__ b,
-                                   float* __restrict__ c,
-                                   float* __restrict__ work,
-                                   const int4* __restrict__ units, int a0,
-                                   int a1, int b1, int c0, int c1) {
-  extern __shared__ __align__(16) unsigned char wg_smem[];
-  run_wgmma_unit(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0, c1,
-                 wg_smem);
-}
-
-cudaError_t launch_wgmma(const float* a, const float* b, float* c,
-                         float* work, const int4* units, int n_units, int a0,
-                         int a1, int b1, int c0, int c1, cudaStream_t st) {
-  static bool allowed[64] = {};
-  const cudaError_t err = allow_smem(conv2d_trunc_f32_tile_wgmma_kernel,
-                                     WgGeo::SMEM, allowed);
-  if (err != cudaSuccess) return err;
-  conv2d_trunc_f32_tile_wgmma_kernel<<<n_units, NT, WgGeo::SMEM, st>>>(
-      a, b, c, work, units, a0, a1, b1, c0, c1);
-  return cudaGetLastError();
-}
-
-template <int CJ, bool VEC, int PASSES>
+template <int CJ, bool VEC, bool TF32>
 cudaError_t launch(const float* a, const float* b, float* c, float* work,
                    const int4* units, int n_units, int a0, int a1, int b1,
                    int c0, int c1, cudaStream_t st) {
   static bool allowed[64] = {};
   constexpr size_t smem = CJ == 0 ? MmaGeo::SMEM : Geo<CJ ? CJ : 1>::SMEM;
-  auto kernel = conv2d_trunc_f32_tile_kernel<CJ, VEC, PASSES>;
+  auto kernel = conv2d_trunc_f32_tile_kernel<CJ, VEC, TF32>;
   const cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   kernel<<<n_units, NT, smem, st>>>(a, b, c, work, units, a0, a1, b1, c0, c1);
@@ -107,31 +82,28 @@ int entry(const float* a, const float* b, float* c, float* work,
           const void* units, int n_units, const void* sums, int n_sums,
           int a0, int a1, int b1, int c0, int c1, void* stream, int b0 = 0,
           float* scratch = nullptr) {
+  constexpr bool TF32 = PASSES == 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int4* u = static_cast<const int4*>(units);
   const bool vec = aligned16(a) && a1 % 4 == 0;
   cudaError_t err;
   if (b1 >= MMA_MIN_COLS) {
-    if constexpr (PASSES == 1) {
-      const Rounded r = round_into(a, a0, a1, b, b0, b1, scratch, st);
-      err = r.err != cudaSuccess
-                ? r.err
-                : launch_wgmma(r.a, r.b, c, work, u, n_units, a0, a1, b1, c0,
-                               c1, st);
-    } else {
-      err = launch<0, false, PASSES>(a, b, c, work, u, n_units, a0, a1, b1,
-                                     c0, c1, st);
-    }
+    if constexpr (TF32)
+      err = round_and_run_wgmma<ASCENDING>(a, b, c, work, u, n_units, a0, a1,
+                                           b0, b1, c0, c1, scratch, st);
+    else
+      err = launch<0, false, false>(a, b, c, work, u, n_units, a0, a1, b1,
+                                    c0, c1, st);
   } else if (b1 == 1)
-    err = vec ? launch<1, true, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                        b1, c0, c1, st)
-              : launch<1, false, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                         b1, c0, c1, st);
+    err = vec ? launch<1, true, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                      c0, c1, st)
+              : launch<1, false, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                       c0, c1, st);
   else
-    err = vec ? launch<8, true, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                        b1, c0, c1, st)
-              : launch<8, false, PASSES>(a, b, c, work, u, n_units, a0, a1,
-                                         b1, c0, c1, st);
+    err = vec ? launch<8, true, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                      c0, c1, st)
+              : launch<8, false, TF32>(a, b, c, work, u, n_units, a0, a1, b1,
+                                       c0, c1, st);
   if (err != cudaSuccess || n_sums == 0) return static_cast<int>(err);
   return static_cast<int>(sum_units(work, c, static_cast<const int4*>(sums),
                                     n_sums, 0, 1, c0, c1, st));

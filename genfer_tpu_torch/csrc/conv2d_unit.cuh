@@ -97,6 +97,11 @@ constexpr int FL = 8;         // stream steps between flushes of grp
 constexpr int STAGES = 2;
 constexpr int TILE_WORDS = BM * BN;
 
+// the j0 order inside a stage of the tensor-core bodies (conv2d_mma.cuh,
+// conv2d_wgmma.cuh): ascending (K4a, the tile kernel), or residue-major,
+// dj mod 8 outer (K4b, the grouped kernel)
+enum Order { ASCENDING, RESIDUE };
+
 template <int CJ>
 struct Geo {
   // stream steps per stage: 24 keeps two CJ = 32 stages at 71 KB, so

@@ -1,6 +1,7 @@
 // Device code of the one-pass mode (highest=False) of the tensor-core
 // truncated 2-D product on Hopper (sm_90a), as the one-pass tile kernel
-// (conv2d_trunc_f32_tile.cu: K4a and K2 at one pass) and K3's one pass
+// (conv2d_trunc_f32_tile.cu: K4a and K2 at one pass), K4b's one pass
+// (conv2d_trunc_f32_grouped.cu) and K3's one pass
 // (conv2d_trunc_f32_batched_1pass.cu) run it: one *work unit* of
 //
 //     c[k0, k1] = sum_{j0, j1} A[k0 - j0, k1 - j1] * B[j0, j1]
@@ -13,8 +14,9 @@
 // ``b_pitch``).  A unit
 // is a row of ops/conv2d.py::unit_plan(cut_j1=False), the table the
 // three-pass kernels run (conv2d_mma.cuh); it replaces, with those files,
-// genfer_tpu/ops/pallas_conv2d.py::_build2d and ::_build2d_batched at
-// highest=False (one DEFAULT-precision matrix-unit pass there).
+// genfer_tpu/ops/pallas_conv2d.py::_build2d, ::_build2d_grouped and
+// ::_build2d_batched at highest=False (one DEFAULT-precision matrix-unit
+// pass there).
 //
 // The product, transposed onto wgmma.  For each j0 of the unit and each
 // 8-column slice of a's columns from i1,
@@ -73,6 +75,15 @@
 // the result is the f32 sums of the exact products of the rounded
 // operands, as the plain version's.
 //
+// The j0 order of a stage (ORDER, stage_chains): ASCENDING for the tile
+// kernel and K3, a chain per j0 (16 waits a full stage); RESIDUE for K4b,
+// the TPU kernel's residue-major order, dj mod 8 outer and dj = r + 8 q
+// inner, a chain per class over both its j0 (2 x 8 k-steps, 128 terms in
+// the tensor core's accumulator; 8 waits a full stage).  Stepping dj only
+// moves the descriptor's start, so the order costs no copy.  The two
+// orders sum the same products in other groupings: equal to f32 rounding,
+// not bit for bit.
+//
 // Skipping: a j0 at which all 64 window rows lie outside A, and the
 // k-steps of a stage's last column block that lie wholly past A's columns
 // (ops/conv2d.py::rowstrip_issued_flops counts what is issued).
@@ -128,42 +139,92 @@ __device__ __forceinline__ float tf32_word(float x) {
   return __uint_as_float(r & 0xffffe000u);
 }
 
+// the rounding kernel's geometry: threads a block, the most blocks (8 such
+// blocks fill each of an H100's 132 SMs), and the 16-byte words a thread
+// has in flight once the grid is at its most
+constexpr int ROUND_NT = 256;
+constexpr int ROUND_MAX_BLOCKS = 8 * 132;
+constexpr int ROUND_INFLIGHT = 4;
+
+// One 16-byte word (``quad``) of a rounded operand: padded word 4 p .. 4 p
+// + 3 of y (rows of ``pitch`` words, a multiple of 4) from x (rows of
+// ``cols``), zero past cols; one 16-byte load where ``vec`` (x 16-byte
+// aligned, cols % 4 == 0: every row starts aligned and has no pad), else
+// four 4-byte ones
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ x,
+                                            long long p, int cols, int pitch,
+                                            bool vec) {
+  const int qpr = pitch / 4;
+  const long long row = p / qpr;
+  const int col = 4 * static_cast<int>(p - row * qpr);
+  const float* src = x + row * cols + col;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(src));
+  return make_float4(col < cols ? src[0] : 0.f, col + 1 < cols ? src[1] : 0.f,
+                     col + 2 < cols ? src[2] : 0.f,
+                     col + 3 < cols ? src[3] : 0.f);
+}
+
 // Both operands of a one-pass product rounded to TF32 in one launch: x
 // (rows x cols, row-major) into y (rows x pitch, zero in the pad columns
-// cols .. pitch - 1), a's rows first, then b's.  One warp a row, its lanes
-// 32 columns apart.  Bound by bytes: each word read once, written once.
-__global__ void __launch_bounds__(256)
+// cols .. pitch - 1), a's words first, then b's.  The padded words of both
+// are indexed flat in 16-byte words, ROUND_INFLIGHT of them a thread a grid
+// stride apart, all loaded before any is stored; every store is 16 bytes
+// (y is 16-byte aligned and its pitch a multiple of 4).  Bound by bytes:
+// each word read once, written once.
+__global__ void __launch_bounds__(ROUND_NT)
 tf32_round_operands_kernel(const float* __restrict__ a, float* __restrict__ ra,
                            long long a_rows, int a_cols, int a_pitch,
                            const float* __restrict__ b, float* __restrict__ rb,
                            long long b_rows, int b_cols, int b_pitch) {
-  const long long warps = static_cast<long long>(gridDim.x) * 8;
-  const int lane = threadIdx.x % 32;
-  for (long long r = blockIdx.x * 8LL + threadIdx.x / 32; r < a_rows + b_rows;
-       r += warps) {
-    const bool in_a = r < a_rows;
-    const long long row = in_a ? r : r - a_rows;
-    const int cols = in_a ? a_cols : b_cols;
-    const int pitch = in_a ? a_pitch : b_pitch;
-    const float* x = (in_a ? a : b) + row * cols;
-    float* y = (in_a ? ra : rb) + row * pitch;
-    for (int k = lane; k < pitch; k += 32)
-      y[k] = k < cols ? tf32_word(x[k]) : 0.f;
+  const long long a_quads = a_rows * (a_pitch / 4);
+  const long long quads = a_quads + b_rows * (b_pitch / 4);
+  const bool a_vec =
+      a_cols % 4 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  const bool b_vec =
+      b_cols % 4 == 0 && (reinterpret_cast<uintptr_t>(b) & 15) == 0;
+  const long long stride = static_cast<long long>(gridDim.x) * ROUND_NT;
+  for (long long q0 = blockIdx.x * static_cast<long long>(ROUND_NT) +
+                      threadIdx.x;
+       q0 < quads; q0 += ROUND_INFLIGHT * stride) {
+    float4 v[ROUND_INFLIGHT];
+#pragma unroll
+    for (int i = 0; i < ROUND_INFLIGHT; ++i) {
+      const long long q = q0 + i * stride;
+      if (q < a_quads)
+        v[i] = load_quad(a, q, a_cols, a_pitch, a_vec);
+      else if (q < quads)
+        v[i] = load_quad(b, q - a_quads, b_cols, b_pitch, b_vec);
+    }
+#pragma unroll
+    for (int i = 0; i < ROUND_INFLIGHT; ++i) {
+      const long long q = q0 + i * stride;
+      if (q >= quads) break;
+      float* y = q < a_quads ? ra + 4 * q : rb + 4 * (q - a_quads);
+      *reinterpret_cast<float4*>(y) =
+          make_float4(tf32_word(v[i].x), tf32_word(v[i].y),
+                      tf32_word(v[i].z), tf32_word(v[i].w));
+    }
   }
 }
 
 // Launches tf32_round_operands_kernel on ``st``: a (a_rows x a_cols) into
-// ra (a_rows x a_pitch), b (b_rows x b_cols) into rb (b_rows x b_pitch).
-// A warp a row, up to 16 blocks of 8 warps for each of an H100's 132 SMs;
-// more rows loop.
+// ra (a_rows x a_pitch), b (b_rows x b_cols) into rb (b_rows x b_pitch),
+// both pitches multiples of 4, ra and rb 16-byte aligned.  A thread a
+// 16-byte word up to ROUND_MAX_BLOCKS blocks; past that, up to
+// ROUND_INFLIGHT words a thread at once, and more loop.  (Four words a
+// thread on a quarter of the blocks was slower up to the (768, 768) pair:
+// tune_port.py probe 20, PERF.md.)
 inline cudaError_t round_operands(const float* a, float* ra, long long a_rows,
                                   int a_cols, int a_pitch, const float* b,
                                   float* rb, long long b_rows, int b_cols,
                                   int b_pitch, cudaStream_t st) {
-  const long long rows = a_rows + b_rows;
-  const long long blocks = rows < 8LL * 132 * 16 ? (rows + 7) / 8 : 132 * 16;
-  tf32_round_operands_kernel<<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-      a, ra, a_rows, a_cols, a_pitch, b, rb, b_rows, b_cols, b_pitch);
+  const long long quads = a_rows * (a_pitch / 4) + b_rows * (b_pitch / 4);
+  long long blocks = (quads + ROUND_NT - 1) / ROUND_NT;
+  if (blocks > ROUND_MAX_BLOCKS) blocks = ROUND_MAX_BLOCKS;
+  if (blocks < 1) blocks = 1;
+  tf32_round_operands_kernel<<<static_cast<unsigned>(blocks), ROUND_NT, 0,
+                               st>>>(a, ra, a_rows, a_cols, a_pitch, b, rb,
+                                     b_rows, b_cols, b_pitch);
   return cudaGetLastError();
 }
 
@@ -208,9 +269,10 @@ __device__ __forceinline__ void wg_pin(float (&d)[32]) {
   for (int k = 0; k < 32; ++k) asm volatile("" : "+f"(d[k])::"memory");
 }
 
-__device__ __forceinline__ void wg_pin(uint32_t (&u)[WgGeo::U]) {
+template <int N>
+__device__ __forceinline__ void wg_pin(uint32_t (&u)[N]) {
 #pragma unroll
-  for (int k = 0; k < WgGeo::U; ++k) asm volatile("" : "+r"(u[k])::"memory");
+  for (int k = 0; k < N; ++k) asm volatile("" : "+r"(u[k])::"memory");
 }
 
 // the descriptor of the K-major, unswizzled window at shared address
@@ -248,40 +310,103 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
       : "memory");
 }
 
-// The chains of one stage: j0 = g0 + dj for dj in [dj_lo, dj_hi), in j0
-// order, each over the stage's first KS k-steps into d from zero, then
-// grp += d.  For the j0 whose b row starts at ``sB + dj B_PITCH``: u[i] is
-// word x0 + 8 - 4 i of the row (x0 = 16 w + g - t + KB), and k-step ks
-// takes a0 = u[2 ks + 2], a1 = u[2 ks], a2 = u[2 ks + 3], a3 = u[2 ks + 1]
-// (T^T[n][k] is word n - k - 8 ks + KB) and the descriptor of k-step 0 at
-// dj = 0 (``desc0``) less dj, two chunks on a k-step.  Every operand is in
-// registers before the fence.
+// A chain of the stage's first KS k-steps of j0 = g0 + dj into d from
+// zero, then grp += d.  For the j0 whose b row starts at ``sB + dj
+// B_PITCH``: u[i] is word x0 + 8 - 4 i of the row (x0 = 16 w + g - t +
+// KB), and k-step ks takes a0 = u[2 ks + 2], a1 = u[2 ks], a2 = u[2 ks +
+// 3], a3 = u[2 ks + 1] (T^T[n][k] is word n - k - 8 ks + KB) and the
+// descriptor of k-step 0 at dj = 0 (``desc0``) less dj, two chunks on a
+// k-step.  Every operand is in registers before the fence.
 template <int KS>
+__device__ __forceinline__ void j0_chain(float (&grp)[32], float (&d)[32],
+                                         uint32_t (&u)[WgGeo::U],
+                                         const uint32_t* sB, int x0,
+                                         uint64_t desc0, int dj) {
+  const uint32_t* brow = sB + dj * WgGeo::B_PITCH;
+#pragma unroll
+  for (int i = 0; i < 2 * KS + 2; ++i) u[i] = brow[x0 + 8 - 4 * i];
+  uint64_t dk[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    dk[ks] = desc0 - dj + 2 * ks * WgGeo::CHUNK_ROWS;
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_tf32(d, u[2 * ks + 2], u[2 * ks], u[2 * ks + 3], u[2 * ks + 1],
+               dk[ks], ks);
+  wg_commit();
+  wg_wait_all();
+  wg_pin(d);
+  wg_pin(u);
+#pragma unroll
+  for (int k = 0; k < 32; ++k) grp[k] += d[k];
+}
+
+// K4b's chain of residue class r: both j0 of the class in the stage, dj =
+// r then r + 8, each over the stage's first KS k-steps, in one chain into
+// d from zero (2 KS k-steps, one wait), then grp += d.  The words and
+// descriptors of j0_chain, for both rows.
+template <int KS>
+__device__ __forceinline__ void class_chain(float (&grp)[32], float (&d)[32],
+                                            const uint32_t* sB, int x0,
+                                            uint64_t desc0, int r) {
+  constexpr int W = 2 * KS + 2;
+  uint32_t u0[W];
+  uint32_t u1[W];
+  const uint32_t* brow = sB + r * WgGeo::B_PITCH;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    u0[i] = brow[x0 + 8 - 4 * i];
+    u1[i] = brow[8 * WgGeo::B_PITCH + x0 + 8 - 4 * i];
+  }
+  uint64_t dk[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    dk[ks] = desc0 - r + 2 * ks * WgGeo::CHUNK_ROWS;
+  uint64_t dk8[KS];  // eight window rows up: dj = r + 8
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) dk8[ks] = dk[ks] - 8;
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_tf32(d, u0[2 * ks + 2], u0[2 * ks], u0[2 * ks + 3], u0[2 * ks + 1],
+               dk[ks], ks);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    wgmma_tf32(d, u1[2 * ks + 2], u1[2 * ks], u1[2 * ks + 3], u1[2 * ks + 1],
+               dk8[ks], 1);
+  wg_commit();
+  wg_wait_all();
+  wg_pin(d);
+  wg_pin(u0);
+  wg_pin(u1);
+#pragma unroll
+  for (int k = 0; k < 32; ++k) grp[k] += d[k];
+}
+
+// The chains of one stage over its live j0, dj in [dj_lo, dj_hi):
+// ASCENDING, a chain per j0 in j0 order; RESIDUE, dj mod 8 outer, a chain
+// per class over its live j0 (both: class_chain; one: j0_chain).  A full
+// stage waits 16 times ascending, 8 times residue-major.
+template <Order ORDER, int KS>
 __device__ __forceinline__ void stage_chains(float (&grp)[32],
                                              float (&d)[32],
                                              const uint32_t* sB, int x0,
                                              uint64_t desc0, int dj_lo,
                                              int dj_hi) {
   uint32_t u[WgGeo::U] = {};
-  for (int dj = dj_lo; dj < dj_hi; ++dj) {
-    const uint32_t* brow = sB + dj * WgGeo::B_PITCH;
-#pragma unroll
-    for (int i = 0; i < 2 * KS + 2; ++i) u[i] = brow[x0 + 8 - 4 * i];
-    uint64_t dk[KS];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      dk[ks] = desc0 - dj + 2 * ks * WgGeo::CHUNK_ROWS;
-    wg_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      wgmma_tf32(d, u[2 * ks + 2], u[2 * ks], u[2 * ks + 3], u[2 * ks + 1],
-                 dk[ks], ks);
-    wg_commit();
-    wg_wait_all();
-    wg_pin(d);
-    wg_pin(u);
-#pragma unroll
-    for (int k = 0; k < 32; ++k) grp[k] += d[k];
+  if constexpr (ORDER == ASCENDING) {
+    for (int dj = dj_lo; dj < dj_hi; ++dj)
+      j0_chain<KS>(grp, d, u, sB, x0, desc0, dj);
+  } else {
+    for (int r = 0; r < 8; ++r) {
+      const bool first = r >= dj_lo && r < dj_hi;
+      const bool second = r + 8 >= dj_lo && r + 8 < dj_hi;
+      if (first && second)
+        class_chain<KS>(grp, d, sB, x0, desc0, r);
+      else if (first || second)
+        j0_chain<KS>(grp, d, u, sB, x0, desc0, first ? r : r + 8);
+    }
   }
 }
 
@@ -291,7 +416,9 @@ __device__ __forceinline__ void stage_chains(float (&grp)[32],
 // = a1 / b1 rounded up to 4 words, 16-byte aligned, zero in the pad.
 // ``to_slot``: ``out`` is a dense BM x BN workspace tile, written whole;
 // otherwise it is c (row-major c0 x c1), written where k < (c0, c1).
-// ``smem`` holds WgGeo::SMEM bytes, 16-byte aligned.
+// ``smem`` holds WgGeo::SMEM bytes, 16-byte aligned.  ORDER: the j0 order
+// of a stage's chains (stage_chains).
+template <Order ORDER>
 __device__ __forceinline__ void wgmma_unit(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ out, bool to_slot, int a0, int a1, int b1, int c0,
@@ -402,9 +529,9 @@ __device__ __forceinline__ void wgmma_unit(
         window_desc(smem_addr + slot * L::STAGE_BYTES) + (G - 1);
     const int x0 = 16 * warp + g - t + KB;
     switch (ks_hi) {  // the chains' k-step count as a compile-time one
-#define WG_STAGE(KS)                                        \
-  case KS:                                                  \
-    stage_chains<KS>(grp, d, sB, x0, desc0, dj_lo, dj_hi);  \
+#define WG_STAGE(KS)                                               \
+  case KS:                                                         \
+    stage_chains<ORDER, KS>(grp, d, sB, x0, desc0, dj_lo, dj_hi);  \
     break;
       WG_STAGE(1)
       WG_STAGE(2)
@@ -441,6 +568,7 @@ __device__ __forceinline__ void wgmma_unit(
 }
 
 // The unit table's row u, as conv2d_unit.cuh::run_unit reads it.
+template <Order ORDER>
 __device__ __forceinline__ void run_wgmma_unit(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ c, float* __restrict__ work,
@@ -450,8 +578,44 @@ __device__ __forceinline__ void run_wgmma_unit(
   const int4 q = units[2 * u + 1];
   const bool to_slot = q.z >= 0;
   float* out = to_slot ? work + static_cast<size_t>(q.z) * TILE_WORDS : c;
-  wgmma_unit(a, b, out, to_slot, a0, a1, b1, c0, c1, p.x, p.y, p.z, p.w,
-             q.x, q.y, smem);
+  wgmma_unit<ORDER>(a, b, out, to_slot, a0, a1, b1, c0, c1, p.x, p.y, p.z,
+                    p.w, q.x, q.y, smem);
+}
+
+// the one-pass body over a single pair's unit table, on rounded operands.
+// Three blocks an SM for RESIDUE: its class chain holds 36 b words and 16
+// descriptors, ~176 registers unbounded (two blocks an SM); held to 168
+// (a few spilled words, no serialized wgmma) it was faster at 512 and 768
+// (tune_port.py probe 20, PERF.md)
+template <Order ORDER>
+__global__ void __launch_bounds__(NT, ORDER == RESIDUE ? 3 : 2)
+conv2d_trunc_f32_wgmma_kernel(const float* __restrict__ a,
+                              const float* __restrict__ b,
+                              float* __restrict__ c, float* __restrict__ work,
+                              const int4* __restrict__ units, int a0, int a1,
+                              int b1, int c0, int c1) {
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  run_wgmma_unit<ORDER>(a, b, c, work, units, blockIdx.x, a0, a1, b1, c0, c1,
+                        wg_smem);
+}
+
+// The one-pass launches of a single pair with b of at least 8 columns (the
+// tile and grouped entries): a (a0 x a1) and b (b0 x b1) rounded into
+// ``scratch`` (round_into), then the body over the ``n_units`` units.
+template <Order ORDER>
+cudaError_t round_and_run_wgmma(const float* a, const float* b, float* c,
+                                float* work, const int4* units, int n_units,
+                                int a0, int a1, int b0, int b1, int c0,
+                                int c1, float* scratch, cudaStream_t st) {
+  static bool allowed[64] = {};
+  const Rounded r = round_into(a, a0, a1, b, b0, b1, scratch, st);
+  if (r.err != cudaSuccess) return r.err;
+  auto kernel = conv2d_trunc_f32_wgmma_kernel<ORDER>;
+  const cudaError_t err = allow_smem(kernel, WgGeo::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_units, NT, WgGeo::SMEM, st>>>(r.a, r.b, c, work, units, a0, a1,
+                                            b1, c0, c1);
+  return cudaGetLastError();
 }
 
 }  // namespace

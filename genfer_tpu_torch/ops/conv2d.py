@@ -24,13 +24,13 @@ mode in ``launches_1pass`` (CPU calls add nothing).
 ``highest`` has genfer_tpu's meaning.  True (the default) is the f32
 product above.  False is the one-pass mode: on the TPU one DEFAULT-
 precision matrix-unit pass (bf16 operands), here one TF32 pass.  The tile
-kernel's (K4a's and K2's) and K3's run ``wgmma`` on operands that their
-C entry rounds once a call into scratch that comes with the workspace
-(``csrc/conv2d_wgmma.cuh``; K3's in
-``csrc/conv2d_trunc_f32_batched_1pass.cu``), counted in
-``tf32_round_operands.launches``; the grouped kernel's
-(K4b's) is the hi*hi product of its split alone (``csrc/conv2d_mma.cuh``
-with one pass).  A TF32 x TF32 product is exact in f32, so that mode
+kernel's (K4a's and K2's), the grouped kernel's (K4b's) and K3's run
+``wgmma`` on operands that their C entry rounds once a call into scratch
+that comes with the workspace (``csrc/conv2d_wgmma.cuh``: K4b's in
+residue-major order; K3's in ``csrc/conv2d_trunc_f32_batched_1pass.cu``),
+counted in ``tf32_round_operands.launches``; on a b of fewer than
+``MMA_MIN_COLS`` columns their FFMA body on operands rounded in
+registers.  A TF32 x TF32 product is exact in f32, so that mode
 computes the f32 sums of the exact products of ``tf32_round(a)`` and
 ``tf32_round(b)``, and its plain version is the f32 one on rounded
 operands.  Its error against f64 is about 2^-10 of the
@@ -41,9 +41,10 @@ Every kernel runs the work units of ``unit_plan``, a table computed here
 from the shapes alone and read on the card.  ``conv2d_trunc_f32`` and
 ``conv2d_trunc_f32_batched`` run them in IEEE f32 FMAs
 (``csrc/conv2d_unit.cuh``), on a plan that cuts j0 and j1.  The tile and
-grouped kernels run them on the tensor cores, as split-TF32 ``mma.sync``
-products of an a window with a Toeplitz tile of one b row that is never
-built (``csrc/conv2d_mma.cuh``), on a plan that cuts j0 only: a j1 cut
+grouped kernels run them on the tensor cores, at three passes as
+split-TF32 ``mma.sync`` products of an a window with a Toeplitz tile of
+one b row that is never built (``csrc/conv2d_mma.cuh``), on a plan that
+cuts j0 only: a j1 cut
 would cost them 63 more contraction columns.  ``tile_body`` says which
 shapes take that body and which the FFMA one.
 """
@@ -411,8 +412,8 @@ def tf32_round(x):
 
 def tf32_round_operands(a, b):
     """``tf32_round`` of both operands of a one-pass ``wgmma`` product, in
-    one launch of the rounding kernel that the one-pass tile and batched
-    entries launch themselves (``csrc/conv2d_wgmma.cuh``): each (..., n)
+    one launch of the rounding kernel that the one-pass tile, grouped and
+    batched entries launch themselves (``csrc/conv2d_wgmma.cuh``): each (..., n)
     to (..., n rounded up to 4), its pad columns zero.  Both results are
     views of one scratch tensor.  On a CPU tensor the plain version
     (``tf32_round`` and a pad).  ``launches`` counts the kernel's launches,
@@ -442,8 +443,8 @@ tf32_round_operands.launches = 0
 
 
 def _rounding_words(a_rows: int, a1: int, b_rows: int, b1: int) -> int:
-    """Words of the scratch into which a one-pass tile or batched entry
-    rounds its operands (the kernel's: a of ``a_rows`` rows of ``a1``
+    """Words of the scratch into which a one-pass tile, grouped or batched
+    entry rounds its operands (the kernel's: a of ``a_rows`` rows of ``a1``
     words, b, the smaller, of ``b_rows`` x ``b1``): each operand's rows
     padded to a multiple of 4 words where b has ``MMA_MIN_COLS`` or more
     columns (the entries run their ``wgmma`` body then, on rounded
@@ -474,9 +475,9 @@ def _unit_kernel(wrapper, entry, cut_j1, a, b, out_shape, highest,
     """Launch the single-pair kernel ``entry`` for ``wrapper`` on its unit
     plan: the table, the workspace its slots need, the smaller operand as
     the kernel's b; count it in ``launches``, or in ``launches_1pass``
-    where not ``highest``.  ``rounds``: the one-pass tile entry, which
-    also takes b's row count and the scratch it rounds the operands into
-    (``_rounding_words``, allocated with the workspace)."""
+    where not ``highest``.  ``rounds``: a one-pass entry (tile or
+    grouped), which also takes b's row count and the scratch it rounds the
+    operands into (``_rounding_words``, allocated with the workspace)."""
     c0, c1 = _check(a, b, out_shape)
     if not _on_card(a):
         return conv2d_trunc_f32_reference(a, b, (c0, c1), highest)
@@ -544,12 +545,15 @@ def conv2d_trunc_f32_tile(a, b, out_shape, highest: bool = True):
 
 def conv2d_trunc_f32_grouped(a, b, out_shape, highest: bool = True):
     """``conv2d_trunc_f32_tile`` with j0 in residue-major order inside a
-    staged group (j0 mod 8 outer), which lets the kernel carry its a
-    operand in registers from one j0 of a class to the next: equal to it
-    to f32 rounding, in either mode."""
+    staged group (j0 mod 8 outer): equal to it to f32 rounding, in either
+    mode.  At three passes the order lets the kernel carry its a operand
+    in registers from one j0 of a class to the next; at one pass
+    (``highest=False``) it runs the one-pass tile kernel's ``wgmma`` body
+    with a chain per class (``csrc/conv2d_wgmma.cuh``), on operands its
+    entry rounds once a call."""
     entry = "conv2d_trunc_f32_grouped" + ("" if highest else "_1pass")
     return _unit_kernel(conv2d_trunc_f32_grouped, entry, False, a, b,
-                        out_shape, highest)
+                        out_shape, highest, rounds=not highest)
 
 
 def conv2d_trunc_f32_batched_reference(a_batch, b, out_shape,

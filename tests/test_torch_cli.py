@@ -334,6 +334,20 @@ def test_port_never_imports_jax(tmp_path):
     assert "Total measure" in proc.stdout
 
 
+def test_tune_port_tree_imports_that_trees_package(tmp_path):
+    """``tune_port.py --tree DIR`` times DIR's package: nothing imports
+    the checkout's ``genfer_tpu_torch`` before the option is read (a
+    stand-in package in DIR that exits on import shows whose runs)."""
+    pkg = tmp_path / "genfer_tpu_torch"
+    pkg.mkdir()
+    (pkg / "__init__.py").write_text("raise SystemExit('the tree package')\n")
+    proc = subprocess.run([sys.executable, "tune_port.py", "20", "--tree",
+                           str(tmp_path)], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "the tree package" in proc.stderr, proc.stderr
+
+
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_port.py",
                                     "tune_port.py",
                                     "examples/digit_serving_torch.py",

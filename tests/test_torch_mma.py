@@ -19,17 +19,18 @@ Pallas tests' bar (rtol 5e-5 / atol 1e-6):
   Toeplitz tile of one b row;
 * the residue carry of K4b: shifting the A halves down and loading the
   top one names the same window rows as loading all of them;
-* the one-pass mode (``highest=False``): K4b's hi*hi chains alone
-  (``emulate(..., passes=1)``), the ``wgmma`` body of the one-pass tile
-  kernel and K3 (``csrc/conv2d_wgmma.cuh``, ``emulate_wgmma``: the tile
-  product transposed, the Toeplitz from registers at the kernel's
-  addresses, the a window staged in 4-column chunks and read through the
-  kernel's descriptor, which steps 16 bytes a j0, chains of eight k-steps
-  from zero added to their group in j0 order), and on a b of fewer than 8
-  columns
-  the FFMA body on TF32-rounded operands (``emulate_ffma``), each within
-  the one-pass bound of f64: 2^-10 of the product of the absolute values
-  plus the three-pass bar.  The same ``wgmma`` emulation with the
+* the one-pass mode (``highest=False``): the ``wgmma`` body of the
+  one-pass tile kernel, K4b and K3 (``csrc/conv2d_wgmma.cuh``,
+  ``emulate_wgmma``: the tile product transposed, the Toeplitz from
+  registers at the kernel's addresses, the a window staged in 4-column
+  chunks and read through the kernel's descriptor, which steps 16 bytes a
+  j0, chains from zero added to their group in the order of
+  ``stage_schedule``: a chain of eight k-steps per j0 in j0 order, or
+  K4b's residue-major chain per class over both its j0), and on a b of
+  fewer than 8 columns the FFMA body on TF32-rounded operands
+  (``emulate_ffma``), each within the one-pass bound of f64: 2^-10 of the
+  product of the absolute values plus the three-pass bar.  The two
+  orders agree to f32 rounding.  The same ``wgmma`` emulation with the
   descriptor's two strides swapped fails the bar.
 """
 
@@ -65,13 +66,10 @@ def tf32_rn(x):
     return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def split(x, scale, passes=3):
-    """The two planes the kernel stages; one pass stages hi alone (lo
-    zero: its products add nothing)."""
+def split(x, scale):
+    """The two planes the kernel stages."""
     x = np.asarray(x, dtype=np.float32)
     hi = tf32_rn(x)
-    if passes == 1:
-        return hi, np.zeros_like(hi)
     return hi, tf32_rn((x - hi) * np.float32(scale))
 
 
@@ -87,12 +85,11 @@ def chain_step(acc, part):
 
 
 def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
-            plan=None, tiles=None, passes=3):
+            plan=None, tiles=None):
     """The f32 result of the kernel's arithmetic for f64 operands ``a``,
     ``b`` (cast to f32 first, as the wrapper's caller does).  ``tiles``
     restricts the work to those output tiles; the rest of the result is
-    NaN.  ``passes=1``: the one-pass mode, hi*hi alone (a chain's end adds
-    hh: 0 * 2^-11 + hh is hh)."""
+    NaN."""
     plan = plan or C.unit_plan(a.shape, b.shape, out, cut_j1=False)
     ka, kb = (b, a) if plan.swap else (a, b)
     ka = np.asarray(ka, dtype=np.float32)
@@ -102,7 +99,7 @@ def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
     # a and b with zeros around, so that every window is a plain slice
     pad0, pad1 = TILE + G, KB + TILE
     ah, al = split(np.pad(ka, ((pad0, pad0 + out[0]), (0, pad1 + out[1]))),
-                   scale, passes)
+                   scale)
     c = np.full(out, np.nan, dtype=np.float32)
     work = np.zeros((max(plan.slots, 1), TILE, TILE), dtype=np.float32)
     wanted = {}
@@ -123,7 +120,7 @@ def emulate(a, b, out, order="ascending", scale=2048.0, long_chain=False,
                 ok = (col0 + x >= lo1) & (col0 + x < hi1)
                 n = min(G, hi0 - g0)
                 rows[:n, ok] = kb[g0:g0 + n, (col0 + x)[ok]]
-                bh, bl = split(rows, scale, passes)
+                bh, bl = split(rows, scale)
                 # T[dj, k, n] = row[dj, n - k + KB - 1]
                 view = np.lib.stride_tricks.sliding_window_view
                 th, tl = (view(r, TILE, axis=1)[:, ::-1, :] for r in (bh, bl))
@@ -357,19 +354,45 @@ def wgmma_stage(kb, apad, a0, a1, K0, K1, g0, i1_0, j0_hi, j1_lo, j1_hi):
     return smem
 
 
-def emulate_wgmma(a, b, out, lbo=WG_CHUNK_BYTES, sbo=WG_SBO, plan=None):
+def stage_schedule(order, dj_lo, dj_hi, ks_hi, chain=SLICES):
+    """The chains of one stage of the ``wgmma`` body over its live j0, dj
+    in [dj_lo, dj_hi), each a list of (dj, k-step) in issue order
+    (``stage_chains``).  ``ascending``: a chain per j0 in j0 order over
+    the stage's ``ks_hi`` k-steps.  ``residue``: dj mod 8 outer; a class
+    with both its j0 live runs chains of ``chain`` k-steps of each, dj = r
+    then r + 8 (``chain`` = 8: one chain of 2 ``ks_hi`` k-steps,
+    ``class_chain``); a class with one live j0 runs that j0's chain."""
+    live = range(dj_lo, dj_hi)
+    if order == "ascending":
+        return [[(dj, ks) for ks in range(ks_hi)] for dj in live]
+    chains = []
+    for r in range(8):
+        djs = [dj for dj in (r, r + 8) if dj in live]
+        if len(djs) == 1:
+            chains.append([(djs[0], ks) for ks in range(ks_hi)])
+        elif djs:
+            for k0 in range(0, ks_hi, chain):
+                chains.append([(dj, ks) for dj in djs
+                               for ks in range(k0, min(ks_hi, k0 + chain))])
+    return chains
+
+
+def emulate_wgmma(a, b, out, lbo=WG_CHUNK_BYTES, sbo=WG_SBO, plan=None,
+                  order="ascending", chain=SLICES):
     """The f32 result of the one-pass ``wgmma`` body
     (``csrc/conv2d_wgmma.cuh``) for f64 operands ``a``, ``b`` (cast to f32
     first): both rounded to TF32 once (A's rows padded with zeros to 4
     words); per unit, per stage (16 rows of j0 x 64 of a's columns from
     the band's first column rounded down to 4), the slot as the kernel
-    stages it; per j0 (its window rows meeting A) a chain over the
-    stage's k-steps that meet A's columns: C^T += A_ks B_ks, A_ks from
-    the b row at the register words, B_ks at the descriptor's words (k-step
-    0's start row G - 1 - dj, each k-step two chunks on), one
-    ``chain_step`` each from zero; grp += chain in j0 order, acc += grp a
-    stage; accumulator registers to tile cells; units added in slot
-    order.  ``lbo`` / ``sbo``: the descriptor's strides."""
+    stages it; the live j0 (their window rows meeting A) and the stage's
+    k-steps that meet A's columns: C^T += A_ks B_ks, A_ks from the b row
+    at the register words, B_ks at the descriptor's words (k-step 0's
+    start row G - 1 - dj, each k-step two chunks on), in the chains of
+    ``stage_schedule(order, ..., chain)``, one ``chain_step`` a k-step
+    from zero, as ``emulate(..., long_chain=True)`` truncates; grp +=
+    chain in chain order, acc += grp a stage; accumulator registers to
+    tile cells; units added in slot order.  ``lbo`` / ``sbo``: the
+    descriptor's strides; ``order="residue"``: K4b's one pass."""
     plan = plan or C.unit_plan(a.shape, b.shape, out, cut_j1=False)
     ka, kb = (b, a) if plan.swap else (a, b)
     ka = tf32_rn(np.asarray(ka, dtype=np.float32))
@@ -395,21 +418,24 @@ def emulate_wgmma(a, b, out, lbo=WG_CHUNK_BYTES, sbo=WG_SBO, plan=None):
                 smem = wgmma_stage(kb, apad, a0, a1, K0, K1, g0, i1_0, hi0,
                                    lo1, hi1)
                 desc0 = window_desc(0, lbo, sbo) + (G - 1)
-                dj = np.arange(dj_lo, dj_hi)
+                dj = np.arange(G)
                 brow = WG_W_BYTES // 4 + dj * WG_B_PITCH
-                # [dj, ks, n, k] and [dj, ks, k, m]
+                # [dj, ks, n, k] and [dj, ks, k, m]; rows outside the
+                # stage's live j0 are never read
                 A = smem[brow[:, None, None, None]
                          + WG_A_WORDS[None, :ks_hi]].astype(np.float64)
                 B = smem[desc_words(desc0 - dj[:, None] + 2 * WG_CHUNK_ROWS
                                     * np.arange(ks_hi)[None, :])
                          ].astype(np.float64)
-                parts = np.matmul(A, B)
+                live = np.s_[dj_lo:dj_hi]
+                parts = np.full((G, ks_hi, TILE, TILE), np.nan)
+                parts[live] = np.matmul(A[live], B[live])
                 grp = np.zeros((TILE, TILE), dtype=np.float32)
-                for chain_parts in parts:  # j0 order
-                    d = chain_step(np.zeros((TILE, TILE), np.float32),
-                                   chain_parts[0])  # scale-d 0
-                    for part in chain_parts[1:]:
-                        d = chain_step(d, part)
+                for steps in stage_schedule(order, dj_lo, dj_hi, ks_hi,
+                                            chain):
+                    d = np.zeros((TILE, TILE), np.float32)  # scale-d 0
+                    for step in steps:
+                        d = chain_step(d, parts[step])
                     grp += d
                 # registers to cells: cell (m, n) holds D[n, m]
                 acc += grp[WG_D_INDEX[:, 0], WG_D_INDEX[:, 1]][
@@ -473,8 +499,8 @@ def test_split_arithmetic_holds_the_gate(order, i):
 def test_one_pass_arithmetic_holds_its_bound(order, i):
     """The one-pass mode's design at the one-pass bound: shape 0 has a b
     of 6 columns (the FFMA body on rounded operands), shape 1 runs the
-    wgmma body (ascending: the tile kernel's) or the hi*hi chains
-    (residue: K4b's).  Each differs from the three-pass result somewhere, and
+    wgmma body in the tile kernel's order (ascending) or K4b's (residue).
+    Each differs from the three-pass result in its order somewhere, and
     the FFMA body without the rounding would be a three-pass-like f32
     product that differs from the rounded one by more than f32's sums
     can."""
@@ -488,10 +514,8 @@ def test_one_pass_arithmetic_holds_its_bound(order, i):
         # the rounding moves the result far beyond f32's sums
         assert (np.abs(got - unrounded) > 1e-4 * np.abs(want)).any()
     else:
-        # K4a's (and K2's) one pass is the wgmma body; K4b's the hi*hi
-        # chains of its split
-        got = (emulate_wgmma(a, b, out) if order == "ascending"
-               else emulate(a, b, out, order, passes=1))
+        # every one pass is the wgmma body, K4b's in residue-major order
+        got = emulate_wgmma(a, b, out, order=order)
         three = emulate(a, b, out, order)
         assert (np.abs(got - three) > 1e-5 * np.abs(three)).any()
     assert got.dtype == np.float32 and np.isfinite(got).all()
@@ -520,15 +544,11 @@ def _plain_one_pass(a, b, out):
         highest=False).numpy()
 
 
-@pytest.mark.parametrize("sa,sb,out", WGMMA_SHAPES)
-def test_wgmma_arithmetic_holds_the_one_pass_bound(sa, sb, out):
-    """The wgmma body against f64 at the one-pass bound, and against its
-    plain version (f32 sums of the rounded operands' exact products) at
-    phase 3's bar and well inside it: the two differ by f32 sums only."""
+def _holds_the_one_pass_bound(sa, sb, out, order):
     rng = np.random.default_rng(sum(sa) + sb[1])
     a, b = rng.random(sa), rng.random(sb)
     assert C.tile_body(sa, sb) == "mma"
-    got = emulate_wgmma(a, b, out)
+    got = emulate_wgmma(a, b, out, order=order)
     assert got.dtype == np.float32 and np.isfinite(got).all()
     want = NumpyF64Backend().conv_trunc(a, b, out)
     assert (np.abs(got - want) <= one_pass_bound(a, b, out)).all()
@@ -537,17 +557,96 @@ def test_wgmma_arithmetic_holds_the_one_pass_bound(sa, sb, out):
     assert (np.abs(got - plain) <= 2e-6 * np.abs(plain) + ATOL).all()
 
 
-def test_wgmma_arithmetic_holds_every_column_scale():
-    """Column scales from 1e-30 to 1e30 (a) and 1e-6 to 1e6 (b): every
-    output column holds the one-pass bound at its own scale."""
+@pytest.mark.parametrize("sa,sb,out", WGMMA_SHAPES)
+def test_wgmma_arithmetic_holds_the_one_pass_bound(sa, sb, out):
+    """The wgmma body against f64 at the one-pass bound, and against its
+    plain version (f32 sums of the rounded operands' exact products) at
+    phase 3's bar and well inside it: the two differ by f32 sums only."""
+    _holds_the_one_pass_bound(sa, sb, out, "ascending")
+
+
+@pytest.mark.parametrize("sa,sb,out", WGMMA_SHAPES)
+def test_residue_wgmma_arithmetic_holds_the_one_pass_bound(sa, sb, out):
+    """The same for K4b's one pass: residue order, a chain per class over
+    both its j0 of a stage, 128 terms in the tensor core's truncating
+    accumulator."""
+    _holds_the_one_pass_bound(sa, sb, out, "residue")
+
+
+def _holds_every_column_scale(order):
     a, b = _extreme_operands(13)
     out = (130, 140)
-    got = emulate_wgmma(a, b, out).astype(np.float64)
+    got = emulate_wgmma(a, b, out, order=order).astype(np.float64)
     want = NumpyF64Backend().conv_trunc(a, b, out)
     absprod = NumpyF64Backend().conv_trunc(np.abs(a), np.abs(b), out)
     assert np.isfinite(got).all()
     assert (np.abs(got - want)
             <= (2.0 ** -10 + RTOL) * absprod + ATOL_EXTREME).all()
+
+
+def test_wgmma_arithmetic_holds_every_column_scale():
+    """Column scales from 1e-30 to 1e30 (a) and 1e-6 to 1e6 (b): every
+    output column holds the one-pass bound at its own scale."""
+    _holds_every_column_scale("ascending")
+
+
+def test_residue_wgmma_arithmetic_holds_every_column_scale():
+    """The same for K4b's one pass (residue order)."""
+    _holds_every_column_scale("residue")
+
+
+@pytest.mark.parametrize("case", [*range(len(WGMMA_SHAPES)), "extreme"])
+def test_residue_chains_equal_the_ascending_ones_to_f32_rounding(case):
+    """K4b's one pass (residue order, one chain per class of a stage over
+    both its j0: 2 x 8 k-steps) against the tile kernel's (a chain per
+    j0): the same exact products summed in other groups, so equal to f32
+    rounding (2e-6 relative; at the extreme scales the atol covers the
+    partial sums the tensor core flushes below f32's normal range), not
+    bit for bit; both hold the one-pass bound of f64 with a margin of a
+    quarter."""
+    if case == "extreme":
+        (a, b), out, atol = _extreme_operands(13), (130, 140), ATOL_EXTREME
+    else:
+        sa, sb, out = WGMMA_SHAPES[case]
+        rng = np.random.default_rng(sum(sa) + sb[1])
+        a, b, atol = rng.random(sa), rng.random(sb), ATOL
+    res = emulate_wgmma(a, b, out, order="residue").astype(np.float64)
+    asc = emulate_wgmma(a, b, out).astype(np.float64)
+    assert (np.abs(res - asc) <= 2e-6 * np.abs(asc) + atol).all()
+    assert not np.array_equal(res, asc)
+    want = NumpyF64Backend().conv_trunc(a, b, out)
+    absprod = NumpyF64Backend().conv_trunc(np.abs(a), np.abs(b), out)
+    bar = (2.0 ** -10 + RTOL) * absprod + atol
+    for got in (res, asc):
+        assert (np.abs(got - want) <= 0.75 * bar).all()
+
+
+@pytest.mark.parametrize("dj_lo,dj_hi,ks_hi", [
+    (0, G, SLICES), (0, G, 3), (3, G, SLICES), (0, 11, 5), (5, 9, 1),
+])
+def test_stage_schedule_visits_each_live_j0_once(dj_lo, dj_hi, ks_hi):
+    """``stage_chains``' schedule: both orders issue every (live j0,
+    k-step) once; residue-major runs the classes in order, a class's j0
+    r before r + 8, one chain per class (8 waits a full stage against
+    ascending's 16), or with ``chain`` = 4 the fallback's two chains of
+    a class."""
+    wanted = sorted((dj, ks) for dj in range(dj_lo, dj_hi)
+                    for ks in range(ks_hi))
+    asc = stage_schedule("ascending", dj_lo, dj_hi, ks_hi)
+    for chain in (SLICES, SLICES // 2):
+        res = stage_schedule("residue", dj_lo, dj_hi, ks_hi, chain)
+        assert sorted(step for c in res for step in c) == wanted
+        classes = [c[0][0] % 8 for c in res]
+        assert classes == sorted(classes)
+        for c in res:
+            assert len({dj % 8 for dj, _ in c}) == 1
+            assert [dj for dj, _ in c] == sorted(dj for dj, _ in c)
+    assert sorted(step for c in asc for step in c) == wanted
+    assert [c[0][0] for c in asc] == list(range(dj_lo, dj_hi))
+    full = stage_schedule("residue", 0, G, SLICES)
+    assert len(full) == 8 and len(stage_schedule("ascending", 0, G,
+                                                 SLICES)) == 16
+    assert all(len(c) == 2 * SLICES for c in full)
 
 
 @pytest.mark.parametrize("sa,sb,out", WGMMA_SHAPES[1:3])

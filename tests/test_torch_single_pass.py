@@ -401,14 +401,19 @@ def _fake_card(monkeypatch):
     (ops.conv2d_trunc_f32, (60, 50), (70, 81), 60 * 52 + 70 * 84),
     (ops.conv2d_trunc_f32_tile, (95, 87), (95, 1), 0),
     (ops.conv2d_trunc_f32, (16, 5), (3, 40), 0),
+    (ops.conv2d_trunc_f32_grouped, (70, 67), (64, 9), 70 * 68 + 64 * 12),
+    (ops.conv2d_trunc_f32_grouped, (60, 50), (70, 81), 60 * 52 + 70 * 84),
+    (ops.conv2d_trunc_f32_grouped, (95, 87), (95, 1), 0),
+    (ops.conv2d_trunc_f32_grouped, (16, 5), (3, 40), 0),
 ])
 def test_one_pass_tile_entry_gets_its_scratch(monkeypatch, wrapper, sa, sb,
                                               scratch):
-    """The one-pass tile entry's arguments: b's row count and a pointer
-    into the call's one workspace allocation, past its slot tiles, with
-    room for both operands' rows padded to 4 words where the kernel's b
-    has 8 or more columns (the entry rounds them there: one rounding
-    launch counted); a null pointer for a thinner b, and no count."""
+    """The one-pass tile and grouped entries' arguments: b's row count
+    and a pointer into the call's one workspace allocation, past its slot
+    tiles, with room for both operands' rows padded to 4 words where the
+    kernel's b has 8 or more columns (the entry rounds them there: one
+    rounding launch counted); a null pointer for a thinner b, and no
+    count."""
     lib = _fake_card(monkeypatch)
     monkeypatch.setattr(C.tf32_round_operands, "launches", 0)
     sizes = []
@@ -418,7 +423,9 @@ def test_one_pass_tile_entry_gets_its_scratch(monkeypatch, wrapper, sa, sb,
     out = (max(sa[0], sb[0]), max(sa[1], sb[1]))
     wrapper(torch.rand(*sa), torch.rand(*sb), out, highest=False)
     (name, args), = lib.calls
-    assert name == "conv2d_trunc_f32_tile_1pass"
+    assert name == ("conv2d_trunc_f32_grouped_1pass"
+                    if wrapper is ops.conv2d_trunc_f32_grouped
+                    else "conv2d_trunc_f32_tile_1pass")
     plan = C.unit_plan(sa, sb, out, False)
     kb = sa if plan.swap else sb
     assert args[9:11] == ((sb if plan.swap else sa)[1], kb[1])
@@ -574,9 +581,9 @@ def test_round_kernel_is_tf32_round_on_card():
     ((16, 5), (3, 40), (10, 12), 0),
 ])
 def test_one_pass_rounds_once_a_call(sa, sb, out, rounds):
-    """The one-pass tile kernel, K2's one pass and K3's launch the rounding
-    kernel once a call where they run the wgmma body, and not on a thin b
-    (the FFMA body rounds in registers); K4b's one pass never does."""
+    """The one-pass tile kernel, K2's, K4b's and K3's one pass launch the
+    rounding kernel once a call where they run the wgmma body, and not on
+    a thin b (the FFMA body rounds in registers)."""
     _card()
     rng = np.random.default_rng(31)
     a = torch.from_numpy(rng.random(sa)).float().cuda()
@@ -584,7 +591,7 @@ def test_one_pass_rounds_once_a_call(sa, sb, out, rounds):
     for wrapper, args, n in (
             (ops.conv2d_trunc_f32_tile, (a, b), rounds),
             (ops.conv2d_trunc_f32, (a, b), rounds),
-            (ops.conv2d_trunc_f32_grouped, (a, b), 0),
+            (ops.conv2d_trunc_f32_grouped, (a, b), rounds),
             (ops.conv2d_trunc_f32_batched, (a[None].repeat(3, 1, 1), b),
              rounds)):
         before = C.tf32_round_operands.launches
@@ -646,3 +653,116 @@ def test_batched_one_pass_on_card(nbatch, sa, sb, out):
         assert torch.equal(got[g], ops.conv2d_trunc_f32(a[g], b, out,
                                                         highest=False))
         _card_within(got[g], *_f64_card(a[g], b, out))
+
+
+# phase 3's shapes of chip_smoke.py (SHAPES), and b of 1, 3 and 8 columns
+PHASE3_SHAPES = [
+    ((5, 7), (4, 6), (8, 12)),
+    ((130, 140), (120, 100), (130, 140)),
+    ((100, 120), (130, 140), (130, 140)),
+    ((1, 130), (130, 1), (130, 130)),
+    ((70, 80), (60, 50), (70, 80)),
+    ((200, 300), (150, 100), (280, 380)),
+    ((16, 5), (3, 40), (10, 12)),
+    ((33, 64), (64, 20), (96, 83)),
+    ((95, 1), (95, 87), (95, 87)),
+    ((1, 87), (95, 87), (95, 87)),
+    ((308, 274), (308, 1), (308, 274)),
+    ((1, 274), (308, 274), (308, 274)),
+    ((256, 256), (256, 256), (256, 256)),
+    ((384, 384), (384, 384), (384, 384)),
+    ((512, 512), (512, 512), (512, 512)),
+    ((768, 768), (768, 768), (768, 768)),
+]
+THIN_B = [((150, 140), (120, 1), (150, 140)), ((150, 140), (120, 3),
+                                                 (150, 140)),
+          ((150, 140), (120, 8), (150, 140))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*PHASE3_SHAPES, *THIN_B, "extreme"],
+                         ids=str)
+def test_grouped_one_pass_on_card(case):
+    """K4b's one pass (the ``wgmma`` body in residue-major order for b of
+    8 or more columns, its rounding launched once a call): within phase
+    3's bar of its plain version, the same bits twice, and equal to the
+    one-pass tile kernel to f32 rounding (2e-6 relative, the atol at the
+    extreme scales), which it is not bit for bit on the dense orders."""
+    _card()
+    rng = np.random.default_rng(37)
+    if case == "extreme":
+        (sa, sb, out), atol = ((130, 140), (120, 100), (130, 140)), 1e-37
+        a = rng.random(sa) * 10.0 ** np.linspace(-30, 30, sa[1])
+        b = rng.random(sb) * 10.0 ** np.linspace(-6, 6, sb[1])
+    else:
+        (sa, sb, out), atol = case, ATOL
+        a, b = rng.random(sa), rng.random(sb)
+    a = torch.from_numpy(a).float().cuda()
+    b = torch.from_numpy(b).float().cuda()
+    wgmma = C.tile_body(sa, sb) == "mma"
+    before = C.tf32_round_operands.launches
+    got = ops.conv2d_trunc_f32_grouped(a, b, out, highest=False)
+    torch.cuda.synchronize()
+    assert C.tf32_round_operands.launches == before + wgmma
+    plain = C.conv2d_trunc_f32_reference(a, b, out, highest=False)
+    assert bool(((got - plain).abs() <= RTOL * plain.abs() + atol).all())
+    assert torch.equal(ops.conv2d_trunc_f32_grouped(a, b, out,
+                                                    highest=False), got)
+    tile = ops.conv2d_trunc_f32_tile(a, b, out, highest=False)
+    assert bool(((got - tile).abs() <= 2e-6 * tile.abs() + atol).all())
+    if wgmma and sa == sb == out and sa[0] >= 256:
+        assert not torch.equal(got, tile)
+
+
+def _rounded_on_card(a, b):
+    """The rounding kernel on CUDA tensors ``a``, ``b`` (one launch),
+    held bit for bit to ``tf32_round`` with zero pads."""
+    before = C.tf32_round_operands.launches
+    ra, rb = C.tf32_round_operands(a, b)
+    torch.cuda.synchronize()
+    assert C.tf32_round_operands.launches == before + 1
+    words = lambda t: t.cpu().contiguous().view(torch.int32)  # noqa: E731
+    for x, rx in ((a, ra), (b, rb)):
+        n = x.shape[-1]
+        assert rx.shape == (*x.shape[:-1], -(-n // 4) * 4)
+        assert torch.equal(words(rx[..., :n]), words(C.tf32_round(x.cpu())))
+        assert not rx[..., n:].any()
+
+
+def _at_offset(x, words):
+    """``x`` (CUDA) copied into a contiguous tensor whose storage starts
+    ``words`` 4-byte words past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    assert flat.data_ptr() % 16 == 0
+    y = flat[words:words + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sa,sb,offsets", [
+    ((37, 5), (3, 9), (0, 0)),        # odd widths, b of 3 rows
+    ((64, 64), (5, 8), (1, 3)),       # 16-byte widths, unaligned starts
+    ((130, 141), (31, 100), (2, 0)),  # unaligned a, b under a warp of rows
+    ((1, 1), (1, 2), (0, 1)),
+    ((2, 768, 768), (768, 768), (0, 0)),
+])
+def test_round_kernel_on_card_shapes(sa, sb, offsets):
+    """The rounding kernel at odd widths (its 4-byte path), at widths of
+    whole 16-byte words whose rows start unaligned (the 4-byte path too)
+    or aligned (16-byte loads), on b of fewer rows than a warp and on a
+    batch, with infinities and NaNs among the words: ``tf32_round``'s
+    bits, pads zero."""
+    _card()
+    rng = np.random.default_rng(sum(sa) + sum(sb))
+    special = torch.tensor(np.array([0x7F800000, 0xFF800000, 0x7FC00001,
+                                     0xFFFFFFFF, 0x00001000],
+                                    dtype=np.uint32).view(np.float32))
+    xs = []
+    for shape, off in zip((sa, sb), offsets):
+        x = torch.from_numpy(rng.standard_normal(shape)).float()
+        flat = x.view(-1)
+        k = min(flat.numel(), special.numel())
+        flat[-k:] = special[:k]
+        xs.append(_at_offset(x.cuda(), off))
+    _rounded_on_card(*xs)

@@ -8,11 +8,14 @@ CUDA card.
 
     python3 tune_port.py [PROBE ...] [--tree DIR]
 
-Nineteen probes (all, or the numbered ones), each printed with the card's
+Twenty probes (all, or the numbered ones), each printed with the card's
 name and power limit; none of them is on any path of the port.
 ``--tree DIR`` imports ``genfer_tpu_torch`` from the checkout at DIR (an
-unpacked parent commit, say), whose kernels are built there: probe 8 of
-two trees run in turns compares their K6.
+unpacked parent commit, or a patched copy of the package, say), whose
+kernels are built there, and exits if the package came from elsewhere:
+probe 8 (or 20) of two trees run in turns compares their K6 (or their
+one-pass bodies).  A tree that holds its own ``chip_smoke.py`` shadows
+this one's.
 
 1. the card's f32 FMA ceiling: 16 independent FMA chains a thread, 8
    blocks of 256 threads an SM, no memory traffic.  It is what the
@@ -156,25 +159,29 @@ two trees run in turns compares their K6.
    at ``FLOOR_ORDERS`` (256, 512), on ``np.random.RandomState(1)``
    operands, ``FLOOR_ITERS`` = 8 calls of a product to (order, order),
    each output normalized by its max and fed back with the other operand
-   as in the script's scan, timed with CUDA events at three passes
-   (``highest_ms``) and at one (``default_ms``), for K4b.
-   The TPU compares six bf16 passes with one (mxu = (t_H - t_D) x 6/5);
-   here it is three TF32 passes against one: ``derived_mma_ms`` = (t3 -
-   t1) x 3/2 and ``derived_floor_ms`` = t3 - that.  K4b's one-pass
-   instance keeps the three-pass stage layout and shared memory
-   (``csrc/conv2d_mma.cuh``), so t3 - t1 is the two dropped passes with
-   what feeds them only (the lo planes' split, stores and fragment
-   loads).  Beside it, timed in the same turns, the pairs of K4a (three
-   passes, and the one-pass tile kernel's ``wgmma`` body,
-   ``csrc/conv2d_wgmma.cuh``, with its rounding launch), of K2 (FFMA,
-   and the same one-pass tile kernel) and of K3 (``FLOOR_BATCH`` entries
-   sharing b; FFMA, and the ``wgmma`` body): different kernels in each
-   mode, so not a decomposition.  Each
+   as in the script's scan, timed with CUDA events in both modes, in
+   turns: the pairs of K4a and K4b (``three_pass_ms``, the split-TF32
+   ``mma.sync`` body of ``csrc/conv2d_mma.cuh``; ``one_pass_ms``, the
+   ``wgmma`` body of ``csrc/conv2d_wgmma.cuh`` with its rounding launch,
+   K4b's in residue-major order), of K2 (``ffma_ms``, and the one-pass
+   tile kernel) and of K3 (``FLOOR_BATCH`` entries sharing b; FFMA, and
+   the ``wgmma`` body).  The TPU compares six bf16 passes with one on one
+   kernel (mxu = (t_H - t_D) x 6/5); here the two modes are different
+   kernels with their own staging, so a pair is no decomposition.  Each
    order's one-pass calls are first held to their plain version at rtol
    5e-5 / atol 1e-6; issued over useful multiply-adds of
    ``conv2d_trunc_f32`` in both modes
    (``ops.conv2d.rowstrip_issued_flops``).  ``chip_smoke.py`` phase 17
-   drives it as the one-pass mode's main path.
+   drives it as the one-pass mode's main path;
+20. the one-pass ``wgmma`` bodies' device time: at ``ONE_PASS_ORDERS``
+   (256-768), on ``np.random.default_rng(20)`` operands, the tile
+   kernel's and K4b's one pass (each call with its rounding launch and
+   slot sum) in turns, tile, K4b, K4b, tile, the least of each, in device
+   microseconds a call (``chip_smoke.device_us_queued``: CUDA events
+   around calls queued behind a spin) beside the TF32 rate's time for the
+   multiply-adds they issue; then the rounding kernel alone on the (n, n)
+   pairs beside its bytes bound.  It uses only the public wrappers, so
+   ``--tree`` times another tree's kernels.
 
 The probes' sources are built with the port's nvcc flags into
 ``build/tune/``.  Nothing here imports jax.
@@ -185,10 +192,16 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import device_us_by_kernel
-
 ORDERS = (256, 384, 512, 768)
 BATCHES = ((256, 32), (512, 8))
+
+
+def device_us_by_kernel(call, calls: int) -> dict:
+    """``chip_smoke.device_us_by_kernel``, imported when first called:
+    chip_smoke imports the package, which ``--tree`` must choose first."""
+    from chip_smoke import device_us_by_kernel as by_kernel
+
+    return by_kernel(call, calls)
 #: (UNIT_TARGET, MIN_ROWS, TAIL_SHARE, TAIL_DIV) tried in probe 3
 PLANS = (
     (1024, 32, 0.0, 1), (1024, 32, 0.2, 3), (512, 32, 0.25, 4),
@@ -1636,8 +1649,8 @@ def _scan_ms(step, carry, iters: int) -> float:
 
 def floor_decomposition(orders=FLOOR_ORDERS, iters: int = FLOOR_ITERS,
                         label: str = "probe 19") -> dict:
-    """Probe 19: per order, the decomposition of K4a and K4b and the
-    pairs of K2 and K3, printed one line each under ``label``."""
+    """Probe 19: per order, the pairs of K4a, K4b, K2 and K3 (the two
+    modes' times), printed one line each under ``label``."""
     import numpy as np
     import torch
 
@@ -1690,13 +1703,11 @@ def floor_decomposition(orders=FLOOR_ORDERS, iters: int = FLOOR_ITERS,
             return min(t3, timed(True)), t1
 
         row: dict = {}
-        t3, t1 = in_turns(lambda h: pair(C.conv2d_trunc_f32_grouped, h))
-        mma = (t3 - t1) * 3.0 / 2.0
-        row["K4b"] = {"highest_ms": t3, "default_ms": t1,
-                      "derived_mma_ms": mma, "derived_floor_ms": t3 - mma}
         for name, first, timed in (
                 ("K4a", "three_pass_ms",
                  lambda h: pair(C.conv2d_trunc_f32_tile, h)),
+                ("K4b", "three_pass_ms",
+                 lambda h: pair(C.conv2d_trunc_f32_grouped, h)),
                 ("K2", "ffma_ms", lambda h: pair(C.conv2d_trunc_f32, h)),
                 ("K3", "ffma_ms", batched)):
             t3, t1 = in_turns(timed)
@@ -1706,13 +1717,9 @@ def floor_decomposition(orders=FLOOR_ORDERS, iters: int = FLOOR_ITERS,
             mode: C.rowstrip_issued_flops(shape, shape, shape, highest)
             / useful for mode, highest in (("ffma", True), ("one_pass",
                                                             False))}
-        print(f"{label} floor {order} K4b: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in row["K4b"].items())
-              + " (t3 - t1 holds the two dropped passes and the lo "
-              "planes' split, stores and loads: K4b's one-pass instance "
-              "keeps the three-pass staging)")
         for name, what, first in (
                 ("K4a", "conv2d_trunc_f32_tile", "three_pass"),
+                ("K4b", "conv2d_trunc_f32_grouped", "three_pass"),
                 ("K2", "conv2d_trunc_f32", "ffma"),
                 ("K3", f"conv2d_trunc_f32_batched B={FLOOR_BATCH}", "ffma")):
             print(f"{label} floor {order} {name} ({what}): "
@@ -1729,11 +1736,56 @@ def floor_decomposition(orders=FLOOR_ORDERS, iters: int = FLOOR_ITERS,
     return out
 
 
+ONE_PASS_ORDERS = (256, 384, 512, 768)
+
+
+def one_pass_device_us(orders=ONE_PASS_ORDERS) -> dict:
+    """Probe 20: the tile kernel's and K4b's one pass, and the rounding
+    kernel, in device microseconds a call at each order."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import _round_bound_ms, device_us_queued
+    from genfer_tpu_torch.bench import TF32_MMA_PER_S
+    from genfer_tpu_torch.ops import conv2d as C
+
+    out: dict = {}
+    for order in orders:
+        rng = np.random.default_rng(20)
+        shape = (order, order)
+        a = torch.from_numpy(rng.random(shape)).float().cuda()
+        b = torch.from_numpy(rng.random(shape)).float().cuda()
+        issued_us = (C.rowstrip_issued_flops(shape, shape, shape, False)
+                     / 2.0 / TF32_MMA_PER_S * 1e6)
+        kernels = {"tile": C.conv2d_trunc_f32_tile,
+                   "K4b": C.conv2d_trunc_f32_grouped}
+        us: dict = {}
+        for name in ("tile", "K4b", "K4b", "tile"):
+            us[name] = min(us.get(name, float("inf")), device_us_queued(
+                lambda k=kernels[name]: k(a, b, shape, highest=False)))
+        rounding = device_us_queued(lambda: C.tf32_round_operands(a, b))
+        bound_us = _round_bound_ms(shape, shape) * 1e3
+        out[order] = {**us, "rounding": rounding}
+        print(f"probe 20 one pass {order}: device us a call, tile "
+              f"{us['tile']:.2f} ({issued_us / us['tile']:.1%} of the TF32 "
+              f"rate's {issued_us:.2f} for its issued multiply-adds), K4b "
+              f"{us['K4b']:.2f} ({issued_us / us['K4b']:.1%}); rounding "
+              f"kernel {rounding:.2f} (bytes bound {bound_us:.3f}, "
+              f"{bound_us / rounding:.1%})")
+    return out
+
+
 def main(argv) -> None:
     if "--tree" in argv:  # before the first import of the package
         i = argv.index("--tree")
-        sys.path.insert(0, str(Path(argv[i + 1]).resolve()))
+        tree = Path(argv[i + 1]).resolve()
+        sys.path.insert(0, str(tree))
         argv = argv[:i] + argv[i + 2:]
+        import genfer_tpu_torch
+
+        if not Path(genfer_tpu_torch.__file__).resolve().is_relative_to(tree):
+            sys.exit(f"tune_port: --tree {tree}: genfer_tpu_torch was "
+                     f"imported from {genfer_tpu_torch.__file__}")
     import torch
 
     from genfer_tpu_torch import _build
@@ -1749,7 +1801,7 @@ def main(argv) -> None:
         12: serving_batch, 13: scan_capture_against_eager,
         14: ozaki_layout, 15: ozaki_against_k1, 16: fullblock_ab,
         17: window_blocks, 18: window_timing_state,
-        19: floor_decomposition,
+        19: floor_decomposition, 20: one_pass_device_us,
     }
     print(card())
     _build.load()
