@@ -8,6 +8,8 @@ headers, so the build takes seconds).  The library lands in
 under a name that hashes the sources, the headers they include
 (``csrc/*.cuh``) and the flags, so an edited source is never served a
 stale build.  Nothing here runs at import time; a failed build raises.
+The first ``load`` in a process is the span ``kernels.load`` of the
+port's tracer, and a build inside it the child span ``kernels.build``.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from . import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -30,9 +33,6 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-#: wall seconds the last build in this process took (0.0 when the
-#: library was already on disk)
-build_seconds = 0.0
 
 
 def _nvcc() -> str:
@@ -81,12 +81,10 @@ def _start(cmd):
 
 
 def _compile(out: Path) -> None:
-    global build_seconds
     objs = out.parent / f"objects.{os.getpid()}"
     objs.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     try:
         pairs = [(src, objs / f"{src.stem}.o") for src in _sources()]
         _run([_start([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
@@ -97,7 +95,6 @@ def _compile(out: Path) -> None:
     finally:
         shutil.rmtree(objs, ignore_errors=True)
         tmp.unlink(missing_ok=True)
-    build_seconds = time.perf_counter() - t0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -145,10 +142,12 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _compile(path)
-            lib = ctypes.CDLL(str(path))
-            _declare(lib)
-            _lib = lib
+            with trace.span("kernels.load"):
+                path = library_path()
+                if not path.exists():
+                    with trace.span("kernels.build"):
+                        _compile(path)
+                lib = ctypes.CDLL(str(path))
+                _declare(lib)
+                _lib = lib
     return _lib

@@ -11,8 +11,9 @@ genfer_tpu's; the backend selection builds the port's backends
 ``--compile-scan`` runs the scan compiler (``scanc.py``) on the card and
 falls back to the interpreter only where the program or the mode is
 outside its fragment.  ``--profile DIR`` writes a ``torch.profiler``
-Chrome trace (``TRACE_FILE``) where genfer_tpu writes a ``jax.profiler``
-trace; ``--debug-nans`` turns on the device backends' NaN check
+Chrome trace (``TRACE_FILE``), with the ``genfer.*`` spans of the port's
+tracer (``trace.py``), where genfer_tpu writes a ``jax.profiler`` trace;
+``--debug-nans`` turns on the device backends' NaN check
 (``enable_nan_check``) where genfer_tpu turns on ``jax_debug_nans``.
 ``--backend sharded`` builds ``parallel.mesh.ShardedF64Backend`` over the
 process group (``torchrun --nproc-per-node N``; a group of one rank
@@ -287,12 +288,15 @@ def _rank0_prints():
 
 
 def _profiled(out_dir: Path, device, call):
-    """``call()`` under ``torch.profiler``, its Chrome trace written to
-    ``out_dir / TRACE_FILE`` (also where ``call`` raises).  The activities
-    follow the run's device (``None``: the card): CPU always, CUDA where
-    that device is a card."""
+    """``call()`` under ``torch.profiler`` with a recording of the port's
+    tracer open, so the ``genfer.*`` spans the run reaches are in the
+    Chrome trace written to ``out_dir / TRACE_FILE`` (also where ``call``
+    raises).  The activities follow the run's device (``None``: the
+    card): CPU always, CUDA where that device is a card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from . import trace
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device if device is not None else "cuda").type == "cuda":
@@ -300,7 +304,7 @@ def _profiled(out_dir: Path, device, call):
     out_dir.mkdir(parents=True, exist_ok=True)
     prof = profile(activities=activities)
     try:
-        with prof:
+        with prof, trace.recording():
             return call()
     finally:
         prof.export_chrome_trace(str(out_dir / TRACE_FILE))

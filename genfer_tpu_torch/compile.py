@@ -44,12 +44,15 @@ discrete for ``probs``, observation outcomes are structural constants.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from collections import Counter
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from . import trace
 from .gf.symbolic import SymGenFun
 from .lang import ast
 from .lang.parser import parse_program
@@ -230,11 +233,17 @@ def _eval_sym(expr: SymGenFun, params, cache: dict, const):
     return out
 
 
+#: the spans of ``GraphedEntry.capture`` that name a walk's phase
+_PHASES = {"entry.warmup": "warmup", "entry.capture": "capture"}
+
+
 class _ConstantNamespace(TorchNamespace):
     """``TorchNamespace`` whose ``asarray`` serves each distinct constant
     from ``cache`` (a dict the program owns): the first walk copies it to
     the device, every later walk, a captured one included, reuses that
-    tensor.  Nothing writes into a tensor ``asarray`` returns."""
+    tensor.  Nothing writes into a tensor ``asarray`` returns.  Each copy
+    counts in ``walk.constants_copied`` by the walk's phase (``warmup``,
+    ``capture``, or ``eager`` outside a capture)."""
 
     def __init__(self, device, cache: dict):
         super().__init__(device)
@@ -246,6 +255,9 @@ class _ConstantNamespace(TorchNamespace):
         hit = self.cache.get(key)
         if hit is None:
             hit = self.cache[key] = super().asarray(arr, dtype)
+            if trace.on:
+                trace.count("walk.constants_copied", phase=_PHASES.get(
+                    trace.enclosing(_PHASES), "eager"))
         return hit
 
 
@@ -321,11 +333,13 @@ def _translate_big_stack(work, stack_mb: int = 256,
                          limit: int = 100_000):
     """Run ``work`` on a dedicated thread with a large stack and a
     scoped recursion limit (mirrors cli.main / reference main.rs:96-106);
-    restores the process-wide limit afterwards."""
+    restores the process-wide limit afterwards.  ``work``'s spans nest in
+    the span open around the call (``trace.carry``)."""
     import sys
     import threading
 
     out: list = []
+    work = trace.carry(work)
 
     def runner():
         old = sys.getrecursionlimit()
@@ -356,18 +370,58 @@ def _clone(out):
     return out.clone()
 
 
-class GraphedEntry:
-    """One entry point ``fn(*tensors)``: on the CPU an eager call; on the
-    card a CUDA graph for each set of argument shapes and types, captured
-    after one eager warm-up call (which fills the constant caches, K1's
-    plan tables and its library; ``eager`` with the same shapes counts as
-    that call) and replayed on static argument buffers; the output is
-    cloned.  Every call and the capture run on the big-stack thread, on
-    the stream current there.  A failed capture raises."""
+#: ``CUgraphNodeType`` values (``cuda.h``) the counts name; the rest are
+#: ``other``
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
 
-    def __init__(self, fn, device: torch.device):
+
+def graph_nodes(raw: int) -> Counter:
+    """The nodes of the CUDA graph ``raw`` (a ``cudaGraph_t``, as
+    ``CUDAGraph.raw_cuda_graph()`` gives it) by kind: ``kernel``,
+    ``memcpy``, ``memset``, ``other``; read through ``libcuda``."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_int)]
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"libcuda error {err} reading a graph")
+
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)))
+    kinds: Counter = Counter()
+    kind = ctypes.c_int()
+    for node in nodes[: n.value]:
+        check(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)))
+        kinds[_NODE_KINDS.get(kind.value, "other")] += 1
+    return kinds
+
+
+class GraphedEntry:
+    """One entry point ``fn(*tensors)``, named ``name`` in the traces: on
+    the CPU an eager call; on the card a CUDA graph for each set of
+    argument shapes and types, captured after one eager warm-up call
+    (which fills the constant caches, K1's plan tables and its library;
+    ``eager`` with the same shapes counts as that call) and replayed on
+    static argument buffers; the output is cloned.  Every call and the
+    capture run on the big-stack thread, on the stream current there.  A
+    failed capture raises.
+
+    While a ``trace`` recording is open a call is the span ``entry.call``
+    {entry, key} with the children ``entry.copy_in``, ``entry.replay``
+    and ``entry.clone``, or ``entry.eager`` on the CPU; a capture adds
+    ``entry.warmup`` and ``entry.capture`` (child ``entry.instantiate``)
+    and counts the graph's nodes by kind in ``graph.nodes``;
+    ``entry.captures`` and ``entry.replays`` count by key."""
+
+    def __init__(self, fn, device: torch.device, name: str):
         self.fn = fn
         self.device = device
+        self.name = name
         #: argument shapes and types -> (static inputs, CUDAGraph,
         #: static output)
         self.graphs: dict = {}
@@ -383,46 +437,78 @@ class GraphedEntry:
 
     def __call__(self, *args):
         args = self._args(args)
-        if self.device.type != "cuda":
-            return _translate_big_stack(lambda: self.fn(*args))
         key = self._key(args)
-        if key not in self.graphs:
-            self.graphs[key] = self.capture(args)
-        static, graph, out = self.graphs[key]
-        for s, a in zip(static, args):
-            s.copy_(a)
-        graph.replay()
-        return _clone(out)
+        with trace.span("entry.call", new_call=True, entry=self.name,
+                        key=key):
+            if self.device.type != "cuda":
+                with trace.span("entry.eager"):
+                    return _translate_big_stack(lambda: self.fn(*args))
+            if key not in self.graphs:
+                self.graphs[key] = self.capture(args)
+            static, graph, out = self.graphs[key]
+            if trace.on:
+                trace.count("entry.replays", entry=self.name, key=key)
+            with trace.span("entry.copy_in"):
+                for s, a in zip(static, args):
+                    s.copy_(a)
+            with trace.span("entry.replay"):
+                graph.replay()
+            with trace.span("entry.clone"):
+                return _clone(out)
+
+    def _warm_up(self, static) -> None:
+        """One eager call on a side stream, then wait for the card."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.fn(*static)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
 
     def capture(self, args):
         """Capture ``fn`` on copies of ``args``, after a warm-up call on a
         side stream unless ``eager`` warmed these shapes up: returns
-        (static inputs, CUDAGraph, static output)."""
+        (static inputs, CUDAGraph, static output).  While a recording is
+        open the graph is kept past its instantiation (``keep_graph``),
+        which is then a span of its own, and its nodes are counted."""
         static = [a.clone() for a in args]
-        warm = self._key(args) not in self.warmed
+        key = self._key(args)
+        warm = key not in self.warmed
+        tag = {"entry": self.name, "key": key}
+        trace.count("entry.captures", **tag)
 
         def work():
             if warm:
-                side = torch.cuda.Stream(self.device)
-                side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(side):
-                    self.fn(*static)
-                torch.cuda.current_stream(self.device).wait_stream(side)
-            torch.cuda.synchronize(self.device)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                out = self.fn(*static)
+                with trace.span("entry.warmup", **tag):
+                    self._warm_up(static)
+            else:
+                torch.cuda.synchronize(self.device)
+            recorded = trace.on
+            graph = (torch.cuda.CUDAGraph(keep_graph=True) if recorded
+                     else torch.cuda.CUDAGraph())
+            with trace.span("entry.capture", **tag):
+                with torch.cuda.graph(graph):
+                    out = self.fn(*static)
+                if recorded:
+                    with trace.span("entry.instantiate"):
+                        graph.instantiate()
+            if recorded:
+                for kind, n in graph_nodes(graph.raw_cuda_graph()).items():
+                    trace.count("graph.nodes", n, kind=kind, **tag)
             return graph, out
 
         graph, out = _translate_big_stack(work)
-        self.warmed.add(self._key(args))
+        self.warmed.add(key)
         return static, graph, out
 
     def eager(self, *args):
         """One eager call on ``device`` (what the graph replays)."""
         args = self._args(args)
-        out = _translate_big_stack(lambda: self.fn(*args))
-        self.warmed.add(self._key(args))
+        key = self._key(args)
+        with trace.span("entry.eager", new_call=True, entry=self.name,
+                        key=key):
+            out = _translate_big_stack(lambda: self.fn(*args))
+        self.warmed.add(key)
         return out
 
 
@@ -436,18 +522,22 @@ class CompiledProgram:
         self.limit = limit
         SP = make_param_scalar(self.param_names)
         self.SP = SP
-        self.program = parse_program(source)
-        # deep observation chains (e.g. the 784-pixel naive-Bayes model)
-        # nest the GF DAG deeper than the default recursion limit.
-        # Translate on a dedicated big-stack thread (like cli.main): a
-        # raised recursion limit on a small-stack thread would turn a
-        # catchable RecursionError into a hard C-stack overflow, and the
-        # process-wide limit must not leak past the constructor.
-        self.translation = _translate_big_stack(
-            lambda: GfTransformer(SP, unroll=unroll).semantics(
-                self.program
-            )
-        )
+        with trace.span("compile.translate"):
+            with trace.span("compile.parse"):
+                self.program = parse_program(source)
+            # deep observation chains (e.g. the 784-pixel naive-Bayes
+            # model) nest the GF DAG deeper than the default recursion
+            # limit.  Translate on a dedicated big-stack thread (like
+            # cli.main): a raised recursion limit on a small-stack thread
+            # would turn a catchable RecursionError into a hard C-stack
+            # overflow, and the process-wide limit must not leak past the
+            # constructor.
+            with trace.span("compile.gf"):
+                self.translation = _translate_big_stack(
+                    lambda: GfTransformer(SP, unroll=unroll).semantics(
+                        self.program
+                    )
+                )
         rest = self.translation.rest
         self.has_rest = not (
             rest.kind == "Const" and rest.value.is_zero()
@@ -461,13 +551,16 @@ class CompiledProgram:
         #: the walks' constants on ``device`` (``_ConstantNamespace``)
         self.constants: dict = {}
         vmap = torch.func.vmap
-        self._probs = GraphedEntry(self._probs_impl, self.device)
-        self._moments = GraphedEntry(self._moments_impl, self.device)
-        self._probs_batch = GraphedEntry(vmap(self._probs_impl), self.device)
-        self._moments_batch = GraphedEntry(vmap(self._moments_impl),
-                                           self.device)
-        self._rest = GraphedEntry(self._rest_impl, self.device)
-        self._rest_batch = GraphedEntry(vmap(self._rest_impl), self.device)
+        dev = self.device
+        self._probs = GraphedEntry(self._probs_impl, dev, "probs")
+        self._moments = GraphedEntry(self._moments_impl, dev, "moments")
+        self._probs_batch = GraphedEntry(vmap(self._probs_impl), dev,
+                                         "probs_batch")
+        self._moments_batch = GraphedEntry(vmap(self._moments_impl), dev,
+                                           "moments_batch")
+        self._rest = GraphedEntry(self._rest_impl, dev, "rest")
+        self._rest_batch = GraphedEntry(vmap(self._rest_impl), dev,
+                                        "rest_batch")
 
     # -- traced pipelines ------------------------------------------------
     def _backend(self, params):

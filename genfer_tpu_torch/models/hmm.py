@@ -125,7 +125,7 @@ class CompiledHMM:
                 marg = g.sum(dim=(0, 1))[:lim]
             return marg, logz
 
-        self._run = GraphedEntry(run, dev)
+        self._run = GraphedEntry(run, dev, "run")
         self._g0 = np.zeros((2, N, N))
         self._g0[int(init_state)] = init_prior
 
@@ -176,7 +176,7 @@ class CompiledMixture:
             axis = 1 if result == "rate1" else 0
             return g.sum(dim=axis)[:lim], logz
 
-        self._run = GraphedEntry(run, dev)
+        self._run = GraphedEntry(run, dev, "run")
         self._g0 = np.outer(geo, geo)
 
     def probs(self, counts):

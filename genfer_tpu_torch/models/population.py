@@ -164,8 +164,9 @@ class CompiledPopulation:
                 g, logz = step(g, logz, pois_rows[t], cs[t], valids[t])
             return g[: self.limit], logz
 
-        self._run = GraphedEntry(run, dev)
-        self._run_batch = GraphedEntry(torch.func.vmap(run), dev)
+        self._run = GraphedEntry(run, dev, "run")
+        self._run_batch = GraphedEntry(torch.func.vmap(run), dev,
+                                       "run_batch")
 
     # ------------------------------------------------------------------
     def _prepare(self, lams, cs):
@@ -291,7 +292,7 @@ class CompiledTwoPopulations:
             axis = 1 if self.result_var == 1 else 0
             return g.sum(dim=axis)[: self.limit], logz
 
-        self._run = GraphedEntry(run, dev)
+        self._run = GraphedEntry(run, dev, "run")
 
     def probs(self, lam1s, lam2s, c1s, c2s):
         lam1s = np.asarray(lam1s, dtype=np.float64)

@@ -36,7 +36,10 @@ from the shapes alone:
 Every body's result depends on the shapes alone, and every batch entry
 equals the single-pair call bit for bit.  Both wrappers count the kernel's
 launches in ``conv2d_trunc_f64.launches`` and, by body, in
-``conv2d_trunc_f64.launches_by_body`` (CPU calls add nothing).
+``conv2d_trunc_f64.launches_by_body`` (CPU calls add nothing); while a
+recording of the port's tracer is open, each launch also counts in
+``k1.products`` {body, a, b, out} (one pair's operand shapes and the
+whole product's out shape).
 
 ``rows=(r0, r1)`` asks for output rows [r0, r1) only, a (r1 - r0, c1)
 result: the local body of the sharded routes (``parallel.mesh``), each
@@ -66,7 +69,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 from ..taylor.backend import _antidiag_sum, _toeplitz
 from .conv2d import (
     TILE,
@@ -282,6 +285,9 @@ def conv2d_trunc_f64_batched(a, b, out_shape, flag=None, rows=None):
         out = _launch(body, a, b, c0, c1, flag, window)
     conv2d_trunc_f64.launches += 1
     conv2d_trunc_f64.launches_by_body[body] += 1
+    if trace.on:
+        trace.count("k1.products", body=body, a=tuple(a.shape[1:]),
+                    b=tuple(b.shape[1:]), out=(c0, c1))
     conv2d_trunc_f64.windowed_by_body[body] += window is not None
     conv2d_trunc_f64.predicated += flag is not None
     return out

@@ -3174,10 +3174,11 @@ class ScanCompiled:
         vmap = torch.func.vmap
         self._run_batch = GraphedEntry(
             vmap(flat, in_dims=(None,) + (0,) * n_xs + (None,) * n_c),
-            self.device,
+            self.device, "run_batch",
         )
         self._run_sweep = GraphedEntry(
             vmap(flat, in_dims=(None,) + (0,) * (n_xs + n_c)), self.device,
+            "run_param_sweep",
         )
         g0 = np.zeros(sizes)
         g0[(0,) * len(sizes)] = 1.0

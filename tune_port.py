@@ -1368,7 +1368,7 @@ def scan_capture_against_eager() -> None:
     def graphed(obj):
         n = len(obj._xs)
         entry = GraphedEntry(lambda g0, *a: obj._run(g0, a[:n], a[n:]),
-                             obj.device)
+                             obj.device, "scan_run")
 
         def call():
             marg, logz, _ = entry(obj._g0, *obj._xs, *obj._consts0)
