@@ -95,11 +95,17 @@ result):
    kernels a replay launches and the card's busy share of it.  K1's small
    body alone at the walk's largest product, (27,27)x(2,2)->(27,28) over
    the 4096-entry batch, against its plain version and one grouped f64
-   ``conv2d`` (the library yardstick), beside its bound.  Then the 784-pixel digit model
-   (``tools.generators.digit_serving_source``) at batch ``DIGIT_BATCH`` =
-   1024, a seeded theta and images drawn from it, through its graph,
-   against the port's eager CPU walk on ``DIGIT_CHECK`` = 4 rows (rel
-   1e-9);
+   ``conv2d`` (the library yardstick), beside its bound.  The spine
+   kernel (``ops.spine_f64``: a constant spine of the walk in one launch)
+   at ``SPINE_SHAPES`` (the digit model's, a 2-axis and a ragged one) bit
+   for bit against its plain version, twice, its device time in a CUDA
+   graph beside its bytes bound and the time of one block's rows (the
+   chain of dependent f64 operations alone).  Then the 784-pixel digit
+   model (``tools.generators.digit_serving_source``) at batch
+   ``DIGIT_BATCH`` = 1024, a seeded theta and images drawn from it,
+   through its graph (its warm-up and capture must launch the spine
+   kernel once a class each), against the port's eager CPU walk on
+   ``DIGIT_CHECK`` = 4 rows (rel 1e-9);
 12. the scan models (``genfer_tpu_torch.models``) at the bench's sizes
    through their graphs: ``CompiledPopulation`` at limit 256, 20 steps
    (the bench's data) single, against the port's host interpreter on the
@@ -251,7 +257,8 @@ one-pass K2, K4a and K4b (one TF32 pass).  The second-to-last line is
 the kernel table as JSON, with one entry for each of K1's bodies (and its
 launches with a row window in phase 16, ``window_launches``), each of
 K5's impls, one for the split, one for each one-pass kernel
-(``[1pass]``) and one for the rounding kernel; the last line is
+(``[1pass]``), one for the rounding kernel and one for the spine kernel
+(at the digit model's shape); the last line is
 ``{"ok": true, "device": {...}}``.
 Everything is reached through ``genfer_tpu_torch``; nothing here imports
 jax or genfer_tpu.
@@ -439,6 +446,21 @@ SERVING_CHECK = 16  # grid points held against the host api.infer
 SERVING_LARGEST = ((27, 27), (2, 2), (27, 28))  # its largest K1 product
 DIGIT_PIXELS, DIGIT_BATCH, DIGIT_CHECK = 784, 1024, 4
 DIGIT_SEED = 0
+#: the spine kernel (ops/spine_f64.py) at the digit model's shape (rows,
+#: coefficients, links: one class's 784 observations, Mul by e then Add of
+#: 0), at a 2-axis one (the scam walk's largest series, 27 x 28, and 64
+#: links of mixed kinds) and at a ragged one (one coefficient, rows and
+#: links no multiple of a block's or a flag word's); and the rows of one
+#: block, where the chain of dependent f64 operations alone sets the time
+SPINE_SHAPES = {"digit": (DIGIT_BATCH, (11,), 2 * DIGIT_PIXELS),
+                "2-axis": (4096, (27, 28), 64),
+                "ragged": (1000, (1,), 1001)}
+SPINE_CHAIN_ROWS = 8
+SPINE_SOURCE = "genfer_tpu_torch/csrc/spine_f64.cu"
+SPINE_REPLACES = ("none: XLA fused the JAX walk's constant chain under "
+                  "jit (gf/ir.py::GenFun._eval)")
+#: the launches of the spine kernel a digit walk makes: one a class
+DIGIT_SPINES = 10
 MODEL_REL = 1e-9  # phase 12 against the CPU classes, and phase 11's digits
 POP_REL = 1e-10  # phase 12 against the host interpreter
 SCAN_LIMIT, SCAN_STEPS, SCAN_BATCH = 256, 20, 64  # the bench's sizes
@@ -960,6 +982,7 @@ def _counted(launches: dict, must: tuple, what: str):
     if a kernel of ``must`` was not launched."""
     from genfer_tpu_torch.ops.conv2d import tf32_round_operands
     from genfer_tpu_torch.ops.conv2d_f64 import reset_launches
+    from genfer_tpu_torch.ops.spine_f64 import spine_f64
 
     wrappers = _wrappers()
     for name, w in wrappers.items():
@@ -967,9 +990,11 @@ def _counted(launches: dict, must: tuple, what: str):
         if name in ONE_PASS_KERNELS:
             w.launches_1pass = 0
     tf32_round_operands.launches = 0
+    spine_f64.launches = 0
     reset_launches()
     yield
     counts = {name: w.launches for name, w in wrappers.items()}
+    counts["spine_f64"] = spine_f64.launches
     counts.update({ONE_PASS_KERNELS[name][0]: w.launches_1pass
                    for name, w in wrappers.items()
                    if name in ONE_PASS_KERNELS})
@@ -1422,6 +1447,75 @@ def phase11_k1_batched(rng) -> dict:
     return row
 
 
+def _spine_operands(rng, rows, shape, links, kind):
+    """Operands of ``ops.spine_f64`` on the card: the digit model's (the
+    links alternate Mul by an evidence value and Add of 0, the constants
+    concatenated as the walk makes them, evidence first) or a seeded mix
+    of Mul and Add links with constants in [0.5, 1.5)."""
+    from genfer_tpu_torch.ops.spine_f64 import pack_adds
+
+    n = int(np.prod(shape))
+    x = torch.from_numpy(rng.uniform(0.5, 1.5, (rows, n))).cuda()
+    if kind == "digit":
+        half = links // 2
+        is_add = np.arange(links) % 2 == 1
+        src = np.where(is_add, half + np.arange(links) // 2,
+                       np.arange(links) // 2)
+        c = np.concatenate([rng.uniform(0.5, 1.0, (rows, half)),
+                            np.zeros((rows, half))], axis=1)
+    else:
+        is_add = rng.random(links) < 0.5
+        src = rng.permutation(links)
+        c = rng.uniform(0.5, 1.5, (rows, links))
+    return (x, torch.from_numpy(c).cuda(),
+            torch.from_numpy(src.astype(np.int32)).cuda(),
+            torch.from_numpy(pack_adds(is_add)).cuda())
+
+
+def phase11_spine(rng) -> dict:
+    """The spine kernel against its plain version bit for bit at
+    ``SPINE_SHAPES``, its device time (in a CUDA graph) beside its bound
+    (the bytes of x, c and the result over 3.35 TB/s) and, at
+    ``SPINE_CHAIN_ROWS`` rows, the time the chain alone takes; the kernel
+    table's row is the digit shape's."""
+    from genfer_tpu_torch.bench import bound_ms
+    from genfer_tpu_torch.ops.spine_f64 import (
+        spine_f64,
+        spine_f64_reference,
+    )
+
+    rows_out = {}
+    for kind, (rows, shape, links) in SPINE_SHAPES.items():
+        x, c, src, adds = _spine_operands(rng, rows, shape, links, kind)
+        got = spine_f64(x, c, src, adds)
+        want = spine_f64_reference(x, c, src, adds)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"spine_f64 {kind}: {bad} words differ from the plain "
+                 "version")
+        if not torch.equal(spine_f64(x, c, src, adds), got):
+            fail(f"spine_f64 {kind}: two calls differ")
+        nbytes = 8.0 * (x.numel() + c.numel() + got.numel())
+        bound, by = bound_ms(0.0, nbytes)
+        dev = _graph_ms(lambda: spine_f64(x, c, src, adds))
+        chain = _graph_ms(lambda: spine_f64(
+            x[:SPINE_CHAIN_ROWS], c[:SPINE_CHAIN_ROWS], src, adds))
+        row = {"max_abs_err": 0.0, "ms": dev,
+               "plain_ms": _time(lambda: spine_f64_reference(x, c, src,
+                                                             adds)),
+               "library_ms": None, "bound_ms": bound, "bound_by": by,
+               "chain_ms": chain}
+        rows_out[(kind, rows, shape, links)] = row
+        print(f"phase 11 spine_f64 {kind} {rows} rows x {shape} "
+              f"coefficients, {links} links: the plain version's bits "
+              f"(twice); device {dev * 1e3:.2f} us a call in a graph of "
+              f"{GRAPH_CALLS}, bound {bound * 1e3:.2f} us ({by}, "
+              f"{100 * bound / dev:.1f}%), {SPINE_CHAIN_ROWS} rows alone "
+              f"{chain * 1e3:.2f} us (the chain), plain version "
+              f"{row['plain_ms']:.3f} ms")
+    return rows_out
+
+
 GRAPH_CALLS = 20  # calls captured in _graph_ms's graph
 
 
@@ -1500,6 +1594,7 @@ def phase11_serving(launches: dict) -> dict:
     )
     from genfer_tpu_torch.compile import CompiledProgram
     from genfer_tpu_torch.ops.conv2d_f64 import conv2d_trunc_f64
+    from genfer_tpu_torch.ops.spine_f64 import spine_f64
     from genfer_tpu_torch.tools.generators import digit_serving_source
 
     out: dict = {}
@@ -1565,6 +1660,7 @@ def phase11_serving(launches: dict) -> dict:
     # K1 alone at the walk's largest product, before the digit model's
     # profile (~47,000 kernels a replay) fills the profiler's buffers
     out["k1_batched"] = phase11_k1_batched(np.random.default_rng(DIGIT_SEED))
+    out["spine_f64"] = phase11_spine(np.random.default_rng(DIGIT_SEED))
     # the 784-pixel digit model
     rng = np.random.default_rng(DIGIT_SEED)
     src, params = digit_serving_source(DIGIT_PIXELS)
@@ -1572,11 +1668,15 @@ def phase11_serving(launches: dict) -> dict:
     d = CompiledProgram(src, params, 10, device="cuda")
     translate = time.perf_counter() - t0
     ev = torch.from_numpy(_digit_evidence(rng, DIGIT_BATCH)).cuda()
-    with _counted(launches, (), "phase 11 digit capture"):
+    with _counted(launches, ("spine_f64",), "phase 11 digit capture"):
         t0 = time.perf_counter()
         dgot = d.probs_batch(ev)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
+    # the warm-up walk's and the captured walk's
+    if spine_f64.launches != 2 * DIGIT_SPINES:
+        fail(f"the digit model's warm-up and capture launched the spine "
+             f"kernel {spine_f64.launches} times, not {2 * DIGIT_SPINES}")
     replay = _best_of(lambda: d.probs_batch(ev).cpu())
     wall, busy, kernels = _replay_profile(lambda: d.probs_batch(ev), 1)
     cpu = CompiledProgram(src, params, 10, device="cpu")
@@ -3489,6 +3589,11 @@ def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
             "source": OZAKI_SOURCES["ozaki_conv2d"],
             "replaces": OZAKI_REPLACES["ozaki_conv2d"],
             "launches": launches.get(name, 0), **row})
+    ((_, rows_n, shape, links), row), *_ = rows["spine_f64"].items()
+    table.append({
+        "name": "spine_f64", "route": "cuda", "source": SPINE_SOURCE,
+        "replaces": SPINE_REPLACES, "launches": launches.get("spine_f64", 0),
+        "shape": [rows_n, list(shape), links], **row})
     k1 = rows["conv2d_trunc_f64"]
     for body, (source, shape) in K1_BODIES.items():
         kind = "normal" if shape == K1_DENSE_512 else "uniform"
@@ -3520,7 +3625,7 @@ def main() -> None:
     phase8_backend_jax(launches)
     phase9_entry(launches)
     phase10_headline(launches)
-    phase11_serving(launches)
+    rows["spine_f64"] = phase11_serving(launches)["spine_f64"]
     phase12_scan_models(launches)
     phase13_scan_compiler(launches)
     rows.update(phase14_ozaki(launches))

@@ -28,6 +28,14 @@ warm-up walk fills, so the captured walk copies nothing from the host; a
 capture that fails raises (there is no eager path on the card).  On the
 CPU (``device="cpu"``) each call walks the DAG eagerly.
 
+A constant spine of the DAG (``gf/ir.py::GenFun._eval``: a tower of Add
+/ Mul nodes with one constant-only operand each, as a chain of
+observations of constant probability makes) of at least
+``SPINE_MIN_LINKS`` links is applied in one launch of
+``ops.spine_f64`` (``TracedF64Backend.eval_spine``), its links' constants
+made a template at a time: the 784-pixel naive-Bayes model's 15,680 links
+take 10 launches of it and ~30 others, not ~46,000, with the loop's bits.
+
 Every walk runs on a thread with a large stack (``_translate_big_stack``):
 deep observation chains such as the 784-pixel naive-Bayes model recurse
 past the default limit.
@@ -58,9 +66,11 @@ from .lang import ast
 from .lang.parser import parse_program
 from .numbers.scalar import F64
 from .ops.conv2d_f64 import k1_op
+from .ops.spine_f64 import pack_adds, spine_op
 from .semantics.gf_transformer import GfTransformer
 from .taylor.backend import TorchF64Backend, _conv_impl, _resolve_device
 from .taylor.host import _norm_shape
+from .taylor.tensorpoly import TaylorPoly
 from .taylor.xp import TorchNamespace
 
 
@@ -237,6 +247,101 @@ def _eval_sym(expr: SymGenFun, params, cache: dict, const):
 _PHASES = {"entry.warmup": "warmup", "entry.capture": "capture"}
 
 
+# ----------------------------------------------------------------------
+# constant spines in one launch (TracedF64Backend.eval_spine)
+# ----------------------------------------------------------------------
+
+#: a spine of fewer links keeps the link-by-link loop: the fused path
+#: launches a gather and an elementwise op or two a constant template, one
+#: concatenation and the kernel, so it saves launches only past that many
+#: links (the loop launches one to six a link)
+SPINE_MIN_LINKS = 8
+
+
+def _sym_template(expr, slots: list):
+    """``_eval_sym``'s operations on ``expr`` with its leaves abstracted:
+    a nested tuple whose leaves are ``("param",)`` and ``("lit",)``, their
+    values appended to ``slots`` in evaluation order; None where an
+    ``Exp`` or ``Log`` is met (torch's vectorized exp and log on the CPU
+    may round other than on one element)."""
+    k = expr.kind
+    if k == "Variable":
+        slots.append(("param", expr.var))
+        return ("param",)
+    if k == "Lit":
+        slots.append(("lit", expr.value.v))
+        return ("lit",)
+    if k == "Pow":
+        a = _sym_template(expr.a, slots)
+        return None if a is None else ("Pow", expr.n, a)
+    if k in ("Add", "Mul", "Div", "Max"):
+        a = _sym_template(expr.a, slots)
+        b = _sym_template(expr.b, slots)
+        return None if a is None or b is None else (k, a, b)
+    return None
+
+
+def _const_template(node, scalar_cls, slots: list):
+    """(host constant, template) of a constant-only subtree (``Const``
+    leaves under ``Add`` / ``Mul`` / ``Neg``) as ``TaylorPoly`` evaluates
+    it: the same host constant, and the elementwise operations that make
+    its value, ``Mul``'s zero and one fast paths taken on the host
+    constants as ``TaylorPoly.__mul__`` takes them.  The template is a
+    nested tuple over ``_sym_template``'s leaves, ``("zero",)``,
+    ``("neg", a)`` and the kinds ``Add``, ``Mul``; None where a leaf has
+    none (its slots are then meaningless)."""
+    k = node.kind
+    if k == "Const":
+        x = node.value
+        if hasattr(x, "expr"):
+            return x, _sym_template(x.expr, slots)
+        slots.append(("lit", x.v if isinstance(x, F64) else float(x)))
+        return x, ("lit",)
+    if k == "Neg":
+        hc, t = _const_template(node.args[0], scalar_cls, slots)
+        return -hc, None if t is None else ("neg", t)
+    sa, sb = [], []
+    ha, ta = _const_template(node.args[0], scalar_cls, sa)
+    hb, tb = _const_template(node.args[1], scalar_cls, sb)
+    if k == "Mul":
+        if ha.is_zero() or hb.is_zero():
+            return scalar_cls.zero(), ("zero",)
+        if ha.is_one():
+            slots.extend(sb)
+            return hb, tb
+        if hb.is_one():
+            slots.extend(sa)
+            return ha, ta
+    slots.extend(sa)
+    slots.extend(sb)
+    hc = ha + hb if k == "Add" else ha * hb
+    return hc, None if ta is None or tb is None else (k, ta, tb)
+
+
+def _eval_template(t, slots, zeros):
+    """The vector of a template's values, its slots' vectors taken in
+    order from the iterator ``slots``; ``zeros()`` is the zero vector."""
+    k = t[0]
+    if k in ("param", "lit"):
+        return next(slots)
+    if k == "zero":
+        return zeros()
+    if k == "neg":
+        return -_eval_template(t[1], slots, zeros)
+    if k == "Pow":
+        x = _eval_template(t[2], slots, zeros)
+        return torch.ones_like(x) if t[1] == 0 else _integer_pow(x, t[1])
+    a = _eval_template(t[1], slots, zeros)
+    b = _eval_template(t[2], slots, zeros)
+    if k == "Add":
+        return a + b
+    if k == "Mul":
+        return a * b
+    if k == "Div":
+        return a / b
+    return torch.maximum(a, b)
+
+
 class _ConstantNamespace(TorchNamespace):
     """``TorchNamespace`` whose ``asarray`` serves each distinct constant
     from ``cache`` (a dict the program owns): the first walk copies it to
@@ -327,6 +432,91 @@ class TracedF64Backend(TorchF64Backend):
 
     def conv_trunc(self, a, b, out_shape):
         return _conv_impl(a, b, _norm_shape(out_shape), conv2d=k1_op)
+
+    def eval_spine(self, base, links, constant):
+        """A spine of at least ``SPINE_MIN_LINKS`` links in one launch of
+        ``ops.spine_f64``: each link's constant is made by its template
+        (``_const_template``), a template's links together, a gather of
+        the parameters and its elementwise ops over the gathered vectors
+        (a link whose template has an ``Exp`` or ``Log`` by ``constant``,
+        one by one).  The host constants, ``linear`` and ``const0`` follow
+        ``TaylorPoly``'s ``G * c`` and ``G + c`` link by link, and so do
+        its fast paths: a ``Mul`` by a host constant one is skipped; one
+        that would make the series zero, or take the constant's place,
+        leaves the whole spine to the loop.  The result equals the loop's
+        in every field; counted in ``walk.spines_fused`` {links, phase}."""
+        if len(links) < SPINE_MIN_LINKS:
+            return super().eval_spine(base, links, constant)
+        loop = functools.partial(super().eval_spine, base, links, constant)
+        constant_base = base.is_constant()
+        ghc, lin, c0 = base.host_const, base.linear, base.const0
+        fused = []  # is_add, a link the kernel applies
+        groups: dict = {}  # template -> [(position, slots)]
+        opaque = []  # (position, node)
+        for op, node, left in links:
+            slots: list = []
+            hc, t = _const_template(node, self.scalar_cls, slots)
+            if op == "Mul":
+                if hc.is_zero() or constant_base and ghc is not None and (
+                        ghc.is_zero() or ghc.is_one()):
+                    return loop()
+                if hc.is_one():
+                    continue
+                # a constant series on the left keeps no linear form
+                lin = (None if lin is None or constant_base and not left
+                       else (hc * lin[0], hc * lin[1], lin[2]))
+                if ghc is not None:
+                    ghc = hc * ghc if left else ghc * hc
+                if c0 is not None:
+                    c0 = hc * c0 if left else c0 * hc
+            else:
+                if lin is not None:
+                    lin = (lin[0] + hc, lin[1], lin[2])
+                if ghc is not None:
+                    ghc = hc + ghc if left else ghc + hc
+                if c0 is not None:
+                    c0 = hc + c0 if left else c0 + hc
+            if c0 is None:  # TaylorPoly's constructor
+                c0 = ghc if ghc is not None else (
+                    None if lin is None else lin[0])
+            if t is None:
+                opaque.append((len(fused), node))
+            else:
+                groups.setdefault(t, []).append((len(fused), slots))
+            fused.append(op == "Add")
+        if len(fused) < SPINE_MIN_LINKS:
+            return loop()
+        xp, dt = self.jnp, self.dtype
+        parts, src = [], np.zeros(len(fused), dtype=np.int32)
+        made = 0  # constants in ``parts``
+        for t, members in groups.items():
+            cols = []
+            for col in zip(*(slots for _, slots in members)):
+                values = [v for _, v in col]
+                if col[0][0] == "param":
+                    cols.append(self.params[xp.asarray(
+                        np.array(values, dtype=np.int64), dtype=torch.long)])
+                else:
+                    cols.append(xp.asarray(values, dtype=dt))
+            n = len(members)
+            src[[pos for pos, _ in members]] = made + np.arange(n)
+            made += n
+            parts.append(_eval_template(
+                t, iter(cols), lambda: xp.asarray(np.zeros(n), dtype=dt)))
+        if opaque:
+            src[[pos for pos, _ in opaque]] = made + np.arange(len(opaque))
+            parts.append(torch.stack(
+                [constant(node).coeffs.reshape(()) for _, node in opaque]))
+        consts = parts[0] if len(parts) == 1 else torch.cat(parts)
+        coeffs = spine_op(base.coeffs.reshape(1, -1), consts.reshape(1, -1),
+                          xp.asarray(src, dtype=torch.int32),
+                          xp.asarray(pack_adds(fused), dtype=torch.int32))
+        if trace.on:
+            trace.count("walk.spines_fused", links=len(links),
+                        phase=_PHASES.get(trace.enclosing(_PHASES), "eager"))
+        return TaylorPoly(self, coeffs.reshape(base.coeffs.shape),
+                          base.degrees_p1, host_const=ghc, linear=lin,
+                          const0=c0)
 
 
 def _translate_big_stack(work, stack_mb: int = 256,

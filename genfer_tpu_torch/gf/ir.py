@@ -43,6 +43,8 @@ TAYLOR_COEFF_AT_ZERO = "TaylorCoeffAtZero"
 TAYLOR_COEFF = "TaylorCoeff"
 SHIFT_TAYLOR_AT_ZERO = "ShiftTaylorAtZero"
 MAX = "Max"
+#: the kinds a constant-only subtree holds above its Const leaves
+_CONST_OPS = (ADD, MUL, NEG)
 
 
 class GenFun:
@@ -50,7 +52,7 @@ class GenFun:
     reference: generating_function.rs:301-323)."""
 
     __slots__ = ("kind", "args", "var", "order", "orders", "value", "poly",
-                 "_uv")
+                 "_uv", "_ct")
 
     def __init__(self, kind, args=(), var=None, order=None, orders=None,
                  value=None, poly=None):
@@ -94,6 +96,10 @@ class GenFun:
                 if a._uv > uv:
                     uv = a._uv
             self._uv = uv
+        # a constant-only subtree: Const leaves under Add / Mul / Neg (the
+        # operand a constant spine's link applies, see _eval)
+        self._ct = (kind == CONST if not args else kind in _CONST_OPS
+                    and all(a._ct for a in args))
 
     # -- smart constructors (reference: generating_function.rs:49-149) --
     @staticmethod
@@ -517,41 +523,40 @@ class GenFun:
             return TaylorPoly.from_scalar(backend, self.value)
         if k == ADD or k == MUL:
             # Iterative constant-spine evaluation: a tower of Add/Mul
-            # nodes with one constant operand each — e.g.
+            # nodes with one constant-only operand each — e.g.
             # digitRecognition's 7840 constant-probability observations,
-            # each of which contributes Add(Mul(p, G), Const(0))
-            # (semantics/gf.rs:169-174, 306-316) — is evaluated by a loop
-            # applying each constant innermost-first.  This performs the
-            # *same sequence* of TaylorPoly operations as the recursive
-            # eval (bit-identical results, unlike folding the constants
-            # away at construction time, which changes which observation
-            # optimizer matches) while avoiding O(N) Python recursion and
-            # cache bookkeeping.  Only unshared links are inlined: a
-            # shared node keeps its cache entry for its other consumers.
+            # each of which contributes Add(Mul(G, p), Mul(0, 1 - p))
+            # (semantics/gf.rs:169-174, 306-316) — is handed to the
+            # backend's ``eval_spine`` innermost link first.  Its base
+            # implementation performs the *same sequence* of TaylorPoly
+            # operations as the recursive eval (bit-identical results,
+            # unlike folding the constants away at construction time,
+            # which changes which observation optimizer matches) while
+            # avoiding O(N) Python recursion and cache bookkeeping.  Only
+            # unshared links are inlined: a shared node keeps its cache
+            # entry for its other consumers.
             spine = []
             node = self
-            while True:
+            while node.kind in (ADD, MUL) and (
+                    not spine or cache.sole_consumer(node)):
                 x, y = node.args
-                nk = node.kind
-                if x.kind == CONST and y.kind != CONST:
-                    spine.append((nk, x.value, True))
-                    rest = y
-                elif y.kind == CONST and x.kind != CONST:
-                    spine.append((nk, y.value, False))
-                    rest = x
+                if x._ct and not y._ct:
+                    spine.append((node.kind, x, True))
+                    node = y
+                elif y._ct and not x._ct:
+                    spine.append((node.kind, y, False))
+                    node = x
                 else:
                     break
-                if rest.kind in (ADD, MUL) and cache.sole_consumer(rest):
-                    node = rest
-                    continue
-                result = rest.eval_with(backend, inputs, degree_p1, cache)
-                for op, cv, const_on_left in reversed(spine):
-                    cpoly = TaylorPoly.from_scalar(backend, cv)
-                    if op == ADD:
-                        result = cpoly + result if const_on_left else result + cpoly
-                    else:
-                        result = cpoly * result if const_on_left else result * cpoly
-                return result
+            if spine:
+                def constant(c):
+                    if c.kind == CONST:
+                        return TaylorPoly.from_scalar(backend, c.value)
+                    return c.eval_with(backend, inputs, degree_p1, cache)
+
+                base = node.eval_with(backend, inputs, degree_p1, cache)
+                spine.reverse()
+                return backend.eval_spine(base, spine, constant)
             if k == ADD:
                 return self.args[0].eval_with(backend, inputs, degree_p1, cache) + \
                     self.args[1].eval_with(backend, inputs, degree_p1, cache)

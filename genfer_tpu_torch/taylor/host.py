@@ -151,6 +151,22 @@ class Backend:
             arr = self.sum_axis(arr, 0)
         return arr
 
+    # ---- a constant spine of the GF DAG (gf/ir.py::GenFun._eval) -----
+    def eval_spine(self, base, links, constant):
+        """Apply ``links`` to the TaylorPoly ``base``, innermost first:
+        each is ``(op, node, left)`` with ``op`` the node kind "Add" or
+        "Mul", ``node`` the constant-only subtree it applies (a
+        TaylorPoly by ``constant(node)``) and ``left`` whether it stands
+        on the left.  Op for op what the recursive evaluation does."""
+        result = base
+        for op, node, left in links:
+            c = constant(node)
+            if op == "Add":
+                result = c + result if left else result + c
+            else:
+                result = c * result if left else result * c
+        return result
+
     # ---- per-axis scaling by a list of host factors -----------------
     def scale_axis(self, arr, axis: int, factors: Sequence):
         """Multiply slice ``i`` along ``axis`` by host scalar ``factors[i]``
