@@ -243,10 +243,6 @@ def _eval_sym(expr: SymGenFun, params, cache: dict, const):
     return out
 
 
-#: the spans of ``GraphedEntry.capture`` that name a walk's phase
-_PHASES = {"entry.warmup": "warmup", "entry.capture": "capture"}
-
-
 # ----------------------------------------------------------------------
 # constant spines in one launch (TracedF64Backend.eval_spine)
 # ----------------------------------------------------------------------
@@ -361,8 +357,7 @@ class _ConstantNamespace(TorchNamespace):
         if hit is None:
             hit = self.cache[key] = super().asarray(arr, dtype)
             if trace.on:
-                trace.count("walk.constants_copied", phase=_PHASES.get(
-                    trace.enclosing(_PHASES), "eager"))
+                trace.count("walk.constants_copied", phase=trace.phase())
         return hit
 
 
@@ -513,7 +508,7 @@ class TracedF64Backend(TorchF64Backend):
                           xp.asarray(pack_adds(fused), dtype=torch.int32))
         if trace.on:
             trace.count("walk.spines_fused", links=len(links),
-                        phase=_PHASES.get(trace.enclosing(_PHASES), "eager"))
+                        phase=trace.phase())
         return TaylorPoly(self, coeffs.reshape(base.coeffs.shape),
                           base.degrees_p1, host_const=ghc, linear=lin,
                           const0=c0)

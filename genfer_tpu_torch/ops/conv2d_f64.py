@@ -38,8 +38,9 @@ equals the single-pair call bit for bit.  Both wrappers count the kernel's
 launches in ``conv2d_trunc_f64.launches`` and, by body, in
 ``conv2d_trunc_f64.launches_by_body`` (CPU calls add nothing); while a
 recording of the port's tracer is open, each launch also counts in
-``k1.products`` {body, a, b, out} (one pair's operand shapes and the
-whole product's out shape).
+``k1.products`` {body, a, b, out, phase} (one pair's operand shapes, the
+whole product's out shape, and the walk's phase, ``trace.phase``: a
+reader takes a captured walk's products alone).
 
 ``rows=(r0, r1)`` asks for output rows [r0, r1) only, a (r1 - r0, c1)
 result: the local body of the sharded routes (``parallel.mesh``), each
@@ -287,7 +288,7 @@ def conv2d_trunc_f64_batched(a, b, out_shape, flag=None, rows=None):
     conv2d_trunc_f64.launches_by_body[body] += 1
     if trace.on:
         trace.count("k1.products", body=body, a=tuple(a.shape[1:]),
-                    b=tuple(b.shape[1:]), out=(c0, c1))
+                    b=tuple(b.shape[1:]), out=(c0, c1), phase=trace.phase())
     conv2d_trunc_f64.windowed_by_body[body] += window is not None
     conv2d_trunc_f64.predicated += flag is not None
     return out

@@ -166,8 +166,10 @@ def generate_population(out_path, size: int, num_vars: int,
     return _emit(out_path, "\n".join(lines) + "\n")
 
 
-def generate_two_populations(out_path, size: int, seed: int = 0) -> str:
-    """Two-species population model (reference: generate_two_populations.rs)."""
+def _two_populations_data(size: int, seed: int = 0):
+    """The published constants at ``size`` and the simulated counts of
+    ``seed``: (initial rates, each round's arrival rates, migration,
+    survival of species 1 and 2, detection, each round's counts)."""
     rng = np.random.default_rng(seed)
     fr = ARRIVAL_RATE_FRACTIONS
     arrival_rates = [(f * 0.9 * size, f * 0.1 * size) for f in fr]
@@ -175,7 +177,7 @@ def generate_two_populations(out_path, size: int, seed: int = 0) -> str:
     survival = SURVIVAL_RATE
     det = DETECTION_PROB
     pops = [(int(rng.poisson(arrival_rates[0][0])), int(rng.poisson(arrival_rates[0][1])))]
-    obs = [(0, 0)]
+    obs = []
     for i in range(1, 5):
         new1 = int(rng.poisson(arrival_rates[i][0]))
         new2 = int(rng.poisson(arrival_rates[i][1]))
@@ -187,27 +189,55 @@ def generate_two_populations(out_path, size: int, seed: int = 0) -> str:
         obs.append(
             (int(rng.binomial(pops[i][0], det)), int(rng.binomial(pops[i][1], det)))
         )
+    return (arrival_rates[0], arrival_rates[1:], prob1to2,
+            survival * (1 - prob1to2), survival, det, obs)
+
+
+def _two_populations_text(init, arrivals, mig, s1, s2, det, obs) -> str:
     lines = [
-        f"population1 ~ Poisson({arrival_rates[0][0]});",
-        f"population2 ~ Poisson({arrival_rates[0][1]});",
+        f"population1 ~ Poisson({init[0]});",
+        f"population2 ~ Poisson({init[1]});",
     ]
-    for i in range(4):
+    for (a1, a2), (c1, c2) in zip(arrivals, obs):
         lines.append("")
         lines.append(
-            f"population2 +~ Binomial(population1, {prob1to2});\n"
-            f"population1 ~ Binomial(population1, {survival * (1 - prob1to2)});\n"
-            f"population2 ~ Binomial(population2, {survival});"
+            f"population2 +~ Binomial(population1, {mig});\n"
+            f"population1 ~ Binomial(population1, {s1});\n"
+            f"population2 ~ Binomial(population2, {s2});"
         )
         lines.append(
-            f"population1 +~ Poisson({arrival_rates[i + 1][0]});\n"
-            f"population2 +~ Poisson({arrival_rates[i + 1][1]});"
+            f"population1 +~ Poisson({a1});\n"
+            f"population2 +~ Poisson({a2});"
         )
         lines.append(
-            f"observe {obs[i + 1][0]} ~ Binomial(population1, {det});\n"
-            f"observe {obs[i + 1][1]} ~ Binomial(population2, {det});"
+            f"observe {c1} ~ Binomial(population1, {det});\n"
+            f"observe {c2} ~ Binomial(population2, {det});"
         )
     lines += ["", "return population2"]
-    return _emit(out_path, "\n".join(lines) + "\n")
+    return "\n".join(lines) + "\n"
+
+
+def generate_two_populations(out_path, size: int, seed: int = 0) -> str:
+    """Two-species population model (reference: generate_two_populations.rs)."""
+    return _emit(out_path,
+                 _two_populations_text(*_two_populations_data(size, seed)))
+
+
+def two_populations_serving(size: int, seed: int = 0) -> tuple[str, dict]:
+    """``generate_two_populations``'s program with three parameters in
+    place of published probabilities: ``$s1`` for species 1's survival
+    times (1 - migration), ``$s2`` for species 2's survival and ``$det``
+    for the detection of every observation; every other constant as
+    generated.  Returns the source and its constants (the ``model`` of
+    the benchmark's reference,
+    ``benchmark/reference/two_populations_2000.py``)."""
+    init, arrivals, mig, _, _, _, obs = _two_populations_data(size, seed)
+    source = _two_populations_text(init, arrivals, mig, "$s1", "$s2",
+                                   "$det", obs)
+    model = {"init_rates": list(init),
+             "arrival_rates": [list(a) for a in arrivals],
+             "migration": mig, "observed": [list(c) for c in obs]}
+    return source, model
 
 
 DIGIT_PRIORS = [

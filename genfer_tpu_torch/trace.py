@@ -186,6 +186,17 @@ def carry(work):
     return carried
 
 
+#: the spans of ``compile.GraphedEntry.capture`` that name a walk's phase
+PHASES = {"entry.warmup": "warmup", "entry.capture": "capture"}
+
+
+def phase() -> str:
+    """The phase of the walk running in this context: ``warmup`` or
+    ``capture`` inside ``GraphedEntry.capture``'s spans, else ``eager``
+    (a count's ``phase`` attribute)."""
+    return PHASES.get(enclosing(PHASES), "eager")
+
+
 def enclosing(names) -> str | None:
     """The innermost open span of this context whose name is in
     ``names``, or None."""

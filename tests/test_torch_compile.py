@@ -2,7 +2,7 @@
 genfer_tpu's ``compile``: the same seeded numpy parameters through both,
 the JAX package on the CPU as its own tests run it, the port with
 ``device="cpu"``, at rtol 1e-12 (both walk the same DAG in IEEE f64; the
-scam and digit models agree bit for bit).  Also the pieces the walk needs
+scam and digit models agree bit for bit, two_populations to ~1e-15).  Also the pieces the walk needs
 under ``torch.func.vmap``: K1's custom op and its vmap rule, the
 out-of-place ``_exp1d`` and ``_set_first``; the host ``api.infer`` twin;
 and, on the card, one K1 launch a vmapped product and a CUDA-graph replay
@@ -33,7 +33,10 @@ from genfer_tpu_torch.taylor.backend import (
     _exp1d,
 )
 from genfer_tpu_torch.taylor.host import IvArr
-from genfer_tpu_torch.tools.generators import digit_serving_source
+from genfer_tpu_torch.tools.generators import (
+    digit_serving_source,
+    two_populations_serving,
+)
 
 RTOL = 1e-12
 
@@ -174,6 +177,22 @@ def test_digit_model_20_pixels_batch_8():
     # pytest process leaves: trace it on its big-stack thread
     _close(got, _translate_big_stack(
         lambda: np.asarray(j.probs_batch(_j(ev)))))
+
+
+def test_two_populations_size_20_batch_6():
+    """genfer's two_populations program with survival and detection as
+    parameters (the benchmark's ``two_populations_2000`` at size 20): a
+    parameterized thinning of a variable by itself and observations under
+    a symbolic ``$det``."""
+    src, _ = two_populations_serving(20)
+    params = ["s1", "s2", "det"]
+    j = jcompile(src, params=params, limit=20)
+    t = C.compile_program(src, params=params, limit=20, device="cpu")
+    grid = np.random.default_rng(3).uniform(0.1, 0.4, (6, 3))
+    got = t.probs_batch(grid)
+    assert got.shape == (6, 20) and (got[:, 0] > 0).all()
+    _close(got, _translate_big_stack(
+        lambda: np.asarray(j.probs_batch(_j(grid)))))
 
 
 def test_a_host_read_raises_in_both():

@@ -4,13 +4,14 @@ of the serving path.
 On the CPU: parent and call ids of nested spans and ``self_ns``; counts by
 attributes; nested recordings; the span cap with ``dropped``; no trace at
 all with no recording open, over 1000 served calls; the translation's
-spans; the constants' copies by the walk's phase; and the spans mirrored
-into ``torch.profiler`` inside their own intervals.  On the card (marked
-``cuda``): the captured graph's kernel nodes against the profiler's kernels
-of one replay, no constant copied in a capture, one warm-up and one
-capture a key, a replay a call, the shared clock of the replay span and
-its kernels, and ``--profile DIR`` holding ``genfer.kernels.load``.  The
-file imports no JAX, so the card machine collects it."""
+spans; the constants' copies and K1's products by the walk's phase; and
+the spans mirrored into ``torch.profiler`` inside their own intervals.  On
+the card (marked ``cuda``): the captured graph's kernel nodes against the
+profiler's kernels of one replay, no constant copied in a capture, one
+warm-up and one capture a key, K1's products by phase, a replay a call,
+the shared clock of the replay span and its kernels, and ``--profile
+DIR`` holding ``genfer.kernels.load``.  The file imports no JAX, so the
+card machine collects it."""
 
 import json
 import subprocess
@@ -25,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from genfer_tpu_torch import compile as C
 from genfer_tpu_torch import trace
+from genfer_tpu_torch.ops import conv2d_f64 as K1
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -152,6 +154,30 @@ def test_constant_copies_count_by_phase(around, phase):
                 ns.asarray(3.0)
     assert rec.count("walk.constants_copied") == 2
     assert rec.count("walk.constants_copied", phase=phase) == 2
+
+
+@pytest.mark.parametrize("around,phase", [
+    (None, "eager"), ("entry.warmup", "warmup"), ("entry.capture", "capture"),
+])
+def test_k1_products_count_by_phase(around, phase, monkeypatch):
+    """``k1.products`` {body, a, b, out, phase}: each launch counts under
+    the phase of the walk that made it (K1's launch replaced by its plain
+    version, so that the count is made on the CPU)."""
+    monkeypatch.setattr(K1, "_on_card", lambda a: True)
+    monkeypatch.setattr(K1, "_launch", lambda body, a, b, c0, c1, flag,
+                        rows: K1.conv2d_trunc_f64_batched_reference(
+                            a, b, (c0, c1)))
+    a = torch.ones((3, 5, 4), dtype=torch.float64)
+    b = torch.ones((3, 2, 2), dtype=torch.float64)
+    with trace.recording() as rec:
+        with trace.span(around) if around else trace.span("entry.call"):
+            with trace.span("deeper"):
+                K1.conv2d_trunc_f64_batched(a, b, (6, 5))
+                K1.conv2d_trunc_f64_batched(a, b, (6, 5))
+    tag = {"body": "small", "a": (5, 4), "b": (2, 2), "out": (6, 5)}
+    assert rec.count("k1.products", **tag) == 2
+    assert rec.count("k1.products", phase=phase, **tag) == 2
+    assert trace.phase() == "eager"
 
 
 # ----------------------------------------------------------------------
@@ -283,6 +309,8 @@ def test_captures_replays_and_graph_nodes_on_the_card(card):
     assert rec.count("walk.constants_copied", phase="capture") == 0
     assert rec.count("walk.constants_copied", phase="warmup") > 0
     assert rec.count("k1.products", body="small") == 4 * 26
+    for phase in ("warmup", "capture"):
+        assert rec.count("k1.products", body="small", phase=phase) == 2 * 26
     nodes = rec.count("graph.nodes", kind="kernel") // 2
     assert nodes > 0
 
