@@ -244,6 +244,11 @@ result):
    cascade (order 128, 200 datasets), the committed dataset's posterior
    at is_close of the host interpreter (Z printed beside it: the cascade
    at order 128 and the interpreter differ by ~1e-8 of it).
+18. the compiled walk's padded sums in one pass (``ops.lincomb_f64``) at
+   ``LINCOMB_FORMS``, 128 rows of 374 x 374 (``mul_linear``'s form and a
+   padded add): bit for bit its plain version (the op-by-op pad,
+   multiply and add on the card; NaN where NaN), both timed in a CUDA
+   graph beside the bytes bound.
 
 Each of phases 4-6, 8-13, 15, 16 (around (a) and each run of (c)) and
 17 (around each of its main path's runs) sets the launch counts to 0 just
@@ -257,8 +262,9 @@ one-pass K2, K4a and K4b (one TF32 pass).  The second-to-last line is
 the kernel table as JSON, with one entry for each of K1's bodies (and its
 launches with a row window in phase 16, ``window_launches``), each of
 K5's impls, one for the split, one for each one-pass kernel
-(``[1pass]``), one for the rounding kernel and one for the spine kernel
-(at the digit model's shape); the last line is
+(``[1pass]``), one for the rounding kernel, one for the spine kernel
+(at the digit model's shape) and one for the sum kernel (``mul_linear``'s
+form); the last line is
 ``{"ok": true, "device": {...}}``.
 Everything is reached through ``genfer_tpu_torch``; nothing here imports
 jax or genfer_tpu.
@@ -461,6 +467,19 @@ SPINE_REPLACES = ("none: XLA fused the JAX walk's constant chain under "
                   "jit (gf/ir.py::GenFun._eval)")
 #: the launches of the spine kernel a digit walk makes: one a class
 DIGIT_SPINES = 10
+# phase 18: the walk's padded sums in one pass (ops/lincomb_f64.py) at the
+# largest series two_populations(2000) serves, 128 rows of 374 x 374: the
+# form of ``mul_linear`` (G (374, 373) a row, m at offset 1 along the last
+# axis plus c at 0, one factor each a row) and a padded add of two
+# operands that each fill part of the result
+LINCOMB_ROWS = 128
+LINCOMB_FORMS = {
+    "mul_linear": ((374, 373), None, (374, 374), (0, 1)),
+    "add": ((374, 300), (310, 374), (374, 374), (0, 0)),
+}
+LINCOMB_SOURCE = "genfer_tpu_torch/csrc/lincomb_f64.cu"
+LINCOMB_REPLACES = ("none: XLA fused the pad / scale / add under `jit` "
+                    "(taylor/tensorpoly.py's sums)")
 MODEL_REL = 1e-9  # phase 12 against the CPU classes, and phase 11's digits
 POP_REL = 1e-10  # phase 12 against the host interpreter
 SCAN_LIMIT, SCAN_STEPS, SCAN_BATCH = 256, 20, 64  # the bench's sizes
@@ -982,6 +1001,7 @@ def _counted(launches: dict, must: tuple, what: str):
     if a kernel of ``must`` was not launched."""
     from genfer_tpu_torch.ops.conv2d import tf32_round_operands
     from genfer_tpu_torch.ops.conv2d_f64 import reset_launches
+    from genfer_tpu_torch.ops.lincomb_f64 import lincomb_f64
     from genfer_tpu_torch.ops.spine_f64 import spine_f64
 
     wrappers = _wrappers()
@@ -991,10 +1011,12 @@ def _counted(launches: dict, must: tuple, what: str):
             w.launches_1pass = 0
     tf32_round_operands.launches = 0
     spine_f64.launches = 0
+    lincomb_f64.launches = 0
     reset_launches()
     yield
     counts = {name: w.launches for name, w in wrappers.items()}
     counts["spine_f64"] = spine_f64.launches
+    counts["lincomb_f64"] = lincomb_f64.launches
     counts.update({ONE_PASS_KERNELS[name][0]: w.launches_1pass
                    for name, w in wrappers.items()
                    if name in ONE_PASS_KERNELS})
@@ -1513,6 +1535,56 @@ def phase11_spine(rng) -> dict:
               f"{100 * bound / dev:.1f}%), {SPINE_CHAIN_ROWS} rows alone "
               f"{chain * 1e3:.2f} us (the chain), plain version "
               f"{row['plain_ms']:.3f} ms")
+    return rows_out
+
+
+def phase18_lincomb(rng) -> dict:
+    """The one-pass sum kernel against its plain version (the op-by-op
+    pad, multiply and add on the card) at ``LINCOMB_FORMS``, bits compared
+    (NaN where NaN), and both timed in a CUDA graph beside the bytes bound
+    (each operand read once, the result written once, over 3.35 TB/s); the
+    kernel table's row is ``mul_linear``'s."""
+    from genfer_tpu_torch.bench import bound_ms
+    from genfer_tpu_torch.ops.lincomb_f64 import (
+        lincomb_f64,
+        lincomb_f64_reference,
+    )
+
+    rows_out = {}
+    for form, (sa, sb, shape, pa) in LINCOMB_FORMS.items():
+        a = torch.from_numpy(rng.uniform(-1, 1, (LINCOMB_ROWS, *sa))).cuda()
+        if sb is None:  # mul_linear: G at offset pa times m, plus c * G
+            b, pb = a, [0, 0]
+            alpha, beta = (torch.from_numpy(rng.uniform(0.1, 0.9,
+                                                        LINCOMB_ROWS)).cuda()
+                           for _ in range(2))
+        else:
+            b = torch.from_numpy(rng.uniform(-1, 1,
+                                             (LINCOMB_ROWS, *sb))).cuda()
+            pb, alpha, beta = [0, 0], None, None
+        args = (a, b, alpha, beta, list(shape), list(pa), pb, False)
+        got = lincomb_f64(*args)
+        want = lincomb_f64_reference(*args)
+        nan = torch.isnan(want)
+        if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+                got.masked_fill(nan, 0).view(torch.int64),
+                want.masked_fill(nan, 0).view(torch.int64))):
+            bad = int((got != want).sum())
+            fail(f"lincomb_f64 {form}: {bad} words differ from the plain "
+                 "version")
+        nbytes = 8.0 * (a.numel() + (0 if b is a else b.numel())
+                        + got.numel())
+        bound, by = bound_ms(0.0, nbytes)
+        dev = _graph_ms(lambda: lincomb_f64(*args))
+        plain = _graph_ms(lambda: lincomb_f64_reference(*args))
+        row = {"max_abs_err": 0.0, "ms": dev, "plain_ms": plain,
+               "library_ms": None, "bound_ms": bound, "bound_by": by}
+        rows_out[form] = row
+        print(f"phase 18 lincomb_f64 {form} {LINCOMB_ROWS} x {shape}: the "
+              f"plain version's bits; device {dev * 1e3:.2f} us a call in a "
+              f"graph of {GRAPH_CALLS}, bound {bound * 1e3:.2f} us ({by}, "
+              f"{100 * bound / dev:.1f}%), the op-by-op sequence "
+              f"{plain * 1e3:.2f} us ({plain / dev:.2f} x)")
     return rows_out
 
 
@@ -3594,6 +3666,12 @@ def kernel_table(rows: dict, launches: dict, windowed: dict) -> list:
         "name": "spine_f64", "route": "cuda", "source": SPINE_SOURCE,
         "replaces": SPINE_REPLACES, "launches": launches.get("spine_f64", 0),
         "shape": [rows_n, list(shape), links], **row})
+    table.append({
+        "name": "lincomb_f64", "route": "cuda", "source": LINCOMB_SOURCE,
+        "replaces": LINCOMB_REPLACES,
+        "launches": launches.get("lincomb_f64", 0),
+        "shape": [LINCOMB_ROWS, list(LINCOMB_FORMS["mul_linear"][2])],
+        **rows["lincomb_f64"]["mul_linear"]})
     k1 = rows["conv2d_trunc_f64"]
     for body, (source, shape) in K1_BODIES.items():
         kind = "normal" if shape == K1_DENSE_512 else "uniform"
@@ -3633,6 +3711,7 @@ def main() -> None:
     windowed = phase16_mesh(launches)
     one_pass = phase17_one_pass_kernels()
     phase17_main_path(launches)
+    rows["lincomb_f64"] = phase18_lincomb(np.random.default_rng(0))
     rows.update({ONE_PASS_KERNELS[name][0] if name in ONE_PASS_KERNELS
                  else name: r for name, r in one_pass.items()})
     print_shares(rows, bench)

@@ -123,6 +123,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         ("ozaki_conv2d", [ptr] * 9 + [i32, ptr] + [i32] * 14 + [ptr]),
         ("ozaki_small", [ptr] * 7 + [i32] * 12 + [ptr]),
         ("spine_f64", [ptr, i64, ptr, i64] + [ptr] * 3 + [i32] * 3 + [ptr]),
+        ("lincomb_f64", [ptr, ptr]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

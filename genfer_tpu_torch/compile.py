@@ -35,6 +35,10 @@ observations of constant probability makes) of at least
 ``ops.spine_f64`` (``TracedF64Backend.eval_spine``), its links' constants
 made a template at a time: the 784-pixel naive-Bayes model's 15,680 links
 take 10 launches of it and ~30 others, not ~46,000, with the loop's bits.
+Each sum ``TaylorPoly`` makes (a padded add or sub, ``mul_var``,
+``mul_linear``'s ``G * (c + m x_v)``) is one launch of ``ops.lincomb_f64``
+(``TracedF64Backend.lincomb``) in place of its pads, products and add,
+with their bits.
 
 Every walk runs on a thread with a large stack (``_translate_big_stack``):
 deep observation chains such as the 784-pixel naive-Bayes model recurse
@@ -66,10 +70,11 @@ from .lang import ast
 from .lang.parser import parse_program
 from .numbers.scalar import F64
 from .ops.conv2d_f64 import k1_op
+from .ops.lincomb_f64 import lincomb
 from .ops.spine_f64 import pack_adds, spine_op
 from .semantics.gf_transformer import GfTransformer
 from .taylor.backend import TorchF64Backend, _conv_impl, _resolve_device
-from .taylor.host import _norm_shape
+from .taylor.host import Term, _norm_shape
 from .taylor.tensorpoly import TaylorPoly
 from .taylor.xp import TorchNamespace
 
@@ -427,6 +432,30 @@ class TracedF64Backend(TorchF64Backend):
 
     def conv_trunc(self, a, b, out_shape):
         return _conv_impl(a, b, _norm_shape(out_shape), conv2d=k1_op)
+
+    def lincomb(self, shape, a, b=None, sub=False):
+        """``Backend.lincomb`` in one launch of ``ops.lincomb_f64``, with
+        its bits: a Term's factor (``scalar(scale)`` or ``left``) and
+        offsets go to the kernel, which reads its operand as it is.
+        Counted in ``walk.lincombs_fused`` {site: add, sub, mul_var,
+        mul_linear; phase}."""
+        shape = list(_norm_shape(shape))
+        if trace.on:
+            site = ("sub" if sub else "add" if not isinstance(a, Term)
+                    else "mul_var" if b is None else "mul_linear")
+            trace.count("walk.lincombs_fused", site=site,
+                        phase=trace.phase())
+        a, alpha, pa = self._lincomb_operand(a, len(shape))
+        b, beta, pb = self._lincomb_operand(b, len(shape))
+        return lincomb(a, b, alpha, beta, shape, pa, pb, sub)
+
+    def _lincomb_operand(self, t, axes):
+        """(operand, 0-d factor or None, offsets) of an array, a Term or
+        None; the op cuts an operand that passes the end of an axis."""
+        if not isinstance(t, Term):
+            return t, None, [0] * axes
+        factor = self.scalar(t.scale) if t.scale is not None else t.left
+        return t.arr, factor, list(t.pre or (0,) * axes)
 
     def eval_spine(self, base, links, constant):
         """A spine of at least ``SPINE_MIN_LINKS`` links in one launch of

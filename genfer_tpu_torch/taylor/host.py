@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 
@@ -47,6 +47,41 @@ def _norm_shape(shape: Sequence[int]) -> Shape:
         else:
             return shape
     return tuple(int(s) for s in shape)
+
+
+class Term(NamedTuple):
+    """A coefficient tensor of ``shape`` not made yet, for
+    ``Backend.lincomb``: ``arr`` times a factor, at the offsets ``pre``
+    (None: 0) of a zero tensor of ``shape``, ``arr`` cut where it would
+    pass the end of an axis.  The factor is the host scalar ``scale``
+    (``Backend.scale``: ``arr * scale``) or the 0-d array ``left``
+    (``Backend.mul``: ``left * arr``); with neither, ``arr`` itself."""
+
+    arr: Any
+    shape: Shape
+    pre: Shape | None = None
+    scale: Any = None
+    left: Any = None
+
+
+def _pad_with_offsets(b: "Backend", arr, shape, pre):
+    """Zero tensor of ``shape`` with ``arr`` placed at the offsets
+    ``pre``."""
+    ashape = b.shape(arr)
+    if isinstance(b, ObjectBackend):
+        out = b.zeros(shape)
+        idx = tuple(
+            slice(p, p + s) for p, s in zip(pre, ashape)
+        )
+        out[idx] = arr
+        return out
+    if isinstance(b, ArrayIntervalBackend):
+        pads = [(0, 0)] + [
+            (p, t - p - s) for p, t, s in zip(pre, shape, ashape)
+        ]
+        return IvArr(b.jnp.pad(arr.data, pads))
+    pads = [(p, t - p - s) for p, t, s in zip(pre, shape, ashape)]
+    return b.jnp.pad(arr, pads)
 
 
 class Backend:
@@ -166,6 +201,39 @@ class Backend:
             else:
                 result = c * result if left else result * c
         return result
+
+    # ---- a sum of padded, scaled and shifted operands (TaylorPoly) ---
+    def lincomb(self, shape, a, b=None, sub: bool = False):
+        """The coefficients of ``shape`` that ``a + b`` gives (``a - b``
+        where ``sub``; ``a`` alone where ``b`` is None), each operand an
+        array zero-padded at the high end of each axis to ``shape``, or a
+        ``Term`` made first.  ``TaylorPoly``'s ``__add__``, ``__sub__``,
+        ``mul_var`` and ``mul_linear`` make their coefficients here.  This
+        default makes them op by op: a Term by ``scale`` or ``mul``, its
+        cut and ``_pad_with_offsets``, then ``pad_to`` and ``add`` /
+        ``sub``; a backend may make them in one pass, with the same
+        bits."""
+        shape = _norm_shape(shape)
+        a = self.pad_to(self._make_term(a), shape)
+        if b is None:
+            return a
+        b = self.pad_to(self._make_term(b), shape)
+        return self.sub(a, b) if sub else self.add(a, b)
+
+    def _make_term(self, t):
+        if not isinstance(t, Term):
+            return t
+        arr = t.arr
+        if t.scale is not None:
+            arr = self.scale(arr, t.scale)
+        if t.left is not None:
+            arr = self.mul(t.left, arr)
+        if t.pre is None:
+            return arr
+        for ax, n in enumerate(t.shape):
+            if self.shape(arr)[ax] > n - t.pre[ax]:
+                arr = self.slice_axis(arr, ax, 0, n - t.pre[ax])
+        return _pad_with_offsets(self, arr, list(t.shape), t.pre)
 
     # ---- per-axis scaling by a list of host factors -----------------
     def scale_axis(self, arr, axis: int, factors: Sequence):

@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..numbers.scalar import F64
-from .host import ArrayF64Backend, Backend
+from .host import ArrayF64Backend, Backend, Term
 
 import os
 
@@ -822,7 +822,7 @@ class TaylorPoly:
         shape = a2._max_shape(b2)
         a2 = a2._truncate_degrees_p1(shape)
         b2 = b2._truncate_degrees_p1(shape)
-        result = b.add(b.pad_to(a2.coeffs, shape), b.pad_to(b2.coeffs, shape))
+        result = b.lincomb(shape, a2.coeffs, b2.coeffs)
         return TaylorPoly(b, result, result_degrees, host_const=hc,
                           linear=lin, const0=c0)
 
@@ -846,7 +846,7 @@ class TaylorPoly:
             return TaylorPoly(b, coeffs, result_degrees, host_const=hc,
                               linear=lin, const0=c0)
         shape = a2._max_shape(b2)
-        result = b.sub(b.pad_to(a2.coeffs, shape), b.pad_to(b2.coeffs, shape))
+        result = b.lincomb(shape, a2.coeffs, b2.coeffs, sub=True)
         return TaylorPoly(b, result, result_degrees, host_const=hc,
                           linear=lin, const0=c0)
 
@@ -863,6 +863,11 @@ class TaylorPoly:
         )
 
     def __mul__(self, other: "TaylorPoly"):
+        return self._mul(other)
+
+    def _mul(self, other: "TaylorPoly", defer: bool = False):
+        """``self * other``; with ``defer`` a product by a constant leaves
+        its coefficients a ``Term`` (``mul_linear``'s sum makes them)."""
         b = self.backend
         degrees = self.min_degrees_p1(other)
         if self.is_zero() or other.is_zero():
@@ -879,6 +884,8 @@ class TaylorPoly:
         if a2.host_const is not None and b2.host_const is not None:
             hc = a2.host_const * b2.host_const
         c0 = _c0_of(a2, b2, lambda x, y: x * y)
+        scaled = ((lambda k, arr: Term(arr, b.shape(arr), left=k)) if defer
+                  else b.mul)
         # constant fast paths (shape-based, reference: 1040-1047)
         ca = a2.extract_constant()
         if ca is not None:
@@ -886,7 +893,7 @@ class TaylorPoly:
             if b2.linear is not None and a2.host_const is not None:
                 c, m, v = b2.linear
                 lin = (a2.host_const * c, a2.host_const * m, v)
-            coeffs = b.mul(ca, b2.coeffs)
+            coeffs = scaled(ca, b2.coeffs)
             return TaylorPoly(b, coeffs, degrees, host_const=hc, linear=lin,
                               const0=c0)
         cb = b2.extract_constant()
@@ -895,7 +902,7 @@ class TaylorPoly:
             if a2.linear is not None and b2.host_const is not None:
                 c, m, v = a2.linear
                 lin = (b2.host_const * c, b2.host_const * m, v)
-            coeffs = b.mul(cb, a2.coeffs)
+            coeffs = scaled(cb, a2.coeffs)
             return TaylorPoly(b, coeffs, degrees, host_const=hc, linear=lin,
                               const0=c0)
         # linear fast paths (reference: 1049-1061)
@@ -915,28 +922,29 @@ class TaylorPoly:
         result = b.conv_trunc(a2.coeffs, b2.coeffs, shape)
         return TaylorPoly(b, result, degrees, const0=c0)
 
-    def mul_var(self, m, v: int, shape, degrees):
-        """Multiply by m * x_v (reference: 589-608)."""
+    def mul_var(self, m, v: int, shape, degrees, defer: bool = False):
+        """Multiply by m * x_v (reference: 589-608): ``self * m`` cut to
+        ``shape`` at offset 1 along axis v of zeros(shape); with ``defer``
+        the coefficients are left a ``Term``."""
         b = self.backend
         upper = min(shape[v] - 1, self.coeffs_shape()[v])
-        coeffs = b.slice_axis(self.coeffs, v, 0, upper)
-        coeffs = b.scale(coeffs, m)
-        cshape = b.shape(coeffs)
-        for ax in range(len(cshape)):
-            if b.shape(coeffs)[ax] > shape[ax]:
-                coeffs = b.slice_axis(coeffs, ax, 0, shape[ax])
-        # embed at offset 1 along axis v into zeros(shape)
-        result = _embed(b, coeffs, shape, v, 1)
-        return TaylorPoly(b, result, degrees,
-                          const0=b.scalar_cls.zero())
+        pre = [0] * len(shape)
+        pre[v] = 1
+        term = Term(b.slice_axis(self.coeffs, v, 0, upper), tuple(shape),
+                    tuple(pre), scale=m)
+        return TaylorPoly(b, term if defer else b.lincomb(shape, term),
+                          degrees, const0=b.scalar_cls.zero())
 
     def mul_linear(self, c, m, v: int, shape, degrees):
-        """Multiply by c + m * x_v (reference: 611-623)."""
+        """Multiply by c + m * x_v (reference: 611-623): ``mul_var`` plus
+        ``self * c``, both left Terms that the sum's ``lincomb`` makes in
+        one step.  ``__mul__`` takes a constant ``self`` first, so neither
+        summand has a single coefficient (``__add__``'s paths that would
+        read one)."""
         if c.is_zero():
             return self.mul_var(m, v, shape, degrees)
-        return self.mul_var(m, v, shape, degrees) + self * TaylorPoly.from_scalar(
-            self.backend, c
-        )
+        return self.mul_var(m, v, shape, degrees, defer=True) + self._mul(
+            TaylorPoly.from_scalar(self.backend, c), defer=True)
 
     def __truediv__(self, other: "TaylorPoly"):
         b = self.backend
@@ -1152,34 +1160,6 @@ def _sat_sub(d, n):
     if d == INF_DEGREE:
         return INF_DEGREE
     return max(0, int(d) - n)
-
-
-def _embed(b: Backend, arr, shape, axis: int, offset: int):
-    """Zero tensor of ``shape`` with ``arr`` placed at ``offset`` along
-    ``axis`` (and at 0 on other axes)."""
-    pre = [0] * len(shape)
-    pre[axis] = offset
-    return _pad_with_offsets(b, arr, list(shape), pre)
-
-
-def _pad_with_offsets(b: Backend, arr, shape, pre):
-    from .host import ArrayIntervalBackend, IvArr, ObjectBackend
-
-    ashape = b.shape(arr)
-    if isinstance(b, ObjectBackend):
-        out = b.zeros(shape)
-        idx = tuple(
-            slice(p, p + s) for p, s in zip(pre, ashape)
-        )
-        out[idx] = arr
-        return out
-    if isinstance(b, ArrayIntervalBackend):
-        pads = [(0, 0)] + [
-            (p, t - p - s) for p, t, s in zip(pre, shape, ashape)
-        ]
-        return IvArr(b.jnp.pad(arr.data, pads))
-    pads = [(p, t - p - s) for p, t, s in zip(pre, shape, ashape)]
-    return b.jnp.pad(arr, pads)
 
 
 def _add_at_zero(b: Backend, arr, val0d):

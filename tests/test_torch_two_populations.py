@@ -20,7 +20,9 @@ import pytest
 import torch
 
 from benchmark.harness import spec
-from genfer_tpu_torch.compile import CompiledProgram
+from genfer_tpu_torch import trace
+from genfer_tpu_torch.compile import CompiledProgram, TracedF64Backend
+from genfer_tpu_torch.taylor.host import Backend
 from genfer_tpu_torch.tools.generators import (
     generate_two_populations,
     two_populations_serving,
@@ -54,11 +56,13 @@ def served(request):
     source, model = two_populations_serving(size, seed)
     program = CompiledProgram(source, PARAMS, limit, device="cpu")
     params = _points(1000 + seed)
-    return model, limit, params, program.probs_batch(params)
+    with trace.recording() as rec:
+        got = program.probs_batch(params)
+    return model, limit, params, got, program, rec
 
 
 def test_port_matches_the_reference(served):
-    model, limit, params, got = served
+    model, limit, params, got, *_ = served
     want = R.masses(params, model, limit)
     assert got.shape == want.shape == (8, limit)
     assert (want[:, 0] > 0).all()
@@ -66,10 +70,21 @@ def test_port_matches_the_reference(served):
 
 
 def test_the_float32_reference_misses_the_tolerance(served):
-    model, limit, params, got = served
+    model, limit, params, got, *_ = served
     low = R.masses(params, model, limit, dtype=torch.float32)
     assert low.dtype == torch.float32
     assert _rel_err(low.double(), got) > 100 * RTOL
+
+
+def test_the_fused_sums_give_the_op_by_op_bits(served, monkeypatch):
+    """The walk's sums in ``ops.lincomb_f64`` (its plain version here)
+    against ``Backend.lincomb``'s op-by-op default on the same backend."""
+    _, _, params, got, program, rec = served
+    for site in ("add", "mul_linear"):
+        assert rec.count("walk.lincombs_fused", site=site, phase="eager") > 0
+    monkeypatch.setattr(TracedF64Backend, "lincomb", Backend.lincomb)
+    plain = program.probs_batch(params)
+    assert torch.equal(got.view(torch.int64), plain.view(torch.int64))
 
 
 @pytest.mark.parametrize("size,seed", [(50, 4), (200, 0)])
